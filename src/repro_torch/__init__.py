@@ -1,0 +1,32 @@
+"""PyTorch/CUDA port of the ``repro`` package, for one NVIDIA H100.
+
+The JAX package ``repro`` is the reference; this package imports nothing of
+it and keeps its own copies of what it needs.  Module names follow the
+reference's, so each module's counterpart is found under the same path.
+The two TPU kernels on the serving path (RMSNorm and flash attention) are
+CUDA C++ kernels under ``kernels/csrc``; everything else is plain PyTorch.
+
+Entry points take an explicit ``device`` that defaults to ``"cuda"``: they
+raise when CUDA is absent, unless the caller asked for ``"cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """The ``torch.device`` an entry point runs on.  Raises rather than
+    falling back to the CPU when CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass device='cpu' to run the plain "
+                "PyTorch path on the CPU"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    return dev

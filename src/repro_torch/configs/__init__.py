@@ -1,0 +1,83 @@
+"""Architecture registry of the port.
+
+``get_config(name)`` returns the exact published configuration;
+``get_smoke_config(name)`` returns the reduced same-family variant the CPU
+parity tests use.  The registry knows every architecture the reference
+knows, but returns only those whose family the port can run; the others
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (
+    AttnConfig,
+    LayerSpec,
+    MambaConfig,
+    ModelConfig,
+    MoEConfig,
+    ParallelConfig,
+)
+
+__all__ = [
+    "ARCH_IDS",
+    "AttnConfig",
+    "LayerSpec",
+    "MambaConfig",
+    "ModelConfig",
+    "MoEConfig",
+    "ParallelConfig",
+    "get_config",
+    "get_smoke_config",
+]
+
+ARCH_IDS = [
+    "deepseek_v2_236b",
+    "dbrx_132b",
+    "jamba_1_5_large_398b",
+    "musicgen_large",
+    "gemma_7b",
+    "yi_6b",
+    "minicpm3_4b",
+    "h2o_danube_3_4b",
+    "qwen2_vl_7b",
+    "falcon_mamba_7b",
+]
+
+# architectures the port cannot run yet -> what they need (ROADMAP queue 1)
+_NOT_PORTED = {
+    "deepseek_v2_236b": "MoE and MLA (ROADMAP queue 1 items 7 and 9)",
+    "dbrx_132b": "MoE (ROADMAP queue 1 item 7)",
+    "jamba_1_5_large_398b": "Mamba and MoE (ROADMAP queue 1 items 7 and 8)",
+    "musicgen_large": "multi-codebook embedding and GELU (ROADMAP queue 1 item 5)",
+    "gemma_7b": "GeGLU, a tied head and head_dim 256 (ROADMAP queue 1 item 5)",
+    "minicpm3_4b": "MLA (ROADMAP queue 1 item 9)",
+    "h2o_danube_3_4b": "sliding-window attention at head_dim 120 "
+                       "(ROADMAP queue 1 item 5)",
+    "qwen2_vl_7b": "embedding inputs and M-RoPE (ROADMAP queue 1 item 5)",
+    "falcon_mamba_7b": "Mamba (ROADMAP queue 1 item 8)",
+}
+
+# canonical dashed ids (CLI --arch) -> module name
+ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
+
+
+def _module(name: str):
+    name = ALIASES.get(name, name)
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ALIASES)}")
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name}: the PyTorch port does not run it yet; it needs "
+            f"{_NOT_PORTED[name]}"
+        )
+    return importlib.import_module(f"repro_torch.configs.{name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _module(name).SMOKE

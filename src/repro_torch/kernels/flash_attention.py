@@ -1,0 +1,101 @@
+"""Flash-attention forward: the wrapper of the CUDA kernel
+``csrc/flash_attention.cu``.
+
+Replaces the TPU kernel ``flash_attention_kernel`` /
+``flash_attention_pallas`` of the reference
+(``repro/kernels/flash_attention.py``): online-softmax attention with GQA
+(q row ``bh`` reads kv row ``bh // group_size``), causal and/or sliding
+window masks, fp32 m/l/acc, and KV tiles past the causal frontier or before
+the window skipped.  On the H100 a causal pass at head_dim 128 does ~S/2
+flops per byte moved, so the Yi prefill (S = 512) is bound by bytes, barely,
+and longer prompts by the tensor cores; the kernel runs both products on
+the tensor cores (bf16 WMMA, fp32 accumulation) and stages each K/V tile in
+shared memory once per 64 q rows.  Unlike the Pallas kernel it masks the
+ragged edge, so Sq and Skv need not be multiples of its 64-row tiles.
+
+The wrapper checks shapes, dtypes, device, contiguity and alignment, and
+raises on anything the kernel does not take; it allocates the output and
+launches on PyTorch's current stream.  Its plain version is
+``ref.flash_attention_ref``; ``ops.flash_attention`` chooses between them by
+device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["HEAD_DIMS", "flash_attention_cuda"]
+
+#: head dims the kernel is instantiated for (120 and 256 come with the
+#: danube and gemma configs)
+HEAD_DIMS = (16, 64, 128)
+_MAX_BH = 65535  # gridDim.y
+_SIGNATURES = {
+    "flash_attention_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]),
+    "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def flash_attention_cuda(
+    q: torch.Tensor,  # [BH, Sq, hd]
+    k: torch.Tensor,  # [BH // group_size, Skv, hd]
+    v: torch.Tensor,
+    *,
+    group_size: int,
+    causal: bool = True,
+    window: int | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """bfloat16 ``q``/``k``/``v``, contiguous on one CUDA device, head dim
+    in :data:`HEAD_DIMS`.  Returns ``softmax(q k^T * scale + mask) v`` as
+    ``[BH, Sq, hd]`` bfloat16."""
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: want q [BH, Sq, hd] and k/v "
+                         f"[BHkv, Skv, hd], got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    BH, Sq, hd = q.shape
+    BHkv, Skv, hdk = k.shape
+    if group_size < 1 or BH != BHkv * group_size or hdk != hd:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} do not match group_size={group_size}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if Sq == 0 or Skv == 0 or BH == 0 or BH > _MAX_BH:
+        raise ValueError(f"flash_attention: want 0 < BH <= {_MAX_BH} and "
+                         f"nonempty sequences, got BH={BH}, Sq={Sq}, Skv={Skv}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got {window}")
+    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
+        raise TypeError(f"flash_attention: q/k/v must be bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.is_cuda or k.device != q.device or v.device != q.device:
+        raise ValueError(f"flash_attention: q/k/v must be on one CUDA device, "
+                         f"got {q.device}, {k.device}, {v.device}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q/k/v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q/k/v must be 16-byte aligned")
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    lib = build.library("flash_attention", _SIGNATURES)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        code = lib.flash_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            BH, Sq, Skv, hd, group_size, int(causal),
+            0 if window is None else int(window), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if code:
+        raise RuntimeError(
+            f"flash_attention kernel launch failed: CUDA error {code} "
+            f"({lib.flash_attention_error_string(code).decode()})")
+    return out

@@ -1,0 +1,60 @@
+"""Dispatch between each CUDA kernel and its plain version, by device.
+
+A tensor on a CUDA device goes to the kernel, or the wrapper raises; a
+tensor on the CPU goes to the plain PyTorch version in ``ref.py`` (the
+reference's CPU tests run its Pallas kernels in interpret mode; the port's
+run the plain versions).  Nothing falls back from the card to the CPU.
+
+Each dispatcher counts the kernel launches it makes in its ``launches``
+attribute, so a run can show that its main path went through the kernels;
+CPU calls are not counted.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+__all__ = ["flash_attention", "rmsnorm", "reset_launches"]
+
+
+def _no_path(name: str, t: torch.Tensor):
+    return ValueError(f"{name}: no implementation for device {t.device}")
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last dim of ``x`` (any leading shape)."""
+    if x.is_cuda:
+        shape = x.shape
+        out = rmsnorm_cuda(x.reshape(-1, shape[-1]), w, eps)
+        rmsnorm.launches += 1
+        return out.reshape(shape)
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, w, eps=eps)
+    raise _no_path("rmsnorm", x)
+
+
+def flash_attention(q, k, v, *, group_size=1, causal=True, window=None, scale=None):
+    """q [BH, Sq, hd]; k/v [BH // group_size, Skv, hd]."""
+    if q.is_cuda:
+        out = flash_attention_cuda(q, k, v, group_size=group_size, causal=causal,
+                                   window=window, scale=scale)
+        flash_attention.launches += 1
+        return out
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, group_size=group_size, causal=causal,
+                                   window=window, scale=scale)
+    raise _no_path("flash_attention", q)
+
+
+rmsnorm.launches = 0
+flash_attention.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    rmsnorm.launches = 0
+    flash_attention.launches = 0

@@ -1,0 +1,111 @@
+"""Building blocks: RMSNorm, MLP, token embedding, LM head and rotary
+embeddings (the counterpart of the reference's ``repro/models/layers.py``).
+
+Each block has a ``*_meta`` builder (see :mod:`repro_torch.models.params`)
+and a forward function on tensors.  ``rms_norm`` runs on the RMSNorm kernel
+on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.params import ParamMeta
+
+__all__ = [
+    "rms_norm",
+    "rms_norm_meta",
+    "mlp_meta",
+    "mlp",
+    "embed_meta",
+    "embed",
+    "head_meta",
+    "logits",
+    "rope",
+]
+
+
+def rms_norm_meta(d: int) -> ParamMeta:
+    return ParamMeta((d,), ("d_model",), init="ones")
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return ops.rmsnorm(x, w, eps=eps)
+
+
+def mlp_meta(d: int, ff: int, act: str) -> dict:
+    if act in ("silu", "geglu"):
+        return {
+            "w_gate": ParamMeta((d, ff), ("d_model", "ff")),
+            "w_up": ParamMeta((d, ff), ("d_model", "ff")),
+            "w_down": ParamMeta((ff, d), ("ff", "d_model")),
+        }
+    return {
+        "w_up": ParamMeta((d, ff), ("d_model", "ff")),
+        "w_down": ParamMeta((ff, d), ("ff", "d_model")),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default form
+
+
+def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    if act in ("silu", "geglu"):
+        g = x @ p["w_gate"]
+        g = F.silu(g) if act == "silu" else _gelu(g)
+        return (g * (x @ p["w_up"])) @ p["w_down"]
+    return _gelu(x @ p["w_up"]) @ p["w_down"]
+
+
+def _check_single_codebook(cfg: ModelConfig) -> None:
+    if cfg.num_codebooks != 1 or not cfg.embed_inputs:
+        raise NotImplementedError(
+            f"{cfg.name}: multi-codebook and embedding-input models come with "
+            "the musicgen and qwen2-vl configs (ROADMAP queue 1 item 5)")
+
+
+def embed_meta(cfg: ModelConfig) -> dict:
+    _check_single_codebook(cfg)
+    return {"embedding": ParamMeta((cfg.padded_vocab, cfg.d_model),
+                                   ("vocab", "d_model"), scale=0.02)}
+
+
+def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] integer -> [B, S, D].  A gather: the reference's
+    one-hot matmul picks exactly one row, so the two agree bit for bit."""
+    x = p["embedding"][tokens]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+    return x
+
+
+def head_meta(cfg: ModelConfig) -> dict:
+    _check_single_codebook(cfg)
+    if cfg.tie_embeddings:
+        return {}
+    return {"lm_head": ParamMeta((cfg.d_model, cfg.padded_vocab), ("d_model", "vocab"))}
+
+
+def logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [B, S, D] -> [B, S, V] over the padded vocab."""
+    if cfg.tie_embeddings:
+        return x @ params["embed"]["embedding"].T
+    return x @ params["head"]["lm_head"]
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary embedding, llama "rotate-half" layout.  x [B, S, H, hd];
+    positions [B, S].  cos and sin are cast to ``x.dtype`` before the
+    multiply, as in the reference."""
+    head_dim = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                          device=x.device) / head_dim))
+    angles = positions.to(torch.float32)[..., None] * freqs  # [B, S, hd/2]
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)  # [B, S, 1, hd/2]
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

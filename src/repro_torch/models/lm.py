@@ -1,0 +1,146 @@
+"""Decoder LM: embedding -> loop over layers -> final norm -> head (the
+counterpart of the reference's ``repro/models/lm.py``).
+
+Parameters keep the reference's layout: the repeating ``layer_pattern`` is
+stacked on a leading periods axis under ``blocks/slot<i>``, so a weight maps
+one to one onto the reference's.  A Python loop over the periods replaces
+``lax.scan``.
+
+Entry points:
+
+* ``prefill``      — forward over a prompt; last-position logits and the
+  filled KV cache;
+* ``decode_step``  — one token against the cache, updated in place.
+
+Training (``loss_fn``) comes with the train slice.  The port runs the dense
+attention families (ROADMAP queue 1 item 5 names the configs still to run).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers as L
+from repro_torch.models.params import ParamMeta, init_params, map_tree, torch_dtype
+
+__all__ = ["model_meta", "init_model", "init_cache", "prefill", "decode_step"]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if any(s.mixer != "attn" or s.ffn != "dense" for s in cfg.layer_pattern) \
+            or cfg.first_k_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba and MoE layers come with their own slices "
+            "(ROADMAP queue 1 items 7 and 8)")
+
+
+def _slot_meta(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {
+        "norm1": L.rms_norm_meta(d),
+        "mixer": attn_mod.attn_meta(cfg),
+        "norm2": L.rms_norm_meta(d),
+        "ffn": L.mlp_meta(d, cfg.d_ff, cfg.act),
+    }
+
+
+def _stack_meta(tree, n: int):
+    return map_tree(
+        lambda _, m: dataclasses.replace(m, shape=(n,) + m.shape,
+                                         axes=("layers",) + m.axes),
+        tree,
+    )
+
+
+def model_meta(cfg: ModelConfig) -> dict:
+    _check_supported(cfg)
+    return {
+        "embed": L.embed_meta(cfg),
+        "head": L.head_meta(cfg),
+        "final_norm": L.rms_norm_meta(cfg.d_model),
+        "blocks": {f"slot{i}": _stack_meta(_slot_meta(cfg), cfg.num_periods)
+                   for i in range(len(cfg.layer_pattern))},
+    }
+
+
+def init_model(cfg: ModelConfig, generator: torch.Generator, *, device="cuda") -> dict:
+    """Random parameters drawn from ``generator``, which lives on ``device``."""
+    return init_params(model_meta(cfg), generator, resolve_device(device),
+                       dtype=torch_dtype(cfg.dtype))
+
+
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda") -> dict:
+    """Zero KV caches, stacked over periods like the parameters."""
+    device = resolve_device(device)
+    _check_supported(cfg)
+    one = attn_mod.init_attn_cache(cfg, batch, capacity, device=device)
+    return {"blocks": {
+        f"slot{i}": {n: t.expand((cfg.num_periods,) + t.shape).clone()
+                     for n, t in one.items()}
+        for i in range(len(cfg.layer_pattern))
+    }}
+
+
+def _apply_slot(cfg, p, x, positions, *, cache=None, cache_pos=None, capacity=None):
+    h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    res = attn_mod.attention(cfg, p["mixer"], h, positions, cache=cache,
+                             cache_pos=cache_pos, capacity=capacity)
+    x = x + res.out
+    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    return x + L.mlp(p["ffn"], h2, cfg.act), res.cache
+
+
+def _period(tree: dict, i: int) -> dict:
+    return map_tree(lambda _, t: t[i], tree)
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None):
+    """Process a prompt batch ``{"tokens": [B, S]}``; returns (last-position
+    logits [B, V], filled cache of ``capacity`` (default S) entries).  The
+    filled cache takes the model dtype, as the reference's does."""
+    _check_supported(cfg)
+    if set(batch) != {"tokens"}:
+        raise NotImplementedError(
+            f"prefill takes {{'tokens'}} only (positions are arange(S)); got {sorted(batch)}")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed(cfg, params["embed"], tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    filled = {}
+    for i in range(cfg.num_periods):
+        for j in range(len(cfg.layer_pattern)):
+            slot = f"slot{j}"
+            x, nc = _apply_slot(cfg, _period(params["blocks"][slot], i), x, positions,
+                                capacity=capacity)
+            filled.setdefault(slot, []).append(nc)
+    cache = {"blocks": {slot: {n: torch.stack([c[n] for c in caches])
+                               for n in ("k", "v")}
+                        for slot, caches in filled.items()}}
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    lg = L.logits(cfg, params, x[:, -1:])
+    return lg[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
+                cache_pos: int):
+    """One decode step.  ``tokens`` [B, 1]; ``cache_pos`` the number of
+    tokens already in the cache.  Returns (logits [B, V], cache), the cache
+    updated in place."""
+    _check_supported(cfg)
+    x = L.embed(cfg, params["embed"], tokens)
+    B = x.shape[0]
+    positions = torch.full((B, 1), cache_pos, device=x.device)
+    for i in range(cfg.num_periods):
+        for j in range(len(cfg.layer_pattern)):
+            slot = f"slot{j}"
+            x, _ = _apply_slot(cfg, _period(params["blocks"][slot], i), x, positions,
+                               cache=_period(cache["blocks"][slot], i),
+                               cache_pos=cache_pos)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    lg = L.logits(cfg, params, x)
+    return lg[:, 0], cache

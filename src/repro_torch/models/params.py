@@ -1,0 +1,80 @@
+"""Parameter metadata and initialisation (the counterpart of the
+reference's ``repro/models/params.py``).
+
+A parameter tree is a nested dict with the reference's keys; its leaves are
+:class:`ParamMeta` before :func:`init_params` and tensors after it.  The
+reference's ``partition_specs`` (GSPMD sharding rules) has no one-GPU
+counterpart and is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import numpy as np
+import torch
+
+__all__ = ["ParamMeta", "init_params", "map_tree", "torch_dtype"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamMeta:
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis name per dim
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None  # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` string."""
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported dtype {name!r}; known: {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def map_tree(fn: Callable, tree, *rest, path: str = ""):
+    """``fn(path, leaf, *other_leaves)`` over nested dicts of equal keys."""
+    if isinstance(tree, dict):
+        for other in rest:
+            if not isinstance(other, dict) or set(other) != set(tree):
+                got = sorted(other) if isinstance(other, dict) else type(other).__name__
+                raise ValueError(f"tree mismatch at {path or '/'}: "
+                                 f"{sorted(tree)} vs {got}")
+        return {k: map_tree(fn, tree[k], *(o[k] for o in rest),
+                            path=f"{path}/{k}" if path else k)
+                for k in sorted(tree)}
+    return fn(path, tree, *rest)
+
+
+def _init_one(meta: ParamMeta, generator: torch.Generator, device, dtype):
+    if meta.init == "zeros":
+        return torch.zeros(meta.shape, dtype=dtype, device=device)
+    if meta.init == "ones":
+        return torch.ones(meta.shape, dtype=dtype, device=device)
+    if meta.init == "a_log":
+        raise NotImplementedError("Mamba's a_log init comes with the Mamba "
+                                  "slice (ROADMAP queue 1 item 8)")
+    # as the reference: fan_in counts every dim but the last, the stacked
+    # layer dim included
+    fan_in = meta.shape[0] if len(meta.shape) == 1 else int(np.prod(meta.shape[:-1]))
+    scale = meta.scale if meta.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.randn(meta.shape, generator=generator, device=device, dtype=torch.float32)
+    return w.mul_(scale).to(dtype)
+
+
+def init_params(meta_tree, generator: torch.Generator, device, dtype=torch.bfloat16):
+    """Materialise a parameter tree from its metadata tree, drawing every
+    random leaf from ``generator`` (which must live on ``device``)."""
+    device = torch.device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device}, params on {device}")
+    return map_tree(lambda _, m: _init_one(m, generator, device, dtype), meta_tree)

@@ -1,0 +1,187 @@
+"""Batched serving engine: slot-based continuous batching over a fixed-size
+decode batch (the counterpart of the reference's ``repro/serving/engine.py``).
+
+``ServeEngine`` keeps ``num_slots`` independent sequences in one KV cache;
+requests are admitted into free slots (prefill), all active slots decode in
+lock-step (one ``decode_step`` per iteration), and finished sequences free
+their slot.  As in the reference, the cache has one synchronized write
+position: admission left-pads every prompt to the longest one, and the pad
+tokens are not masked.
+
+The reference's decode-collective planner (``plan_mesh``,
+``plan_decode_collectives``, ``inject_fault``) comes with the planner slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import TRACER
+
+__all__ = ["Request", "ServeEngine", "greedy_sample", "temperature_sample"]
+
+#: decode-step latency buckets (seconds): 100us .. 10s geometric
+_STEP_EDGES = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1, 1.0, 10.0)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # [S] int32
+    max_new_tokens: int = 32
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+def greedy_sample(logits: torch.Tensor, generator=None) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def temperature_sample(temp: float) -> Callable:
+    def fn(logits, generator):
+        probs = torch.softmax(logits.float() / temp, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+    return fn
+
+
+class ServeEngine:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        params: dict,
+        *,
+        num_slots: int = 4,
+        capacity: int = 512,
+        sampler: Callable = greedy_sample,
+        seed: int = 0,
+        monitor=None,
+        plan_mesh: tuple[int, int, int] | None = None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        if plan_mesh is not None:
+            raise NotImplementedError(
+                "plan_mesh: the decode-collective planner comes with the "
+                "planner slice (ROADMAP queue 1 item 14)")
+        if not cfg.embed_inputs:
+            raise ValueError("serving engine drives token models")
+        emb = params["embed"]["embedding"]
+        if emb.device.type != self.device.type:
+            raise ValueError(f"params on {emb.device}, engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.num_slots = num_slots
+        self.capacity = capacity
+        self.sampler = sampler
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.slots: list[Request | None] = [None] * num_slots
+        self.cache = None
+        self.pos = 0  # synchronized cache position
+        # optional fault/straggler hook: any object with observe(seconds) ->
+        # "ok"|"warn"|"evict" (duck-typed).  run() times every decode step
+        # through it and stops decoding on "evict".
+        self.monitor = monitor
+        self.monitor_actions: list[str] = []
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        return self.sampler(logits, self.generator).cpu().numpy()
+
+    def admit(self, requests: list[Request]) -> list[Request]:
+        """Fill free slots; prefill runs over the padded batch of prompts.
+        Returns the admitted subset."""
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        admitted = requests[: len(free)]
+        if not admitted:
+            return []
+        max_len = max(len(r.prompt) for r in admitted)
+        start = self.pos
+        toks = np.zeros((self.num_slots, start + max_len), np.int64)
+        for slot, req in zip(free, admitted):
+            p = np.asarray(req.prompt)
+            toks[slot, start + max_len - len(p):start + max_len] = p
+            self.slots[slot] = req
+        lgts, self.cache = lm.prefill(
+            self.cfg, self.params,
+            {"tokens": torch.from_numpy(toks).to(self.device)},
+            capacity=self.capacity,
+        )
+        self.pos = start + max_len
+        # first sampled token from prefill logits
+        nxt = self._sample(lgts)
+        for slot, req in zip(free, admitted):
+            req.out_tokens.append(nxt[slot].tolist())
+        self._pending = torch.from_numpy(nxt.astype(np.int64)).to(self.device)[:, None]
+        return admitted
+
+    def step(self) -> None:
+        """One lock-step decode for all active slots."""
+        if self.cache is None or self.pos >= self.capacity:
+            return
+        lgts, self.cache = lm.decode_step(self.cfg, self.params, self._pending,
+                                          self.cache, self.pos)
+        self.pos += 1
+        nxt = self._sample(lgts)
+        self._pending = torch.from_numpy(nxt.astype(np.int64)).to(self.device)[:, None]
+        for slot, req in enumerate(self.slots):
+            if req is None or req.done:
+                continue
+            req.out_tokens.append(nxt[slot].tolist())
+            if len(req.out_tokens) >= req.max_new_tokens:
+                req.done = True
+
+    def drain(self) -> list[Request]:
+        """Release finished requests from their slots."""
+        out = []
+        for i, req in enumerate(self.slots):
+            if req is not None and req.done:
+                out.append(req)
+                self.slots[i] = None
+        return out
+
+    def run(self, requests: list[Request], *, max_steps: int = 256) -> list[Request]:
+        """Convenience driver: admit everything (in waves), decode to done.
+
+        With a monitor attached every decode step is timed through
+        ``monitor.observe``; an "evict" verdict stops the decode loop and
+        the finished requests so far are returned."""
+        pending = list(requests)
+        finished: list[Request] = []
+        steps = 0
+        while (pending or any(s is not None for s in self.slots)) and steps < max_steps:
+            if pending and any(s is None for s in self.slots) and self.cache is None:
+                n = self.admit(pending)
+                pending = pending[len(n):]
+            sp = TRACER.start("decode_step", step=steps) if TRACER else None
+            t0 = time.perf_counter()
+            try:
+                self.step()
+            except BaseException:
+                if sp:
+                    TRACER.finish(sp, outcome="error")
+                raise
+            dt = time.perf_counter() - t0
+            if sp:
+                TRACER.finish(sp, pos=self.pos)
+            obs_metrics.histogram(
+                "engine.step_latency_s", edges=_STEP_EDGES
+            ).observe(dt)
+            if self.monitor is not None:
+                action = self.monitor.observe(dt)
+                self.monitor_actions.append(action)
+                if action == "evict":
+                    break
+            finished.extend(self.drain())
+            steps += 1
+            if not any(s is not None and not s.done for s in self.slots) and not pending:
+                break
+        return finished

@@ -29,6 +29,10 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: paper-scale (p=1152) cells excluded from tier-1"
     )
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of the PyTorch port; skips "
+        "without a GPU (on one: PYTHONPATH=src python -m pytest tests/test_torch_kernels.py -m cuda)"
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -1,0 +1,143 @@
+"""The port's decoder LM (``repro_torch.models.lm``) against the JAX
+package's (``repro.models.lm``): prefill logits and filled cache, then four
+decode steps, on the yi smoke config with the reference's own parameters
+(``lm.init_model``) carried across by ``convert.params_from_numpy``.
+
+The parity runs on a float32 copy of the config, where the point is the
+algorithm: tolerance 1e-5 of the logits' scale (sums in other orders, and
+the reference's chunked online softmax against the port's plain one).  As
+in the reference, the filled cache takes the model dtype.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.models import lm as JLM
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_numpy
+from repro_torch.models import lm as TLM
+
+TOL_F32 = 1e-5
+B, S, CAP, STEPS = 2, 16, 24, 4
+
+
+def _configs(dtype="float32", window=None):
+    jcfg, tcfg = jax_smoke_config("yi_6b"), get_smoke_config("yi_6b")
+    out = []
+    for cfg in (jcfg, tcfg):
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        if window is not None:
+            cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn,
+                                                                    sliding_window=window))
+        out.append(cfg)
+    return out
+
+
+def _params(jcfg, tcfg, seed=0):
+    jp = JLM.init_model(jcfg, jax.random.PRNGKey(seed))
+    return jp, params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+
+
+def _rel(got: torch.Tensor, want) -> float:
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    return float(np.abs(got.float().numpy() - want).max() / max(np.abs(want).max(), 1e-6))
+
+
+@pytest.mark.parametrize("window", [None, 8])
+def test_prefill_and_decode_match_reference(window):
+    """Logits and caches after prefill and after each of 4 decode steps;
+    ``window=8`` runs the sliding-window ring cache (8 slots for 16 + 4
+    positions)."""
+    jcfg, tcfg = _configs(window=window)
+    jp, tp = _params(jcfg, tcfg)
+    rng = np.random.RandomState(0)
+    toks = rng.randint(0, tcfg.vocab_size, (B, S + STEPS))
+
+    jl, jc = JLM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :S], jnp.int32)},
+                         capacity=CAP)
+    tl, tc = TLM.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks[:, :S])},
+                         capacity=CAP)
+    assert tl.shape == (B, tcfg.padded_vocab) and tl.dtype == torch.float32
+    assert _rel(tl, jl) < TOL_F32
+    for n in ("k", "v"):
+        want = jc["blocks"]["slot0"][n]
+        assert tuple(tc["blocks"]["slot0"][n].shape) == want.shape
+        assert _rel(tc["blocks"]["slot0"][n], want) < TOL_F32
+
+    for t in range(STEPS):
+        step = toks[:, S + t:S + t + 1]
+        jl, jc = JLM.decode_step(jcfg, jp, jnp.asarray(step, jnp.int32), jc,
+                                 jnp.int32(S + t))
+        tl, tc = TLM.decode_step(tcfg, tp, torch.from_numpy(step), tc, S + t)
+        assert _rel(tl, jl) < TOL_F32, f"step {t}"
+        for n in ("k", "v"):
+            assert _rel(tc["blocks"]["slot0"][n], jc["blocks"]["slot0"][n]) < TOL_F32
+
+
+def test_bf16_prefill_matches_reference():
+    """The served dtype: bf16 rounds at other places in the two frameworks,
+    and the error grows through the layers, so 2e-2 of the logits' scale."""
+    jcfg, tcfg = _configs("bfloat16")
+    jp, tp = _params(jcfg, tcfg)
+    toks = np.random.RandomState(2).randint(0, tcfg.vocab_size, (B, S))
+    jl, _ = JLM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    tl, _ = TLM.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks)})
+    assert tl.dtype == torch.bfloat16
+    assert _rel(tl, jl) < 2e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", TOL_F32), ("bfloat16", 0.05)])
+def test_decode_matches_full_forward(dtype, tol):
+    """The port's own consistency, as the reference's
+    ``test_models.py::test_decode_matches_full_forward`` (0.05 for bf16)."""
+    _, cfg = _configs(dtype)
+    params = TLM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.from_numpy(np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 33)))
+    full, _ = TLM.prefill(cfg, params, {"tokens": toks}, capacity=33)
+    _, cache = TLM.prefill(cfg, params, {"tokens": toks[:, :32]}, capacity=33)
+    lg, _ = TLM.decode_step(cfg, params, toks[:, 32:], cache, 32)
+    err = (lg.float() - full.float()).abs().max() / full.float().abs().max()
+    assert err < tol
+
+
+def test_init_cache_is_bf16_and_stacked():
+    _, cfg = _configs("float32")
+    cache = TLM.init_cache(cfg, 3, 10, device="cpu")
+    k = cache["blocks"]["slot0"]["k"]
+    assert k.dtype == torch.bfloat16 and tuple(k.shape) == (3, 3, 10, 2, 16)
+    assert not k.any()
+
+
+def test_convert_refuses_a_mismatched_tree():
+    jcfg, tcfg = _configs()
+    tree = jax.tree.map(np.asarray, JLM.init_model(jcfg, jax.random.PRNGKey(0)))
+    tree["final_norm"] = tree["final_norm"][:-1]
+    with pytest.raises(ValueError, match="final_norm"):
+        params_from_numpy(tcfg, tree, device="cpu")
+    del tree["final_norm"]
+    with pytest.raises(ValueError, match="tree mismatch"):
+        params_from_numpy(tcfg, tree, device="cpu")
+
+
+def test_bf16_params_carry_across_exactly():
+    jcfg, tcfg = _configs("bfloat16")
+    jp, tp = _params(jcfg, tcfg)
+    want = np.asarray(jp["blocks"]["slot0"]["mixer"]["wq"], np.float32)
+    got = tp["blocks"]["slot0"]["mixer"]["wq"]
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["gemma_7b", "dbrx_132b", "falcon_mamba_7b",
+                                  "deepseek_v2_236b"])
+def test_registry_names_what_is_not_ported(arch):
+    from repro_torch.configs import get_config
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        get_config(arch)
