@@ -11,12 +11,15 @@ Phases, each reported on its own lines:
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the Yi-6B serving path gives it plus ragged, windowed and small-head
    cases: error, kernel time, plain time, the time of one PyTorch library
-   call computing the same function, and the card's least time (bound);
+   call computing the same function (each with its inputs cold in device
+   memory and warm in L2), and the card's least time (bound);
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
    greedy.  The kernels' launch counts over that run must show that every
    RMSNorm and every prefill attention went through them, and the prefill
-   logits must agree with a recomputation through the plain versions.
+   logits must be no further from a float32 recomputation than the same
+   bf16 model's logits through the plain versions are, and within the bf16
+   tolerance (rms) of the latter.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -29,7 +32,9 @@ of the repository, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -39,29 +44,39 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "build" / "chip_smoke"  # the run's full record, beside the built kernels
 
-#: bf16 tolerance: max |kernel - plain| over max |plain|, where the plain
-#: version computes in fp32 on the same bf16 inputs (bf16 keeps 8 bits)
+#: bf16 tolerance on ``ref.scaled_err(kernel, plain)``: every element must
+#: satisfy |kernel - plain| <= TOL_BF16 * (|plain| + rms of its row), where the
+#: plain version computes in fp32 on the same bf16 inputs (bf16 keeps 8 bits)
 TOL_BF16 = 2e-2
+#: the served logits may stray from a float32 recomputation of the same
+#: prefill by at most this many times as far (rms over all logits) as the
+#: bf16 model's logits through the plain versions do: the kernels may add
+#: rounding, not error
+LOGIT_NOISE_RATIO = 1.5
 #: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_TC_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
+L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
+#: cold timings rotate through copies of the inputs spanning this many L2s
+COLD_SPAN = 4
+MAX_COPIES = 256
 
 
-def _ms(fn, iters: int) -> float:
-    """Device time of one call of ``fn`` in ms: ``iters`` calls captured in a
-    CUDA graph after a warm-up, the graph replayed between two CUDA events.
-    The graph keeps the host's launch cost out, which a loop of calls from
-    Python would measure instead for kernels this short."""
+def _graph_ms(calls) -> float:
+    """Device time per call in ms of ``calls``, captured in one CUDA graph
+    after a warm-up and replayed between two CUDA events.  The graph keeps
+    the host's launch cost out, which a loop of calls from Python would
+    measure instead for kernels this short."""
     import torch
 
-    for _ in range(3):
-        fn()
+    for call in calls[:3]:
+        call()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(iters):
-            fn()
+        for call in calls:
+            call()
     graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -69,12 +84,50 @@ def _ms(fn, iters: int) -> float:
     graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / len(calls)
+
+
+def _ms(fn, args, iters: int) -> dict:
+    """Device ms of one call ``fn(*args)``, L2 warm and cold.  Warm: every
+    call reads the same inputs, which stay in the L2 when they fit.  Cold:
+    the calls rotate through copies of the inputs that together span
+    ``COLD_SPAN`` times the L2, so each call reads its inputs from device
+    memory; None where that takes more than ``MAX_COPIES`` copies (inputs of
+    a few KB, whose time is launch latency either way)."""
+    warm = _graph_ms([lambda: fn(*args)] * iters)
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    n = math.ceil(COLD_SPAN * L2_BYTES / nbytes)
+    if n > MAX_COPIES:
+        return {"warm": warm, "cold": None}
+    copies = [[a.clone() for a in args] for _ in range(n)]
+    calls = [lambda c=copies[i % n]: fn(*c) for i in range(max(iters, n))]
+    return {"warm": warm, "cold": _graph_ms(calls)}
+
+
+def _times(kernel, plain, library, args, iters: int) -> dict:
+    """The case's times: ``ms``, ``plain_ms`` and ``library_ms`` with the
+    inputs cold in device memory (warm where cold is not measured), and the
+    same three warm."""
+    out = {}
+    for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        t = _ms(fn, args, iters)
+        out[key] = t["cold"] if t["cold"] is not None else t["warm"]
+        out[f"{key}_warm"] = t["warm"]
+    out["inputs"] = "cold" if t["cold"] is not None else "warm"
+    return out
 
 
 def _err(out, want) -> tuple[float, float]:
-    diff = (out.float() - want.float()).abs().max().item()
-    return diff, diff / max(want.float().abs().max().item(), 1e-30)
+    """(max abs error, ``ref.scaled_err``) of ``out`` against ``want``."""
+    from repro_torch.kernels.ref import scaled_err
+
+    return (out.float() - want.float()).abs().max().item(), scaled_err(out, want)
+
+
+def _rms_rel(a, b) -> float:
+    """rms(a - b) / rms(b) over all elements."""
+    a, b = a.float(), b.float()
+    return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
 
 
 def card() -> str:
@@ -122,18 +175,17 @@ def rmsnorm_cases(gen):
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
         out = rmsnorm_cuda(x, w, 1e-6)
         torch.cuda.synchronize()
-        abs_err, rel_err = _err(out, rmsnorm_ref(x.float(), w.float(), eps=1e-6))
-        if not rel_err <= TOL_BF16:
-            raise AssertionError(f"rmsnorm [{T},{d}]: rel err {rel_err} > {TOL_BF16}")
-        iters = 100
+        abs_err, err = _err(out, rmsnorm_ref(x.float(), w.float(), eps=1e-6))
+        if not err <= TOL_BF16:
+            raise AssertionError(f"rmsnorm [{T},{d}]: scaled err {err} > {TOL_BF16}")
         nbytes = 2 * T * d * x.element_size() + d * w.element_size()
         flops = 4 * T * d  # square, add, two multiplies per value, fp32 CUDA cores
         cases.append({
             "shape": f"x[{T},{d}] bf16",
-            "max_abs_err": abs_err, "rel_err": rel_err,
-            "ms": _ms(lambda: rmsnorm_cuda(x, w, 1e-6), iters),
-            "plain_ms": _ms(lambda: rmsnorm_ref(x, w, eps=1e-6), iters),
-            "library_ms": _ms(lambda: F.rms_norm(x, (d,), w, 1e-6), iters),
+            "max_abs_err": abs_err, "scaled_err": err,
+            **_times(lambda x, w: rmsnorm_cuda(x, w, 1e-6),
+                     lambda x, w: rmsnorm_ref(x, w, eps=1e-6),
+                     lambda x, w: F.rms_norm(x, (d,), w, 1e-6), (x, w), iters=100),
             "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
             "bound_ops_ms": flops / PEAK_FP32_FLOPS * 1e3,
         })
@@ -172,37 +224,35 @@ def flash_cases(gen):
         kw = dict(group_size=g, causal=causal, window=window)
         out = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
-        abs_err, rel_err = _err(out, flash_attention_ref(q.float(), k.float(),
-                                                         v.float(), **kw))
-        if not rel_err <= TOL_BF16:
-            raise AssertionError(f"flash_attention {label}: rel err {rel_err} > {TOL_BF16}")
+        abs_err, err = _err(out, flash_attention_ref(q.float(), k.float(), v.float(), **kw))
+        if not err <= TOL_BF16:
+            raise AssertionError(f"flash_attention {label}: scaled err {err} > {TOL_BF16}")
         # library yardstick: PyTorch's fused attention on [B, H, S, hd]
-        B, H, Hkv = BH // (BH // g // (BH // g)), BH, BH // g
-        q4, k4, v4 = q[None], k[None], v[None]
         qp = torch.arange(Sq, device="cuda")[:, None]
         kp = torch.arange(Skv, device="cuda")[None, :]
         mask = None
         if window is not None:
             mask = (kp <= qp) & (kp > qp - window)
-        lib = (lambda: F.scaled_dot_product_attention(  # noqa: E731
-            q4, k4, v4, attn_mask=mask, is_causal=mask is None and causal,
-            enable_gqa=True))
-        lib_err = _err(lib()[0], out)[1]
-        iters = 20
+
+        def lib(q, k, v):
+            return F.scaled_dot_product_attention(
+                q[None], k[None], v[None], attn_mask=mask,
+                is_causal=mask is None and causal, enable_gqa=True)[0]
+
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         flops = 4 * hd * BH * _attn_pairs(Sq, Skv, causal, window)  # QK^T and PV
         cases.append({
-            "shape": f"{label}: q[{BH},{Sq},{hd}] kv[{Hkv},{Skv},{hd}] g={g}"
+            "shape": f"{label}: q[{BH},{Sq},{hd}] kv[{BH // g},{Skv},{hd}] g={g}"
                      f"{' causal' if causal else ''}"
                      f"{f' window={window}' if window else ''} bf16",
-            "max_abs_err": abs_err, "rel_err": rel_err, "library_rel_diff": lib_err,
-            "ms": _ms(lambda: flash_attention_cuda(q, k, v, **kw), iters),
-            "plain_ms": _ms(lambda: flash_attention_ref(q, k, v, **kw), iters),
-            "library_ms": _ms(lib, iters),
+            "max_abs_err": abs_err, "scaled_err": err,
+            "library_scaled_diff": _err(lib(q, k, v), out)[1],
+            **_times(lambda q, k, v: flash_attention_cuda(q, k, v, **kw),
+                     lambda q, k, v: flash_attention_ref(q, k, v, **kw),
+                     lib, (q, k, v), iters=20),
             "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
             "bound_ops_ms": flops / PEAK_BF16_TC_FLOPS * 1e3,
         })
-        del B
     return cases
 
 
@@ -218,8 +268,9 @@ def kernel_entry(name, source, replaces, cases, launches):
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
         "bound_by": "bytes" if main["bound_bytes_ms"] >= main["bound_ops_ms"]
                     else "operations",
-        "library_ms": main["library_ms"], "shape": main["shape"],
-        "tolerance_rel": TOL_BF16, "cases": cases,
+        "library_ms": main["library_ms"], "shape": main["shape"], "inputs": main["inputs"],
+        "scaled_err": max(c["scaled_err"] for c in cases), "tolerance": TOL_BF16,
+        "cases": cases,
     }
 
 
@@ -256,6 +307,7 @@ def serve_yi(seed: int = 0) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
     from repro_torch.serving.engine import Request, ServeEngine, greedy_sample
 
     cfg = get_config("yi_6b")
@@ -341,28 +393,38 @@ def serve_yi(seed: int = 0) -> dict:
         raise AssertionError(f"flash_attention launches "
                              f"{launches['flash_attention']} != {cfg.num_layers}")
 
-    # the same prefill through the plain versions of both kernels
-    toks = np.zeros((slots, prompt_len), np.int64)
-    for i, r in enumerate(reqs):
-        toks[i] = r.prompt
+    # the same prefill through the plain versions of both kernels, in the
+    # model's bf16 and in float32 (the reference for the bf16 rounding)
+    tokens = torch.from_numpy(np.stack([r.prompt for r in reqs]).astype(np.int64)).cuda()
     with plain_kernels():
-        plain, _ = lm.prefill(cfg, params, {"tokens": torch.from_numpy(toks).cuda()},
-                              capacity=capacity)
+        plain, _ = lm.prefill(cfg, params, {"tokens": tokens}, capacity=capacity)
+        params32 = map_tree(lambda _, t: t.float(), params)
+        exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"), params32,
+                              {"tokens": tokens}, capacity=capacity)
+        del params32
     kern = prefill_logits[0]
-    abs_err, rel_err = _err(kern, plain)
-    tol_abs = TOL_BF16 * plain.float().abs().max().item()
-    top2 = plain.float().topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > tol_abs
-    same = kern.float().argmax(-1) == plain.float().argmax(-1)
-    print(f"[serve] prefill logits, kernels vs plain versions: max abs err "
-          f"{abs_err:.5f}, rel {rel_err:.5f} (tol {TOL_BF16}); first token equal in "
-          f"{int(same.sum())}/{slots} rows, {int(decided.sum())} rows with a top-2 "
-          f"gap above tolerance")
-    if not rel_err <= TOL_BF16:
-        raise AssertionError(f"prefill logits rel err {rel_err} > {TOL_BF16}")
+    err_kern, err_plain = _rms_rel(kern, exact), _rms_rel(plain, exact)
+    err_kp = _rms_rel(kern, plain)
+    top2 = exact.topk(2, dim=-1).values
+    noise = (plain.float() - exact).abs().max(dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_NOISE_RATIO * noise
+    same = kern.float().argmax(-1) == exact.argmax(-1)
+    print(f"[serve] prefill logits against float32: rms err through the kernels "
+          f"{err_kern:.6f}, through the plain versions {err_plain:.6f} (ratio "
+          f"{err_kern / err_plain:.4f}, at most {LOGIT_NOISE_RATIO}); kernels vs plain: "
+          f"max abs {_err(kern, plain)[0]:.5f}, rms {err_kp:.6f} (tol {TOL_BF16}); first "
+          f"token equal to float32's in {int(same.sum())}/{slots} rows, "
+          f"{int(decided.sum())} rows with a top-2 gap above the bf16 noise")
+    if not err_kern <= LOGIT_NOISE_RATIO * err_plain:
+        raise AssertionError(f"prefill logits: rms err {err_kern} through the kernels > "
+                             f"{LOGIT_NOISE_RATIO} x {err_plain} through the plain versions")
+    if not err_kp <= TOL_BF16:
+        raise AssertionError(f"prefill logits: rms err {err_kp} against the plain "
+                             f"versions > {TOL_BF16}")
     if not bool(same[decided].all()):
-        raise AssertionError("first token differs where the top-2 gap exceeds tolerance")
-    res.update(prefill_logit_rel_err=rel_err, prefill_logit_abs_err=abs_err)
+        raise AssertionError("first token differs where the top-2 gap exceeds the bf16 noise")
+    res.update(prefill_logit_rms_err_kernels=err_kern, prefill_logit_rms_err_plain=err_plain,
+               prefill_logit_rms_err_kernels_vs_plain=err_kp)
     return res
 
 
@@ -402,10 +464,12 @@ def main() -> int:
     for name, cases in (("rmsnorm", rms), ("flash_attention", fla)):
         for c in cases:
             print(f"[kernel] {name} {c['shape']}: max abs err {c['max_abs_err']:.3g}, "
-                  f"rel {c['rel_err']:.3g} (tol {TOL_BF16}); device ms: kernel "
-                  f"{c['ms']:.4f}, plain {c['plain_ms']:.4f}, library {c['library_ms']:.4f}, "
-                  f"bound {max(c['bound_bytes_ms'], c['bound_ops_ms']):.4f} ms "
-                  f"(bytes {c['bound_bytes_ms']:.4f}, ops {c['bound_ops_ms']:.4f})")
+                  f"scaled {c['scaled_err']:.3g} (tol {TOL_BF16}); device ms, inputs "
+                  f"{c['inputs']}: kernel {c['ms']:.6f}, plain {c['plain_ms']:.6f}, "
+                  f"library {c['library_ms']:.6f}; L2 warm: kernel {c['ms_warm']:.6f}, "
+                  f"plain {c['plain_ms_warm']:.6f}, library {c['library_ms_warm']:.6f}; "
+                  f"bound {max(c['bound_bytes_ms'], c['bound_ops_ms']):.6f} ms "
+                  f"(bytes {c['bound_bytes_ms']:.6f}, ops {c['bound_ops_ms']:.6f})")
 
     serve = serve_yi()
     kernels = [

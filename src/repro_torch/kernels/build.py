@@ -17,7 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "library"]
+__all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "compile_sources", "library",
+           "load"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -53,22 +54,28 @@ def _target(name: str) -> Path:
 
 
 def build(names=KERNELS) -> None:
-    """Compile every named source whose library is missing, one ``nvcc``
-    per source, all started together.  Raises with the compiler's output if
-    any build fails."""
-    todo = [n for n in names if not _target(n).exists()]
-    if not todo:
+    """Compile every named source whose library is missing.  Raises with the
+    compiler's output if any build fails."""
+    compile_sources({n: (SRC_DIR / f"{n}.cu", _target(n))
+                     for n in names if not _target(n).exists()})
+
+
+def compile_sources(jobs: dict[str, tuple[Path, Path]]) -> None:
+    """Compile each ``name: (source, library)`` job, one ``nvcc`` per source,
+    all started together; the compiler's output goes to ``BUILD_LOG[name]``.
+    Raises with the compiler's output if any build fails."""
+    if not jobs:
         return
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for n in todo:
-        tmp = _target(n).with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{n}.cu")]
+    for n, (src, target) in jobs.items():
+        target.parent.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True), tmp)
+                                     stderr=subprocess.STDOUT, text=True), tmp, target)
     errors = []
-    for n, (proc, tmp) in procs.items():
+    for n, (proc, tmp, target) in procs.items():
         try:
             out, _ = proc.communicate(timeout=_NVCC_TIMEOUT_S)
         except subprocess.TimeoutExpired:
@@ -77,23 +84,28 @@ def build(names=KERNELS) -> None:
             out += f"\n(nvcc killed after {_NVCC_TIMEOUT_S} s)"
         BUILD_LOG[n] = out
         if proc.returncode == 0:
-            os.replace(tmp, _target(n))  # atomic: a concurrent build never sees half a file
+            os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
         else:
             tmp.unlink(missing_ok=True)
-            errors.append(f"{n}.cu: nvcc exited {proc.returncode}\n{out}")
+            errors.append(f"{jobs[n][0].name}: nvcc exited {proc.returncode}\n{out}")
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
 
 
+def load(path: Path, signatures: dict) -> ctypes.CDLL:
+    """Load a built library; ``signatures`` maps each C function to
+    ``(restype, argtypes)``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, (restype, argtypes) in signatures.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
 def library(name: str, signatures: dict) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed.
-    ``signatures`` maps each C function to ``(restype, argtypes)``."""
+    """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, (restype, argtypes) in signatures.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _LIBS[name] = lib
+        lib = _LIBS[name] = load(_target(name), signatures)
     return lib

@@ -39,8 +39,8 @@ struct alignas(16) Vec {
   T v[N];
 };
 
-template <typename T, typename W>
-__global__ void rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w,
+template <typename T>
+__global__ void rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
                                T* __restrict__ out, int d, float eps) {
   constexpr int N = Vec<T>::N;
   const int row = blockIdx.x;
@@ -85,31 +85,27 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
 }
 
-template <typename T, typename W>
+template <typename T>
 void launch(const void* x, const void* w, void* out, int T_rows, int d, float eps,
             cudaStream_t stream) {
   const int nvec = d / Vec<T>::N;
   int threads = ((nvec + 31) / 32) * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   if (threads < 32) threads = 32;
-  rmsnorm_kernel<T, W><<<T_rows, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), d, eps);
+  rmsnorm_kernel<T><<<T_rows, threads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(out), d, eps);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.
+// dtype codes (of x, w and out alike): 0 = float32, 1 = bfloat16.
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* out, int T_rows, int d,
-                              float eps, int x_dtype, int w_dtype, void* stream) {
-  if (T_rows <= 0 || d <= 0 || d % 8 != 0 || x_dtype < 0 || x_dtype > 1 || w_dtype < 0 ||
-      w_dtype > 1)
+                              float eps, int dtype, void* stream) {
+  if (T_rows <= 0 || d <= 0 || d % 8 != 0 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && w_dtype == 0) launch<float, float>(x, w, out, T_rows, d, eps, s);
-  if (x_dtype == 0 && w_dtype == 1) launch<float, __nv_bfloat16>(x, w, out, T_rows, d, eps, s);
-  if (x_dtype == 1 && w_dtype == 0) launch<__nv_bfloat16, float>(x, w, out, T_rows, d, eps, s);
-  if (x_dtype == 1 && w_dtype == 1)
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, out, T_rows, d, eps, s);
+  if (dtype == 0) launch<float>(x, w, out, T_rows, d, eps, s);
+  else launch<__nv_bfloat16>(x, w, out, T_rows, d, eps, s);
   return (int)cudaGetLastError();
 }
 

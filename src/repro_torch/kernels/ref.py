@@ -8,7 +8,7 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "rmsnorm_ref"]
+__all__ = ["flash_attention_ref", "rmsnorm_ref", "scaled_err"]
 
 _NEG = -1e30
 
@@ -43,3 +43,14 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def scaled_err(out: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest ``|out - want| / (|want| + rms(want's row))`` over all
+    elements, rows along the last dim: the measure each kernel is held to
+    against its plain version.  Each element is judged at its own scale and
+    its row's, so an error in a row of small values cannot hide behind the
+    tensor's largest value."""
+    want = want.float()
+    rms = want.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+    return ((out.float() - want).abs() / (want.abs() + rms)).max().item()

@@ -26,14 +26,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SIGNATURES = {
     "rmsnorm_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]),
     "rmsnorm_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """``x`` [T, d] float32 or bfloat16, ``w`` [d] float32 or bfloat16, both
+    """``x`` [T, d] and ``w`` [d] of one dtype, float32 or bfloat16, both
     contiguous on one CUDA device; ``d`` a multiple of 8.  Returns
     ``x * rsqrt(mean(x^2) + eps) * w`` in ``x.dtype``."""
     if x.dim() != 2 or w.dim() != 1 or w.shape[0] != x.shape[1]:
@@ -42,9 +42,9 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.T
     T, d = x.shape
     if T == 0 or d % 8:
         raise ValueError(f"rmsnorm: want T > 0 and d a multiple of 8, got T={T}, d={d}")
-    if x.dtype not in _DTYPE_CODE or w.dtype not in _DTYPE_CODE:
-        raise TypeError(f"rmsnorm: x and w must be float32 or bfloat16, got "
-                        f"{x.dtype} and {w.dtype}")
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise TypeError(f"rmsnorm: x and w must be both float32 or both bfloat16, "
+                        f"got {x.dtype} and {w.dtype}")
     if not x.is_cuda or w.device != x.device:
         raise ValueError(f"rmsnorm: x and w must be on one CUDA device, got "
                          f"{x.device} and {w.device}")
@@ -57,7 +57,7 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.T
     with torch.cuda.device(x.device):
         code = lib.rmsnorm_launch(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), T, d, float(eps),
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+            _DTYPE_CODE[x.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     if code:

@@ -5,8 +5,10 @@ against the reference's Pallas kernels run as ``tests/test_kernels.py`` runs
 them (``repro.kernels.ops``, interpret mode on the CPU), at its shapes and
 tolerances: 1e-5 for float32, 2e-2 for bfloat16 (bf16 keeps 8 bits, and the
 two sides round at different places).  The cases marked ``cuda`` run the
-CUDA kernels against the plain versions on the card and skip without one;
-the JAX cases skip where JAX is absent (the GPU machine).
+CUDA kernels against the plain versions on the card, element by element
+(``ref.scaled_err``), check that faults planted in copies of the kernels'
+sources fail that check, and skip without a card; the JAX cases skip where
+JAX is absent (the GPU machine).
 """
 
 import numpy as np
@@ -112,6 +114,7 @@ def test_cpu_calls_run_the_plain_versions_uncounted():
     (lambda: rmsnorm_cuda(torch.randn(4, 64), torch.rand(64)), "CUDA device"),
     (lambda: rmsnorm_cuda(torch.randn(4, 60), torch.rand(60)), "multiple of 8"),
     (lambda: rmsnorm_cuda(torch.randn(4, 64).half(), torch.rand(64)), "bfloat16"),
+    (lambda: rmsnorm_cuda(torch.randn(4, 64), torch.rand(64).bfloat16()), "both float32"),
     (lambda: flash_attention_cuda(*(torch.randn(2, 8, 16, dtype=torch.bfloat16),) * 3,
                                   group_size=1), "CUDA device"),
     (lambda: flash_attention_cuda(*(torch.randn(2, 8, 32, dtype=torch.bfloat16),) * 3,
@@ -158,24 +161,95 @@ def test_flash_attention_kernel_on_card(cuda, BH, Sq, Skv, hd, g, win, causal):
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == n0 + 1
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-    assert (out.float() - want).abs().max().item() <= TOL["bfloat16"] * want.abs().max().item()
+    assert ref.scaled_err(out, want) <= TOL["bfloat16"]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,d,xdt,wdt", [
-    (2048, 4096, torch.bfloat16, torch.bfloat16),
-    (4, 4096, torch.bfloat16, torch.bfloat16),
-    (100, 96, torch.float32, torch.float32),
-    (3, 64, torch.float32, torch.bfloat16),
-    (5, 8, torch.bfloat16, torch.float32),
+@pytest.mark.parametrize("T,d,dt", [
+    (2048, 4096, torch.bfloat16),
+    (4, 4096, torch.bfloat16),
+    (100, 96, torch.float32),
+    (3, 64, torch.float32),
+    (5, 8, torch.bfloat16),
 ])
-def test_rmsnorm_kernel_on_card(cuda, T, d, xdt, wdt):
-    x = _card(RNG.randn(T, d).astype(np.float32), cuda, xdt)
-    w = _card(RNG.rand(d).astype(np.float32) + 0.5, cuda, wdt)
+def test_rmsnorm_kernel_on_card(cuda, T, d, dt):
+    x = _card(RNG.randn(T, d).astype(np.float32), cuda, dt)
+    w = _card(RNG.rand(d).astype(np.float32) + 0.5, cuda, dt)
     n0 = ops.rmsnorm.launches
     out = ops.rmsnorm(x, w)
     torch.cuda.synchronize()
-    assert ops.rmsnorm.launches == n0 + 1 and out.dtype == xdt
+    assert ops.rmsnorm.launches == n0 + 1 and out.dtype == dt
     want = ref.rmsnorm_ref(x.float(), w.float())
-    tol = TOL["bfloat16"] if xdt == torch.bfloat16 else TOL["float32"]
-    assert (out.float() - want).abs().max().item() <= tol * want.abs().max().item()
+    tol = TOL["bfloat16"] if dt == torch.bfloat16 else TOL["float32"]
+    assert ref.scaled_err(out, want) <= tol
+
+
+# Faults planted in copies of the kernels' sources, each of a kind a kernel
+# like these can ship with: the check above must refuse every one of them at
+# the serving shapes, where the sound kernels pass it.
+PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
+    "flash_last_tile_skipped_from_row_256": (
+        "flash_attention", "const int kt_hi = causal ? min(nk, q_last / BK + 1) : nk;",
+        "const int kt_hi = (causal ? min(nk, q_last / BK + 1) : nk) - (q0 >= 256);"),
+    "flash_rescale_by_alpha_left_out": (
+        "flash_attention", "for (int c = lane; c < HD; c += 32) Os[r * LDO + c] *= alpha;", ""),
+    "flash_window_one_key_too_many": (
+        "flash_attention", "ok = ok && (kp > qp - window);", "ok = ok && (kp >= qp - window);"),
+    "rmsnorm_last_warp_sum_left_out": (
+        "rmsnorm", "for (int i = 0; i < (int)(blockDim.x >> 5); ++i)",
+        "for (int i = 0; i < (int)(blockDim.x >> 5) - 1; ++i)"),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_libraries(tmp_path_factory):
+    """Every planted fault built at once, each into a library of its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    from repro_torch.kernels import build
+
+    root = tmp_path_factory.mktemp("planted")
+    jobs = {}
+    for name, (kernel, sound, faulty) in PLANTED_FAULTS.items():
+        src = (build.SRC_DIR / f"{kernel}.cu").read_text()
+        assert src.count(sound) == 1, f"{name}: the sound line is not in {kernel}.cu"
+        (root / f"{name}.cu").write_text(src.replace(sound, faulty))
+        jobs[name] = (root / f"{name}.cu", root / f"{name}.so")
+    build.compile_sources(jobs)
+    return {name: target for name, (_, target) in jobs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
+def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, fault):
+    import importlib
+
+    from repro_torch.kernels import build
+
+    kernel = PLANTED_FAULTS[fault][0]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    if kernel == "rmsnorm":
+        x = torch.randn(2048, 4096, generator=gen, device=cuda).to(torch.bfloat16)
+        w = (torch.rand(4096, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
+        call = lambda: rmsnorm_cuda(x, w, 1e-6)  # noqa: E731
+        want = ref.rmsnorm_ref(x.float(), w.float(), eps=1e-6)
+    else:
+        q, k, v = (torch.randn(n, 512, 128, generator=gen, device=cuda).to(torch.bfloat16)
+                   for n in (128, 16, 16))
+        kw = dict(group_size=8, causal=True,
+                  window=128 if "window" in fault else None)
+        call = lambda: flash_attention_cuda(q, k, v, **kw)  # noqa: E731
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    sound = call()
+    module = importlib.import_module(f"repro_torch.kernels.{kernel}")
+    monkeypatch.setitem(build._LIBS, kernel,
+                        build.load(faulty_libraries[fault], module._SIGNATURES))
+    faulty = call()
+    torch.cuda.synchronize()
+    errs = {name: (ref.scaled_err(out, want),
+                   ((out.float() - want).abs().max() / want.abs().max()).item())
+            for name, out in (("sound", sound), ("faulty", faulty))}
+    print(f"\n[planted] {fault}: scaled err sound {errs['sound'][0]:.6g}, faulty "
+          f"{errs['faulty'][0]:.6g} (tol {TOL['bfloat16']}); error over the largest "
+          f"value: sound {errs['sound'][1]:.6g}, faulty {errs['faulty'][1]:.6g}")
+    assert errs["sound"][0] <= TOL["bfloat16"] < errs["faulty"][0]

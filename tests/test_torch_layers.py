@@ -2,8 +2,9 @@
 package's (``repro.models.layers``) on the same numpy inputs.
 
 Tolerances: float32 1e-5 of the output's scale (the two frameworks sum in
-other orders); bfloat16 2e-2 (bf16 keeps 8 bits); embedding lookups are
-exact (a gather and a one-hot matmul pick the same row).
+other orders); bfloat16 2e-2 of each element's own scale, ``ref.scaled_err``
+(bf16 keeps 8 bits); embedding lookups are exact (a gather and a one-hot
+matmul pick the same row).
 """
 
 import dataclasses
@@ -17,6 +18,7 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import layers as JL
 from repro_torch.configs import get_smoke_config
+from repro_torch.kernels.ref import scaled_err
 from repro_torch.models import layers as TL
 
 RNG = np.random.RandomState(1)
@@ -32,8 +34,12 @@ def _close(port: torch.Tensor, want, dt, exact=False):
     want = np.asarray(jnp.asarray(want, jnp.float32))
     assert got.shape == want.shape
     err = np.abs(got - want).max()
-    scale = max(np.abs(want).max(), 1.0)
-    assert err <= (0.0 if exact else TOL[dt] * scale), err
+    if exact:
+        assert err == 0.0, err
+    elif dt == "bfloat16":
+        assert scaled_err(port, torch.from_numpy(want)) <= TOL[dt]
+    else:
+        assert err <= TOL[dt] * max(np.abs(want).max(), 1.0), err
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
