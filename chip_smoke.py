@@ -9,9 +9,10 @@ Phases, each reported on its own lines:
 2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` compiled
    with ``nvcc`` (one process per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the Yi-6B serving path gives it plus ragged, windowed and small-head
-   cases: error, kernel time, plain time, the time of one PyTorch library
-   call computing the same function (each with its inputs cold in device
+   the Yi-6B and Falcon-Mamba-7B serving paths give it plus ragged,
+   windowed, small-head, initial-state and small-state cases: error, kernel
+   time, plain time, the time of one PyTorch library call computing the
+   same function where there is one (each with its inputs cold in device
    memory and warm in L2), and the card's least time (bound);
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
@@ -19,7 +20,10 @@ Phases, each reported on its own lines:
    RMSNorm and every prefill attention went through them, and the prefill
    logits must be no further from a float32 recomputation than the same
    bf16 model's logits through the plain versions are, and within the bf16
-   tolerance (rms) of the latter.
+   tolerance (rms) of the latter;
+5. full-width Falcon-Mamba-7B, after Yi's weights are freed, served and
+   checked the same way: every RMSNorm and every prefill selective scan
+   must go through the kernels.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -48,6 +53,9 @@ OUT_DIR = ROOT / "build" / "chip_smoke"  # the run's full record, beside the bui
 #: satisfy |kernel - plain| <= TOL_BF16 * (|plain| + rms of its row), where the
 #: plain version computes in fp32 on the same bf16 inputs (bf16 keeps 8 bits)
 TOL_BF16 = 2e-2
+#: the same for the fp32 selective scan, whose kernel and plain version
+#: differ only in the order of the readout's sum over the state
+TOL_F32 = 1e-5
 #: the served logits may stray from a float32 recomputation of the same
 #: prefill by at most this many times as far (rms over all logits) as the
 #: bf16 model's logits through the plain versions do: the kernels may add
@@ -107,9 +115,12 @@ def _ms(fn, args, iters: int) -> dict:
 def _times(kernel, plain, library, args, iters: int) -> dict:
     """The case's times: ``ms``, ``plain_ms`` and ``library_ms`` with the
     inputs cold in device memory (warm where cold is not measured), and the
-    same three warm."""
-    out = {}
+    same three warm.  ``library`` None: no PyTorch call computes the
+    function, and ``library_ms`` is None."""
+    out = {"library_ms": None, "library_ms_warm": None}
     for key, fn in (("ms", kernel), ("plain_ms", plain), ("library_ms", library)):
+        if fn is None:
+            continue
         t = _ms(fn, args, iters)
         out[key] = t["cold"] if t["cold"] is not None else t["warm"]
         out[f"{key}_warm"] = t["warm"]
@@ -256,20 +267,67 @@ def flash_cases(gen):
     return cases
 
 
-def kernel_entry(name, source, replaces, cases, launches):
+def mamba_cases(gen):
+    """Kernel against plain version: Falcon-Mamba prefill, ragged, with an
+    initial state, and the smoke config's state size."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+    from repro_torch.kernels.ref import mamba_scan_ref
+
+    specs = [  # (label, B, S, di, N, with_h0)
+        ("falcon prefill", 4, 512, 8192, 16, False),
+        ("ragged", 4, 300, 8192, 16, False),
+        ("h0", 4, 512, 8192, 16, True),
+        ("N 8", 4, 512, 8192, 8, False),
+    ]
+    cases = []
+    for label, B, S, di, N, with_h0 in specs:
+        a = torch.rand(B, S, di, N, generator=gen, device="cuda") * 0.9
+        b = torch.randn(B, S, di, N, generator=gen, device="cuda") * 0.1
+        c = torch.randn(B, S, N, generator=gen, device="cuda")
+        args = (a, b, c)
+        if with_h0:
+            args += (torch.randn(B, di, N, generator=gen, device="cuda") * 0.1,)
+        y, h = mamba_scan_cuda(*args)
+        torch.cuda.synchronize()
+        want_y, want_h = mamba_scan_ref(*args)
+        (abs_y, err_y), (abs_h, err_h) = _err(y, want_y), _err(h, want_h)
+        err = max(err_y, err_h)
+        if not err <= TOL_F32:
+            raise AssertionError(f"mamba_scan {label}: scaled err y {err_y}, h_last "
+                                 f"{err_h} > {TOL_F32}")
+        del y, h, want_y, want_h
+        nbytes = sum(t.numel() for t in args) * 4 + (B * S * di + B * di * N) * 4
+        flops = 4 * B * S * di * N  # update (mul, add) and readout (mul, add)
+        cases.append({
+            "shape": f"{label}: a/b[{B},{S},{di},{N}]{' h0' if with_h0 else ''} fp32",
+            "max_abs_err": max(abs_y, abs_h), "scaled_err": err,
+            "scaled_err_y": err_y, "scaled_err_h_last": err_h,
+            **_times(mamba_scan_cuda, mamba_scan_ref, None, args, iters=5),
+            "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_ops_ms": flops / PEAK_FP32_FLOPS * 1e3,
+        })
+        del a, b, c, args
+    return cases
+
+
+def kernel_entry(name, source, replaces, cases, launches, tolerance=TOL_BF16):
     """The JSON record of one kernel: numbers at the main path's first
-    (prefill) shape, every case beside them."""
+    (prefill) shape, every case beside them.  ``launches`` maps each served
+    model to the kernel's launches over its run; the record's count is
+    their sum."""
     main = cases[0]
     bound_ms = max(main["bound_bytes_ms"], main["bound_ops_ms"])
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches,
+        "launches": sum(launches.values()), "launches_by_model": launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
         "bound_by": "bytes" if main["bound_bytes_ms"] >= main["bound_ops_ms"]
                     else "operations",
         "library_ms": main["library_ms"], "shape": main["shape"], "inputs": main["inputs"],
-        "scaled_err": max(c["scaled_err"] for c in cases), "tolerance": TOL_BF16,
+        "scaled_err": max(c["scaled_err"] for c in cases), "tolerance": tolerance,
         "cases": cases,
     }
 
@@ -280,13 +338,14 @@ def plain_kernels():
     reference forward; the port itself never does this)."""
     from repro_torch.kernels import ops, ref
 
-    saved = ops.rmsnorm, ops.flash_attention
+    saved = ops.rmsnorm, ops.flash_attention, ops.mamba_scan
     ops.rmsnorm = ref.rmsnorm_ref
     ops.flash_attention = ref.flash_attention_ref
+    ops.mamba_scan = ref.mamba_scan_ref
     try:
         yield
     finally:
-        ops.rmsnorm, ops.flash_attention = saved
+        ops.rmsnorm, ops.flash_attention, ops.mamba_scan = saved
 
 
 class StepTimes:
@@ -300,7 +359,30 @@ class StepTimes:
         return "ok"
 
 
-def serve_yi(seed: int = 0) -> dict:
+def _widths(cfg) -> tuple:
+    """The published widths each served config is held to."""
+    if cfg.mamba is not None:
+        m = cfg.mamba
+        return (cfg.num_layers, cfg.d_model, m.d_state, m.d_conv, m.expand,
+                m.resolved_dt_rank(cfg.d_model), cfg.vocab_size, cfg.dtype)
+    a = cfg.attn
+    return (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
+            cfg.d_ff, cfg.vocab_size, cfg.dtype)
+
+
+#: what each served model must be: its published widths (``_widths``), and
+#: the kernel launches over one prefill (norms per layer: Falcon-Mamba's
+#: layers have no second norm)
+SERVED = {
+    "yi_6b": {"widths": (32, 4096, 32, 4, 128, 11008, 64000, "bfloat16"),
+              "norms_per_layer": 2, "prefill": {"flash_attention": 32}},
+    "falcon_mamba_7b": {"widths": (64, 4096, 16, 4, 2, 256, 65024, "bfloat16"),
+                        "norms_per_layer": 1, "prefill": {"mamba_scan": 64}},
+}
+
+
+def serve(arch: str, seed: int = 0) -> dict:
+    """Serve ``arch`` at full width and check its launches and logits."""
     import numpy as np
     import torch
 
@@ -310,12 +392,10 @@ def serve_yi(seed: int = 0) -> dict:
     from repro_torch.models.params import map_tree
     from repro_torch.serving.engine import Request, ServeEngine, greedy_sample
 
-    cfg = get_config("yi_6b")
-    a = cfg.attn
-    widths = (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
-              cfg.d_ff, cfg.vocab_size, cfg.dtype)
-    if widths != (32, 4096, 32, 4, 128, 11008, 64000, "bfloat16"):
-        raise AssertionError(f"yi_6b is not at its published widths: {widths}")
+    cfg = get_config(arch)
+    want = SERVED[arch]
+    if _widths(cfg) != want["widths"]:
+        raise AssertionError(f"{arch} is not at its published widths: {_widths(cfg)}")
     slots, capacity, prompt_len, max_new = 4, 1024, 512, 32
 
     t0 = time.perf_counter()
@@ -323,7 +403,7 @@ def serve_yi(seed: int = 0) -> dict:
                            device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] yi-6b full width: {n_params / 1e9:.3f} B params, bf16, "
+    print(f"[serve] {cfg.name} full width: {n_params / 1e9:.3f} B params, bf16, "
           f"random init from seed {seed} in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.RandomState(seed)
@@ -360,7 +440,8 @@ def serve_yi(seed: int = 0) -> dict:
     done = eng.run([])
     t2 = time.perf_counter()
     launches = {"rmsnorm": ops.rmsnorm.launches,
-                "flash_attention": ops.flash_attention.launches}
+                "flash_attention": ops.flash_attention.launches,
+                "mamba_scan": ops.mamba_scan.launches}
 
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_steps = len(times.seconds)
@@ -385,15 +466,15 @@ def serve_yi(seed: int = 0) -> dict:
     if len(done) != slots or any(len(r.out_tokens) != max_new for r in done):
         raise AssertionError(f"not every request got {max_new} tokens: "
                              f"{[len(r.out_tokens) for r in done]}")
-    per_forward = 2 * cfg.num_layers + 1
-    if launches["rmsnorm"] != per_forward * (1 + decode_steps):
-        raise AssertionError(f"rmsnorm launches {launches['rmsnorm']} != "
-                             f"{per_forward} x (1 + {decode_steps})")
-    if launches["flash_attention"] != cfg.num_layers:
-        raise AssertionError(f"flash_attention launches "
-                             f"{launches['flash_attention']} != {cfg.num_layers}")
+    per_forward = want["norms_per_layer"] * cfg.num_layers + 1
+    want_launches = {"rmsnorm": per_forward * (1 + decode_steps), "flash_attention": 0,
+                     "mamba_scan": 0, **want["prefill"]}
+    if launches != want_launches:
+        raise AssertionError(f"launches {launches} != {want_launches} ({per_forward} "
+                             f"norms per forward, 1 prefill + {decode_steps} decode "
+                             f"steps)")
 
-    # the same prefill through the plain versions of both kernels, in the
+    # the same prefill through the plain versions of the kernels, in the
     # model's bf16 and in float32 (the reference for the bf16 rounding)
     tokens = torch.from_numpy(np.stack([r.prompt for r in reqs]).astype(np.int64)).cuda()
     with plain_kernels():
@@ -461,28 +542,39 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = rmsnorm_cases(gen)
     fla = flash_cases(gen)
-    for name, cases in (("rmsnorm", rms), ("flash_attention", fla)):
+    mam = mamba_cases(gen)
+    for name, cases in (("rmsnorm", rms), ("flash_attention", fla), ("mamba_scan", mam)):
         for c in cases:
+            lib = ("none" if c["library_ms"] is None else
+                   f"{c['library_ms']:.6f} (L2 warm {c['library_ms_warm']:.6f})")
             print(f"[kernel] {name} {c['shape']}: max abs err {c['max_abs_err']:.3g}, "
-                  f"scaled {c['scaled_err']:.3g} (tol {TOL_BF16}); device ms, inputs "
+                  f"scaled {c['scaled_err']:.3g} (tol "
+                  f"{TOL_F32 if name == 'mamba_scan' else TOL_BF16}); device ms, inputs "
                   f"{c['inputs']}: kernel {c['ms']:.6f}, plain {c['plain_ms']:.6f}, "
-                  f"library {c['library_ms']:.6f}; L2 warm: kernel {c['ms_warm']:.6f}, "
-                  f"plain {c['plain_ms_warm']:.6f}, library {c['library_ms_warm']:.6f}; "
+                  f"library {lib}; L2 warm: kernel {c['ms_warm']:.6f}, "
+                  f"plain {c['plain_ms_warm']:.6f}; "
                   f"bound {max(c['bound_bytes_ms'], c['bound_ops_ms']):.6f} ms "
                   f"(bytes {c['bound_bytes_ms']:.6f}, ops {c['bound_ops_ms']:.6f})")
 
-    serve = serve_yi()
+    served = {}
+    for arch in SERVED:  # one model on the card at a time
+        gc.collect()
+        torch.cuda.empty_cache()
+        served[arch] = serve(arch)
+    by_model = lambda k: {a: r["launches"][k] for a, r in served.items()}  # noqa: E731
     kernels = [
         kernel_entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
-                     "src/repro/kernels/rmsnorm.py:27", rms,
-                     serve["launches"]["rmsnorm"]),
+                     "src/repro/kernels/rmsnorm.py:27", rms, by_model("rmsnorm")),
         kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
                      "src/repro/kernels/flash_attention.py:99", fla,
-                     serve["launches"]["flash_attention"]),
+                     by_model("flash_attention")),
+        kernel_entry("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
+                     "src/repro/kernels/mamba_scan.py:60", mam, by_model("mamba_scan"),
+                     tolerance=TOL_F32),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "kernels": kernels, "serve": serve}, indent=1))
+        {"card": smi, "kernels": kernels, "serve": served}, indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}, allow_nan=False))

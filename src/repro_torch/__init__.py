@@ -3,8 +3,9 @@
 The JAX package ``repro`` is the reference; this package imports nothing of
 it and keeps its own copies of what it needs.  Module names follow the
 reference's, so each module's counterpart is found under the same path.
-The two TPU kernels on the serving path (RMSNorm and flash attention) are
-CUDA C++ kernels under ``kernels/csrc``; everything else is plain PyTorch.
+The three TPU kernels on the serving paths (RMSNorm, flash attention and
+the Mamba selective scan) are CUDA C++ kernels under ``kernels/csrc``;
+everything else is plain PyTorch.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``: they
 raise when CUDA is absent, unless the caller asked for ``"cpu"``.

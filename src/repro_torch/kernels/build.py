@@ -22,7 +22,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "compile_sources", "li
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("rmsnorm", "flash_attention")
+KERNELS = ("rmsnorm", "flash_attention", "mamba_scan")
 # -Xptxas -v: registers, shared memory and spills of every kernel, kept in
 # BUILD_LOG for the record of a run
 NVCC_FLAGS = (

@@ -15,10 +15,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.ref import flash_attention_ref, rmsnorm_ref
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref, rmsnorm_ref
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
-__all__ = ["flash_attention", "rmsnorm", "reset_launches"]
+__all__ = ["flash_attention", "mamba_scan", "rmsnorm", "reset_launches"]
 
 
 def _no_path(name: str, t: torch.Tensor):
@@ -50,11 +51,25 @@ def flash_attention(q, k, v, *, group_size=1, causal=True, window=None, scale=No
     raise _no_path("flash_attention", q)
 
 
-rmsnorm.launches = 0
-flash_attention.launches = 0
+def mamba_scan(a, b, c, h0=None):
+    """a/b [B, S, di, N], c [B, S, N], h0 [B, di, N] or None (zeros), all
+    float32; returns (y [B, S, di], h_last [B, di, N])."""
+    if a.is_cuda:
+        out = mamba_scan_cuda(a, b, c, h0)
+        mamba_scan.launches += 1
+        return out
+    if a.device.type == "cpu":
+        return mamba_scan_ref(a, b, c, h0)
+    raise _no_path("mamba_scan", a)
+
+
+_DISPATCHERS = (rmsnorm, flash_attention, mamba_scan)
 
 
 def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
-    rmsnorm.launches = 0
-    flash_attention.launches = 0
+    for fn in _DISPATCHERS:
+        fn.launches = 0
+
+
+reset_launches()

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "rmsnorm_ref", "scaled_err"]
+__all__ = ["flash_attention_ref", "mamba_scan_ref", "rmsnorm_ref", "scaled_err"]
 
 _NEG = -1e30
 
@@ -37,6 +37,26 @@ def flash_attention_ref(
     s = torch.where(mask[None], s, torch.full_like(s, _NEG))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, vv).to(q.dtype)
+
+
+def mamba_scan_ref(
+    a: torch.Tensor,  # [B, S, di, N] decay
+    b: torch.Tensor,  # [B, S, di, N] input
+    c: torch.Tensor,  # [B, S, N] readout
+    h0: torch.Tensor | None = None,  # [B, di, N] initial state (default 0)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan as a plain sequential recurrence, in float32:
+    ``h_t = a_t * h_{t-1} + b_t``, ``y_t = sum_n h_t[:, n] * c_t[n]``.
+    Returns (y [B, S, di], h_last [B, di, N])."""
+    B, S, di, N = a.shape
+    h = (torch.zeros(B, di, N, dtype=torch.float32, device=a.device) if h0 is None
+         else h0.float())
+    a, b, c = a.float(), b.float(), c.float()
+    ys = []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        ys.append((h * c[:, t, None, :]).sum(dim=-1))
+    return torch.stack(ys, dim=1), h
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

@@ -2,6 +2,7 @@
 a few decode steps of the slot engine, on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi_6b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch falcon_mamba_7b
 
 The run has the shapes of ``chip_smoke.py``'s serving phase: 4 slots,
 prompts of 512 tokens, a cache of 1024.  Prints, for the prefill and for

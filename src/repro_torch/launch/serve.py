@@ -2,6 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \\
       --requests 4 --max-new 16            # on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
+      --requests 4 --max-new 16            # the Mamba path, on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --smoke \\
       --device cpu                         # plain PyTorch on the CPU
 

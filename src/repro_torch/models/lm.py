@@ -9,11 +9,15 @@ one to one onto the reference's.  A Python loop over the periods replaces
 Entry points:
 
 * ``prefill``      — forward over a prompt; last-position logits and the
-  filled KV cache;
+  filled cache;
 * ``decode_step``  — one token against the cache, updated in place.
 
-Training (``loss_fn``) comes with the train slice.  The port runs the dense
-attention families (ROADMAP queue 1 item 5 names the configs still to run).
+Each slot of the pattern has a mixer (GQA attention or Mamba) and, unless
+its ``ffn`` is ``"none"`` (Falcon-Mamba), a second norm and a dense MLP; a
+slot's cache is that of its mixer.  Training (``loss_fn``) comes with the
+train slice, MoE FFNs and the unrolled dense prelude (``first_k_dense``)
+with the MoE slice (ROADMAP queue 1 items 5 and 7 name the configs still to
+run).
 """
 
 from __future__ import annotations
@@ -23,30 +27,31 @@ import dataclasses
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.params import ParamMeta, init_params, map_tree, torch_dtype
 
 __all__ = ["model_meta", "init_model", "init_cache", "prefill", "decode_step"]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if any(s.mixer != "attn" or s.ffn != "dense" for s in cfg.layer_pattern) \
-            or cfg.first_k_dense:
+    if any(s.ffn == "moe" for s in cfg.layer_pattern) or cfg.first_k_dense:
         raise NotImplementedError(
-            f"{cfg.name}: Mamba and MoE layers come with their own slices "
-            "(ROADMAP queue 1 items 7 and 8)")
+            f"{cfg.name}: MoE layers and the dense prelude come with the MoE "
+            "slice (ROADMAP queue 1 item 7)")
 
 
-def _slot_meta(cfg: ModelConfig) -> dict:
+def _slot_meta(cfg: ModelConfig, spec: LayerSpec) -> dict:
     d = cfg.d_model
-    return {
-        "norm1": L.rms_norm_meta(d),
-        "mixer": attn_mod.attn_meta(cfg),
-        "norm2": L.rms_norm_meta(d),
-        "ffn": L.mlp_meta(d, cfg.d_ff, cfg.act),
-    }
+    out = {"norm1": L.rms_norm_meta(d),
+           "mixer": (attn_mod.attn_meta(cfg) if spec.mixer == "attn"
+                     else mamba_mod.mamba_meta(cfg))}
+    if spec.ffn != "none":
+        out["norm2"] = L.rms_norm_meta(d)
+        out["ffn"] = L.mlp_meta(d, cfg.d_ff, cfg.act)
+    return out
 
 
 def _stack_meta(tree, n: int):
@@ -63,8 +68,8 @@ def model_meta(cfg: ModelConfig) -> dict:
         "embed": L.embed_meta(cfg),
         "head": L.head_meta(cfg),
         "final_norm": L.rms_norm_meta(cfg.d_model),
-        "blocks": {f"slot{i}": _stack_meta(_slot_meta(cfg), cfg.num_periods)
-                   for i in range(len(cfg.layer_pattern))},
+        "blocks": {f"slot{i}": _stack_meta(_slot_meta(cfg, spec), cfg.num_periods)
+                   for i, spec in enumerate(cfg.layer_pattern)},
     }
 
 
@@ -74,25 +79,40 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device="cuda") -
                        dtype=torch_dtype(cfg.dtype))
 
 
+def _slot_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
+                device) -> dict:
+    if spec.mixer == "attn":
+        return attn_mod.init_attn_cache(cfg, batch, capacity, device=device)
+    return mamba_mod.init_mamba_cache(cfg, batch, device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda") -> dict:
-    """Zero KV caches, stacked over periods like the parameters."""
+    """Zero caches (KV for attention, conv window and state for Mamba),
+    stacked over periods like the parameters."""
     device = resolve_device(device)
     _check_supported(cfg)
-    one = attn_mod.init_attn_cache(cfg, batch, capacity, device=device)
-    return {"blocks": {
-        f"slot{i}": {n: t.expand((cfg.num_periods,) + t.shape).clone()
-                     for n, t in one.items()}
-        for i in range(len(cfg.layer_pattern))
-    }}
+    blocks = {}
+    for i, spec in enumerate(cfg.layer_pattern):
+        one = _slot_cache(cfg, spec, batch, capacity, device)
+        blocks[f"slot{i}"] = {n: t.expand((cfg.num_periods,) + t.shape).clone()
+                              for n, t in one.items()}
+    return {"blocks": blocks}
 
 
-def _apply_slot(cfg, p, x, positions, *, cache=None, cache_pos=None, capacity=None):
+def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
+                capacity=None):
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    res = attn_mod.attention(cfg, p["mixer"], h, positions, cache=cache,
-                             cache_pos=cache_pos, capacity=capacity)
-    x = x + res.out
-    h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp(p["ffn"], h2, cfg.act), res.cache
+    if spec.mixer == "attn":
+        res = attn_mod.attention(cfg, p["mixer"], h, positions, cache=cache,
+                                 cache_pos=cache_pos, capacity=capacity)
+        mix, new_cache = res.out, res.cache
+    else:
+        mix, new_cache = mamba_mod.mamba(cfg, p["mixer"], h, cache=cache)
+    x = x + mix
+    if spec.ffn != "none":
+        h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+        x = x + L.mlp(p["ffn"], h2, cfg.act)
+    return x, new_cache
 
 
 def _period(tree: dict, i: int) -> dict:
@@ -101,8 +121,10 @@ def _period(tree: dict, i: int) -> dict:
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None):
     """Process a prompt batch ``{"tokens": [B, S]}``; returns (last-position
-    logits [B, V], filled cache of ``capacity`` (default S) entries).  The
-    filled cache takes the model dtype, as the reference's does."""
+    logits [B, V], filled cache).  An attention slot's cache holds
+    ``capacity`` (default S) entries, a Mamba slot's the last conv inputs and
+    the float32 state.  The filled KV cache and conv window take the model
+    dtype, as the reference's do."""
     _check_supported(cfg)
     if set(batch) != {"tokens"}:
         raise NotImplementedError(
@@ -113,13 +135,13 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
     positions = torch.arange(S, device=x.device).expand(B, S)
     filled = {}
     for i in range(cfg.num_periods):
-        for j in range(len(cfg.layer_pattern)):
+        for j, spec in enumerate(cfg.layer_pattern):
             slot = f"slot{j}"
-            x, nc = _apply_slot(cfg, _period(params["blocks"][slot], i), x, positions,
-                                capacity=capacity)
+            x, nc = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
+                                positions, capacity=capacity)
             filled.setdefault(slot, []).append(nc)
     cache = {"blocks": {slot: {n: torch.stack([c[n] for c in caches])
-                               for n in ("k", "v")}
+                               for n in caches[0]}
                         for slot, caches in filled.items()}}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(cfg, params, x[:, -1:])
@@ -136,10 +158,10 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dic
     B = x.shape[0]
     positions = torch.full((B, 1), cache_pos, device=x.device)
     for i in range(cfg.num_periods):
-        for j in range(len(cfg.layer_pattern)):
+        for j, spec in enumerate(cfg.layer_pattern):
             slot = f"slot{j}"
-            x, _ = _apply_slot(cfg, _period(params["blocks"][slot], i), x, positions,
-                               cache=_period(cache["blocks"][slot], i),
+            x, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
+                               positions, cache=_period(cache["blocks"][slot], i),
                                cache_pos=cache_pos)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(cfg, params, x)

@@ -26,7 +26,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 class ParamMeta:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]  # logical axis name per dim
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | a_log
     scale: float | None = None  # None -> 1/sqrt(fan_in)
 
     def __post_init__(self):
@@ -61,8 +61,10 @@ def _init_one(meta: ParamMeta, generator: torch.Generator, device, dtype):
     if meta.init == "ones":
         return torch.ones(meta.shape, dtype=dtype, device=device)
     if meta.init == "a_log":
-        raise NotImplementedError("Mamba's a_log init comes with the Mamba "
-                                  "slice (ROADMAP queue 1 item 8)")
+        # Mamba: A_log = log(1..d_state) broadcast over channels (and layers)
+        d_state = meta.shape[-1]
+        a = torch.log(torch.arange(1, d_state + 1, dtype=torch.float32, device=device))
+        return a.expand(meta.shape).to(dtype).contiguous()
     # as the reference: fan_in counts every dim but the last, the stacked
     # layer dim included
     fan_in = meta.shape[0] if len(meta.shape) == 1 else int(np.prod(meta.shape[:-1]))

@@ -5,8 +5,8 @@ decode batch (the counterpart of the reference's ``repro/serving/engine.py``).
 requests are admitted into free slots (prefill), all active slots decode in
 lock-step (one ``decode_step`` per iteration), and finished sequences free
 their slot.  As in the reference, the cache has one synchronized write
-position: admission left-pads every prompt to the longest one, and the pad
-tokens are not masked.
+position: admission left-pads every prompt to the longest one with token 0,
+and the pad tokens are not masked (under Mamba they enter the state).
 
 The reference's decode-collective planner (``plan_mesh``,
 ``plan_decode_collectives``, ``inject_fault``) comes with the planner slice.

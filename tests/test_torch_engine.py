@@ -2,12 +2,13 @@
 package's (``repro.serving.engine``), on the same parameters, prompts,
 slots and capacity, and the port's serve CLI.
 
-Float32 copy of the yi smoke config, so the logits agree to 1e-5 of their
-scale.  The port's engine is fed the reference's tokens (teacher forcing),
-so every step's logits are comparable even where a near-tie could flip a
-greedy choice; its own greedy choice must equal the reference's wherever
-the reference's top-2 gap exceeds the tolerance.  A second, free-running
-greedy port engine must then give the reference's ``out_tokens``.
+Float32 copies of the yi and falcon-mamba smoke configs, so the logits
+agree to 1e-5 of their scale.  The port's engine is fed the reference's
+tokens (teacher forcing), so every step's logits are comparable even where
+a near-tie could flip a greedy choice; its own greedy choice must equal
+the reference's wherever the reference's top-2 gap exceeds the tolerance.
+A second, free-running greedy port engine must then give the reference's
+``out_tokens``.
 """
 
 import dataclasses
@@ -30,9 +31,9 @@ SLOTS, CAP, MAX_NEW = 4, 48, 6
 PROMPT_LENS = (5, 12, 9)  # unequal: admission left-pads to 12
 
 
-def _setup():
-    jcfg = dataclasses.replace(jax_smoke_config("yi_6b"), dtype="float32")
-    tcfg = dataclasses.replace(get_smoke_config("yi_6b"), dtype="float32")
+def _setup(arch="yi_6b"):
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
     jp = JLM.init_model(jcfg, jax.random.PRNGKey(3))
     tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.RandomState(4)
@@ -46,7 +47,17 @@ def _requests(mod, prompts):
 
 
 def test_engine_matches_reference():
-    jcfg, tcfg, jp, tp, prompts = _setup()
+    _engine_matches_reference("yi_6b")
+
+
+def test_falcon_mamba_engine_matches_reference():
+    """The Mamba path: as in the reference, the left pads (token 0) of the
+    shorter prompts enter the state."""
+    _engine_matches_reference("falcon_mamba_7b")
+
+
+def _engine_matches_reference(arch):
+    jcfg, tcfg, jp, tp, prompts = _setup(arch)
 
     ref_logits = []
 
@@ -110,7 +121,15 @@ def test_engine_refuses_planner_until_its_slice():
 
 
 def test_serve_cli_runs_smoke_on_cpu():
-    done = tserve.main(["--arch", "yi_6b", "--smoke", "--device", "cpu",
+    _serve_cli_runs_smoke_on_cpu("yi_6b")
+
+
+def test_serve_cli_runs_falcon_mamba_smoke_on_cpu():
+    _serve_cli_runs_smoke_on_cpu("falcon_mamba_7b")
+
+
+def _serve_cli_runs_smoke_on_cpu(arch):
+    done = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--requests", "3", "--slots", "4", "--prompt-len", "8",
                         "--max-new", "5", "--capacity", "16"])
     assert sorted(r.rid for r in done) == [0, 1, 2]

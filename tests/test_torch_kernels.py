@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
 RNG = np.random.RandomState(0)
@@ -110,7 +111,32 @@ def test_cpu_calls_run_the_plain_versions_uncounted():
     assert (ops.rmsnorm.launches, ops.flash_attention.launches) == before
 
 
+def test_mamba_scan_cpu_call_runs_the_plain_version_uncounted():
+    a, b = torch.rand(2, 9, 8, 4) * 0.9, torch.randn(2, 9, 8, 4)
+    c, h0 = torch.randn(2, 9, 4), torch.randn(2, 8, 4)
+    before = ops.mamba_scan.launches
+    for h in (None, h0):
+        got, want = ops.mamba_scan(a, b, c, h), ref.mamba_scan_ref(a, b, c, h)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert ops.mamba_scan.launches == before
+
+
+def _scan_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
+    return (torch.rand(B, S, di, N, dtype=dtype), torch.randn(B, S, di, N, dtype=dtype),
+            torch.randn(B, S, N, dtype=dtype))
+
+
 @pytest.mark.parametrize("call,err", [
+    (lambda: mamba_scan_cuda(*_scan_args()), "CUDA device"),
+    (lambda: mamba_scan_cuda(*_scan_args(N=3)), "must divide 32"),
+    (lambda: mamba_scan_cuda(*_scan_args(N=64)), "must divide 32"),
+    (lambda: mamba_scan_cuda(*_scan_args(dtype=torch.bfloat16)), "float32"),
+    (lambda: mamba_scan_cuda(*_scan_args(), torch.zeros(2, 8, 4, dtype=torch.float64)),
+     "float32"),
+    (lambda: mamba_scan_cuda(_scan_args()[0].transpose(2, 3).contiguous().transpose(2, 3),
+                             *_scan_args()[1:]), "contiguous"),
+    (lambda: mamba_scan_cuda(*_scan_args(), torch.zeros(2, 8)), r"h0 \[B, di, N\]"),
     (lambda: rmsnorm_cuda(torch.randn(4, 64), torch.rand(64)), "CUDA device"),
     (lambda: rmsnorm_cuda(torch.randn(4, 60), torch.rand(60)), "multiple of 8"),
     (lambda: rmsnorm_cuda(torch.randn(4, 64).half(), torch.rand(64)), "bfloat16"),
@@ -184,6 +210,47 @@ def test_rmsnorm_kernel_on_card(cuda, T, d, dt):
     assert ref.scaled_err(out, want) <= tol
 
 
+def _scan_on_card(dev, B, S, di, N, with_h0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(B, S, di, N, generator=gen, device=dev) * 0.9
+    b = torch.randn(B, S, di, N, generator=gen, device=dev) * 0.1
+    c = torch.randn(B, S, N, generator=gen, device=dev)
+    h0 = torch.randn(B, di, N, generator=gen, device=dev) * 0.1 if with_h0 else None
+    return a, b, c, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,with_h0", [
+    (4, 512, 8192, 16, False),  # falcon-mamba prefill, 4 x 512 tokens
+    (4, 300, 8192, 16, False),  # ragged
+    (2, 128, 1024, 16, True),   # nonzero initial state
+    (2, 96, 128, 8, True),      # smoke config's d_state
+    (3, 64, 16, 4, False),      # reference tests' d_state
+    (3, 7, 5, 4, True),         # 60 state elements: a partial warp
+    (2, 33, 40, 32, True),      # N = 32, one channel per warp
+    (2, 1, 8, 1, True),         # one step, N = 1
+])
+def test_mamba_scan_kernel_on_card(cuda, B, S, di, N, with_h0):
+    """fp32 on both sides and the state rounded alike: h_last bit for bit,
+    y to 1e-5 (only the order of the readout's sum over n differs)."""
+    a, b, c, h0 = _scan_on_card(cuda, B, S, di, N, with_h0)
+    n0 = ops.mamba_scan.launches
+    y, h = ops.mamba_scan(a, b, c, h0)
+    torch.cuda.synchronize()
+    assert ops.mamba_scan.launches == n0 + 1
+    want_y, want_h = ref.mamba_scan_ref(a, b, c, h0)
+    assert ref.scaled_err(y, want_y) <= TOL["float32"]
+    assert ref.scaled_err(h, want_h) <= TOL["float32"]
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_wrapper_refuses_a_strided_card_tensor(cuda):
+    a, b, c, _ = _scan_on_card(cuda, 2, 8, 16, 4, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan_cuda(a[:, ::2], b[:, ::2], c[:, ::2])
+
+
 # Faults planted in copies of the kernels' sources, each of a kind a kernel
 # like these can ship with: the check above must refuse every one of them at
 # the serving shapes, where the sound kernels pass it.
@@ -198,6 +265,12 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "rmsnorm_last_warp_sum_left_out": (
         "rmsnorm", "for (int i = 0; i < (int)(blockDim.x >> 5); ++i)",
         "for (int i = 0; i < (int)(blockDim.x >> 5) - 1; ++i)"),
+    "scan_state_dropped_at_half": (
+        "mamba_scan", "h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);",
+        "h = __fadd_rn(__fmul_rn(av[u], t0 + u == S / 2 ? 0.f : h), bv[u]);"),
+    "scan_readout_last_lane_left_out": (
+        "mamba_scan", "float p = __fmul_rn(h, cv[u]);",
+        "float p = n == N - 1 ? 0.f : __fmul_rn(h, cv[u]);"),
 }
 
 
@@ -228,11 +301,17 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
 
     kernel = PLANTED_FAULTS[fault][0]
     gen = torch.Generator(device=cuda).manual_seed(0)
+    tol = TOL["bfloat16"]
     if kernel == "rmsnorm":
         x = torch.randn(2048, 4096, generator=gen, device=cuda).to(torch.bfloat16)
         w = (torch.rand(4096, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
         call = lambda: rmsnorm_cuda(x, w, 1e-6)  # noqa: E731
         want = ref.rmsnorm_ref(x.float(), w.float(), eps=1e-6)
+    elif kernel == "mamba_scan":
+        a, b, c, _ = _scan_on_card(cuda, 4, 512, 8192, 16, False)
+        call = lambda: mamba_scan_cuda(a, b, c)[0]  # noqa: E731
+        want = ref.mamba_scan_ref(a, b, c)[0]
+        tol = TOL["float32"]
     else:
         q, k, v = (torch.randn(n, 512, 128, generator=gen, device=cuda).to(torch.bfloat16)
                    for n in (128, 16, 16))
@@ -250,6 +329,6 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
                    ((out.float() - want).abs().max() / want.abs().max()).item())
             for name, out in (("sound", sound), ("faulty", faulty))}
     print(f"\n[planted] {fault}: scaled err sound {errs['sound'][0]:.6g}, faulty "
-          f"{errs['faulty'][0]:.6g} (tol {TOL['bfloat16']}); error over the largest "
+          f"{errs['faulty'][0]:.6g} (tol {tol}); error over the largest "
           f"value: sound {errs['sound'][1]:.6g}, faulty {errs['faulty'][1]:.6g}")
-    assert errs["sound"][0] <= TOL["bfloat16"] < errs["faulty"][0]
+    assert errs["sound"][0] <= tol < errs["faulty"][0]

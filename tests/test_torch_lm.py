@@ -134,7 +134,7 @@ def test_bf16_params_carry_across_exactly():
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["gemma_7b", "dbrx_132b", "falcon_mamba_7b",
+@pytest.mark.parametrize("arch", ["gemma_7b", "dbrx_132b", "jamba_1_5_large_398b",
                                   "deepseek_v2_236b"])
 def test_registry_names_what_is_not_ported(arch):
     from repro_torch.configs import get_config
