@@ -23,7 +23,25 @@ Phases, each reported on its own lines:
    tolerance (rms) of the latter;
 5. full-width Falcon-Mamba-7B, after Yi's weights are freed, served and
    checked the same way: every RMSNorm and every prefill selective scan
-   must go through the kernels.
+   must go through the kernels;
+6. the full-lane alltoall's block regroup, ``a2a_pack``, against its plain
+   version on the card, bit for bit (a copy), at the EP-dispatch shapes of
+   DeepSeek-V2's width and the reference tests' shapes, timed as in phase
+   3; faults planted in copies of its source (built in phase 2) must each
+   fail that check;
+7. the paper's collectives on the card: 8 ranks (2 pods x 4 lanes), each a
+   process on this one card, over gloo (NCCL refuses two ranks on one
+   device), every exchange staged through pinned host memory.  Each rank
+   routes the EP dispatch of 1024 tokens x top-6 at d_model 5120 (bf16)
+   with the flat and the full-lane alltoall, which must equal each other
+   and a numpy oracle bit for bit, with 2 ``a2a_pack`` launches per
+   full-lane call; sums a 25 MiB float32 gradient bucket (and one element
+   more: the pad path) hierarchically, against the flat sum; and
+   broadcasts (full-lane; k-ported, k = 1, 2, 3) and scatters (k-ported,
+   k = 2) a 25 MiB payload, exactly.  Its times are host-clock times of
+   host-staged gloo, not interconnect numbers.  The same job then runs
+   as one NCCL rank (a world of one: no peer, but the transport's NCCL
+   branch, which must stage nothing).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -69,6 +87,27 @@ L2_BYTES = 50 * 2**20  # H100 SXM L2 cache
 #: cold timings rotate through copies of the inputs spanning this many L2s
 COLD_SPAN = 4
 MAX_COPIES = 256
+
+
+#: faults planted in copies of ``csrc/a2a_pack.cu`` (name: sound line,
+#: faulty line, shape it is checked at): each must fail phase 6's equality
+#: check.  ``tests/test_torch_kernels.py`` plants the same ones.
+PACK_FAULTS = {
+    "tile_written_to_o_i": (
+        "uint8_t* dst = out + (i * No + o) * tile_bytes;",
+        "uint8_t* dst = out + t * tile_bytes;", (2, 4, 768, 5120)),
+    "tail_bytes_dropped": (
+        "b < tile_bytes; b += (long long)gridDim.x * kThreads)",
+        "b < nvec * 16; b += (long long)gridDim.x * kThreads)", (2, 3, 5, 7)),
+    "chunk_stride_off_by_one_vector": (
+        "const long long chunk0 = (long long)blockIdx.x * kChunk;",
+        "const long long chunk0 = (long long)blockIdx.x * (kChunk + 1);", (2, 4, 768, 5120)),
+}
+#: phase 7's mesh and sizes: DeepSeek-V2's width, 1024 tokens x top-6 per
+#: rank (768 rows per destination); PyTorch DDP's default 25 MiB bucket
+COLLECTIVES = {"pods": 2, "lanes": 4, "tokens": 1024, "top_k": 6, "d_model": 5120,
+               "bucket": 25 * 2**20 // 4}
+HOST_STAGED = "gloo, host-staged, 8 ranks on one card: not an interconnect number"
 
 
 def _graph_ms(calls) -> float:
@@ -155,21 +194,32 @@ def card() -> str:
     return smi
 
 
-def build_kernels() -> float:
+def build_kernels() -> dict:
+    """Every kernel and every planted fault of ``PACK_FAULTS``, one ``nvcc``
+    per source, all at once.  Returns the planted faults' libraries."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    build.build()
+    src = (build.SRC_DIR / "a2a_pack.cu").read_text()
+    planted = OUT_DIR / "planted"
+    planted.mkdir(parents=True, exist_ok=True)
+    fault_jobs = {}
+    for name, (sound, faulty, _) in PACK_FAULTS.items():
+        if src.count(sound) != 1:
+            raise AssertionError(f"planted fault {name}: its sound line is not in a2a_pack.cu")
+        (planted / f"{name}.cu").write_text(src.replace(sound, faulty))
+        fault_jobs[f"a2a_pack:{name}"] = (planted / f"{name}.cu", planted / f"{name}.so")
+    build.compile_sources({**build.jobs(), **fault_jobs})
     secs = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     log = "\n".join(f"== {n}\n{out}" for n, out in build.BUILD_LOG.items())
     (OUT_DIR / "kernel_build_log.txt").write_text(log)
-    print(f"[build] {len(build.KERNELS)} kernels in {secs:.1f} s "
-          f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    print(f"[build] {len(build.KERNELS)} kernels and {len(fault_jobs)} planted faults in "
+          f"{secs:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
     for line in log.splitlines():
         if "Used" in line or "spill" in line or line.startswith("=="):
             print(f"[build]   {line.strip()}")
-    return secs
+    return {name.split(":")[1]: lib for name, (_, lib) in fault_jobs.items()}
 
 
 def rmsnorm_cases(gen):
@@ -313,15 +363,15 @@ def mamba_cases(gen):
 
 
 def kernel_entry(name, source, replaces, cases, launches, tolerance=TOL_BF16):
-    """The JSON record of one kernel: numbers at the main path's first
-    (prefill) shape, every case beside them.  ``launches`` maps each served
-    model to the kernel's launches over its run; the record's count is
-    their sum."""
+    """The JSON record of one kernel: numbers at the main path's shape (the
+    first case), every case beside them.  ``launches`` maps each run of the
+    main path (a served model, a rank) to the kernel's launches over it;
+    the record's count is their sum."""
     main = cases[0]
     bound_ms = max(main["bound_bytes_ms"], main["bound_ops_ms"])
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": sum(launches.values()), "launches_by_model": launches,
+        "launches": sum(launches.values()), "launches_by_run": launches,
         "max_abs_err": max(c["max_abs_err"] for c in cases),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": bound_ms,
         "bound_by": "bytes" if main["bound_bytes_ms"] >= main["bound_ops_ms"]
@@ -346,6 +396,200 @@ def plain_kernels():
         yield
     finally:
         ops.rmsnorm, ops.flash_attention, ops.mamba_scan = saved
+
+
+def pack_cases(gen, fault_libs) -> list:
+    """Phase 6: ``a2a_pack`` against its plain version, bit for bit, and
+    every planted fault against the same check."""
+    import torch
+
+    from repro_torch.kernels import a2a_pack, build
+    from repro_torch.kernels.a2a_pack import a2a_pack_cuda
+    from repro_torch.kernels.ref import a2a_pack_ref
+
+    specs = [  # (label, [No, Ni, blk, d], dtype)
+        ("EP dispatch, 1024 tokens x top-6 per rank (the main path's "
+         "[2,4,1,3932160])", (2, 4, 768, 5120), torch.bfloat16),
+        ("EP prefill, 4096 tokens x top-6 per rank", (2, 4, 3072, 5120), torch.bfloat16),
+        ("EP dispatch, 4 pods x 2 lanes", (4, 2, 768, 5120), torch.bfloat16),
+        ("reference test shape", (3, 4, 8, 16), torch.float32),
+        ("reference test shape", (8, 1, 2, 32), torch.float32),
+        ("70-byte tiles: vectors and tail, or bytes", (2, 3, 5, 7), torch.bfloat16),
+    ]
+    cases = []
+    for label, shape, dt in specs:
+        x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+        out = a2a_pack_cuda(x)
+        torch.cuda.synchronize()
+        if not torch.equal(out, a2a_pack_ref(x)):
+            raise AssertionError(f"a2a_pack {shape}: not equal to its plain version")
+        nbytes = 2 * x.numel() * x.element_size()  # each byte read once, written once
+        cases.append({
+            "shape": f"{label}: x[{','.join(map(str, shape))}] {str(dt)[6:]}",
+            "max_abs_err": 0.0, "scaled_err": 0.0, "equal": True,
+            **_times(a2a_pack_cuda, a2a_pack_ref, a2a_pack_ref, (x,), iters=20),
+            "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_ops_ms": 0.0,
+        })
+        del x, out
+    saved = build._LIBS["a2a_pack"]
+    try:
+        for name, (_, _, shape) in PACK_FAULTS.items():
+            x = torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+            want = a2a_pack_ref(x)  # kept alive: no output reuses its memory
+            build._LIBS["a2a_pack"] = build.load(fault_libs[name], a2a_pack._SIGNATURES)
+            faulty = a2a_pack_cuda(x)
+            torch.cuda.synchronize()
+            differ = int((faulty.view(torch.uint8) != want.view(torch.uint8)).sum())
+            print(f"[kernel] a2a_pack planted fault {name} at {shape}: {differ} of "
+                  f"{want.numel() * want.element_size()} bytes differ")
+            if differ == 0:
+                raise AssertionError(f"planted fault {name} passed the equality check")
+            cases[0].setdefault("planted_faults_bytes_differing", {})[name] = differ
+            del x, want, faulty
+    finally:
+        build._LIBS["a2a_pack"] = saved
+    return cases
+
+
+def collectives_job(pods, lanes, tokens, top_k, d_model, bucket, device="cuda",
+                    seed=0) -> dict:
+    """Phase 7, the body of one rank (``repro_torch.launch.ranks``): the EP
+    dispatch, then the sums, broadcasts and scatter, each checked.  Raises
+    on any failed check.  Returns the kernels' launches over the dispatch,
+    the host-clock seconds and the traffic of each collective."""
+    import torch
+
+    from repro_torch.core import collectives as C
+    from repro_torch.core.groups import Mesh2D
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import scaled_err
+    from repro_torch.launch import ep_dispatch
+
+    mesh = Mesh2D(pods, lanes)
+    me, P = mesh.world.index, mesh.world.size
+    ops.reset_launches()
+    dispatch = ep_dispatch.run_rank(mesh, tokens=tokens, top_k=top_k, d_model=d_model,
+                                    dtype="bfloat16", device=device, seed=seed)
+    launches = {f.__name__: f.launches for f in ops._DISPATCHERS}
+    bad = [k for k in ("flat_equals_fulllane", "flat_equals_oracle",
+                       "fulllane_equals_oracle") if not dispatch[k]]
+    if bad:
+        raise AssertionError(f"rank {me}: EP dispatch fails {bad}")
+    want = {**dict.fromkeys(launches, 0),
+            "a2a_pack": 2 * dispatch["fulllane_calls"] if device == "cuda" else 0}
+    if launches != want:
+        raise AssertionError(f"rank {me}: launches {launches} != {want}")
+
+    seconds, traffic = {}, {}
+
+    def timed(name, fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        mesh.traffic.reset()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        traffic[name] = mesh.traffic.snapshot()
+        return out
+
+    gen = torch.Generator(device=device)
+    for n in (bucket, bucket + 1):
+        x = torch.randn(n, generator=gen.manual_seed(seed * 1000 + me), device=device)
+        C.hierarchical_psum(x, mesh.pod, mesh.lane)  # warm-up
+        hier = timed(f"hierarchical_psum {n}", lambda: C.hierarchical_psum(x, mesh.pod, mesh.lane))
+        flat = timed(f"flat_psum {n}", lambda: C.flat_psum(x, mesh.pod, mesh.lane))
+        err = scaled_err(hier, flat)
+        if not err <= TOL_F32:
+            raise AssertionError(f"rank {me}: hierarchical_psum of {n}: scaled err {err} "
+                                 f"against flat_psum > {TOL_F32}")
+    payload = torch.randn(bucket, generator=gen.manual_seed(seed), device=device)
+    shard = (payload.view(lanes, -1)[mesh.lane.index] if mesh.pod.index == 0
+             else torch.full((bucket // lanes,), -99.0, device=device))
+    got = {"fulllane_broadcast": timed("fulllane_broadcast", lambda: C.fulllane_broadcast(
+        shard, mesh.pod, mesh.lane, root=0))}
+    mine = payload if me == 0 else torch.full_like(payload, -1.0)
+    for k in (1, 2, 3):
+        got[f"kported_broadcast k={k}"] = timed(
+            f"kported_broadcast k={k}",
+            lambda: C.kported_broadcast_ppermute(mine, mesh.world, k=k))
+    blocks = payload.view(P, -1)
+    got["kported_scatter k=2"] = timed(
+        "kported_scatter k=2", lambda: C.kported_scatter_ppermute(
+            blocks if me == 0 else torch.zeros_like(blocks), mesh.world, k=2))
+    for name, out in got.items():
+        if not torch.equal(out, blocks[me] if "scatter" in name else payload):
+            raise AssertionError(f"rank {me}: {name} did not deliver the payload")
+    return {"rank": me, "dispatch": dispatch, "launches": launches, "seconds": seconds,
+            "traffic": traffic, "transport": dispatch["transport"]}
+
+
+def collectives_phase() -> list:
+    """Phase 7: ``collectives_job`` in 8 ranks on this card, then in one NCCL
+    rank."""
+    from repro_torch.launch import ranks
+
+    world = COLLECTIVES["pods"] * COLLECTIVES["lanes"]
+    t0 = time.perf_counter()
+    results = ranks.run("chip_smoke:collectives_job", world,
+                        kwargs={**COLLECTIVES, "device": "cuda"}, timeout_s=600)
+    print(f"[collectives] {world} ranks ({COLLECTIVES['pods']} pods x "
+          f"{COLLECTIVES['lanes']} lanes) on cuda:0, transport {results[0]['transport']}, in "
+          f"{time.perf_counter() - t0:.1f} s (start-up included); every check passed on "
+          f"every rank")
+    d0 = results[0]["dispatch"]
+    print(f"[collectives] EP dispatch: {d0['rows_per_destination']} rows x "
+          f"{COLLECTIVES['d_model']} bf16 per destination, "
+          f"{d0['bytes_per_rank'] / 1e6:.1f} MB per rank: flat == fulllane == numpy oracle, "
+          f"bit for bit, on all {world} ranks; a2a_pack launches by rank "
+          f"{[r['launches']['a2a_pack'] for r in results]} (2 per fulllane_all_to_all call, "
+          f"{d0['fulllane_calls']} calls)")
+    times = {"ep_dispatch flat": [r["dispatch"]["seconds"]["flat"] for r in results],
+             "ep_dispatch fulllane": [r["dispatch"]["seconds"]["fulllane"] for r in results]}
+    for name in results[0]["seconds"]:
+        times[name] = [r["seconds"][name] for r in results]
+    for name, ts in times.items():
+        print(f"[collectives] {name}: host clock median {statistics.median(ts) * 1e3:.3f} ms, "
+              f"max {max(ts) * 1e3:.3f} ms over ranks ({HOST_STAGED})")
+    for name, counts in _traffic(results[0]).items():
+        for key, c in counts.items():
+            print(f"[collectives] rank 0 {name} {key}: {c['messages']} messages, "
+                  f"{c['bytes']} bytes; cross-pod {c['cross_pod_messages']} messages, "
+                  f"{c['cross_pod_bytes']} bytes; staged through the host {c['staged_bytes']} "
+                  f"bytes")
+
+    # the transport's NCCL branch, in the one NCCL world one card allows
+    nccl = ranks.run("chip_smoke:collectives_job", 1, backend="nccl", timeout_s=300,
+                     kwargs={**COLLECTIVES, "pods": 1, "lanes": 1, "device": "cuda"})[0]
+    staged = sum(c["staged_bytes"] for counts in _traffic(nccl).values()
+                 for c in counts.values())
+    if not nccl["transport"].startswith("nccl,") or staged:
+        raise AssertionError(f"NCCL rank: transport {nccl['transport']!r}, {staged} bytes "
+                             f"staged through the host")
+    print(f"[collectives] NCCL, 1 rank (no peer: the NCCL branch of the transport, "
+          f"CUDA tensors as they are): every check passed, transport {nccl['transport']}, "
+          f"a2a_pack launches {nccl['launches']['a2a_pack']}, 0 bytes staged")
+    return results
+
+
+def _traffic(result) -> dict:
+    """A rank's traffic counts, by collective: the dispatch's and the rest."""
+    return {**{f"ep_dispatch {k}": v for k, v in result["dispatch"]["traffic"].items()},
+            **result["traffic"]}
+
+
+def _print_cases(name, cases, tol) -> None:
+    for c in cases:
+        lib = ("none" if c["library_ms"] is None else
+               f"{c['library_ms']:.6f} (L2 warm {c['library_ms_warm']:.6f})")
+        print(f"[kernel] {name} {c['shape']}: max abs err {c['max_abs_err']:.3g}, "
+              f"scaled {c['scaled_err']:.3g} (tol {tol}); device ms, inputs "
+              f"{c['inputs']}: kernel {c['ms']:.6f}, plain {c['plain_ms']:.6f}, "
+              f"library {lib}; L2 warm: kernel {c['ms_warm']:.6f}, "
+              f"plain {c['plain_ms_warm']:.6f}; "
+              f"bound {max(c['bound_bytes_ms'], c['bound_ops_ms']):.6f} ms "
+              f"(bytes {c['bound_bytes_ms']:.6f}, ops {c['bound_ops_ms']:.6f})")
 
 
 class StepTimes:
@@ -537,30 +781,28 @@ def main() -> int:
     t_start = time.perf_counter()
 
     smi = card()
-    build_kernels()
+    fault_libs = build_kernels()
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = rmsnorm_cases(gen)
     fla = flash_cases(gen)
     mam = mamba_cases(gen)
-    for name, cases in (("rmsnorm", rms), ("flash_attention", fla), ("mamba_scan", mam)):
-        for c in cases:
-            lib = ("none" if c["library_ms"] is None else
-                   f"{c['library_ms']:.6f} (L2 warm {c['library_ms_warm']:.6f})")
-            print(f"[kernel] {name} {c['shape']}: max abs err {c['max_abs_err']:.3g}, "
-                  f"scaled {c['scaled_err']:.3g} (tol "
-                  f"{TOL_F32 if name == 'mamba_scan' else TOL_BF16}); device ms, inputs "
-                  f"{c['inputs']}: kernel {c['ms']:.6f}, plain {c['plain_ms']:.6f}, "
-                  f"library {lib}; L2 warm: kernel {c['ms_warm']:.6f}, "
-                  f"plain {c['plain_ms_warm']:.6f}; "
-                  f"bound {max(c['bound_bytes_ms'], c['bound_ops_ms']):.6f} ms "
-                  f"(bytes {c['bound_bytes_ms']:.6f}, ops {c['bound_ops_ms']:.6f})")
+    for name, cases, tol in (("rmsnorm", rms, TOL_BF16), ("flash_attention", fla, TOL_BF16),
+                             ("mamba_scan", mam, TOL_F32)):
+        _print_cases(name, cases, tol)
 
     served = {}
     for arch in SERVED:  # one model on the card at a time
         gc.collect()
         torch.cuda.empty_cache()
         served[arch] = serve(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pack = pack_cases(gen, fault_libs)
+    _print_cases("a2a_pack", pack, 0)
+    ranks = collectives_phase()
+
     by_model = lambda k: {a: r["launches"][k] for a, r in served.items()}  # noqa: E731
     kernels = [
         kernel_entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -571,10 +813,14 @@ def main() -> int:
         kernel_entry("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
                      "src/repro/kernels/mamba_scan.py:60", mam, by_model("mamba_scan"),
                      tolerance=TOL_F32),
+        kernel_entry("a2a_pack", "src/repro_torch/kernels/csrc/a2a_pack.cu",
+                     "src/repro/kernels/a2a_pack.py:27", pack,
+                     {f"ep_dispatch rank {r['rank']}": r["launches"]["a2a_pack"]
+                      for r in ranks}, tolerance=0),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "kernels": kernels, "serve": served}, indent=1))
+        {"card": smi, "kernels": kernels, "serve": served, "collectives": ranks}, indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}, allow_nan=False))

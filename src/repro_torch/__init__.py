@@ -3,9 +3,10 @@
 The JAX package ``repro`` is the reference; this package imports nothing of
 it and keeps its own copies of what it needs.  Module names follow the
 reference's, so each module's counterpart is found under the same path.
-The three TPU kernels on the serving paths (RMSNorm, flash attention and
-the Mamba selective scan) are CUDA C++ kernels under ``kernels/csrc``;
-everything else is plain PyTorch.
+The four TPU kernels (RMSNorm, flash attention and the Mamba selective
+scan on the serving paths; the full-lane alltoall's block regroup on the
+collectives' path) are CUDA C++ kernels under ``kernels/csrc``; everything
+else is plain PyTorch, and the collectives run on ``torch.distributed``.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``: they
 raise when CUDA is absent, unless the caller asked for ``"cpu"``.

@@ -17,12 +17,12 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "compile_sources", "library",
-           "load"]
+__all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "compile_sources", "jobs",
+           "library", "load"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("rmsnorm", "flash_attention", "mamba_scan")
+KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "a2a_pack")
 # -Xptxas -v: registers, shared memory and spills of every kernel, kept in
 # BUILD_LOG for the record of a run
 NVCC_FLAGS = (
@@ -53,11 +53,16 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
+def jobs(names=KERNELS) -> dict[str, tuple[Path, Path]]:
+    """The ``name: (source, library)`` build job of every named kernel whose
+    library is missing, for :func:`compile_sources`."""
+    return {n: (SRC_DIR / f"{n}.cu", _target(n)) for n in names if not _target(n).exists()}
+
+
 def build(names=KERNELS) -> None:
     """Compile every named source whose library is missing.  Raises with the
     compiler's output if any build fails."""
-    compile_sources({n: (SRC_DIR / f"{n}.cu", _target(n))
-                     for n in names if not _target(n).exists()})
+    compile_sources(jobs(names))
 
 
 def compile_sources(jobs: dict[str, tuple[Path, Path]]) -> None:

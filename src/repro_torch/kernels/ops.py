@@ -14,12 +14,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.a2a_pack import a2a_pack_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
-from repro_torch.kernels.ref import flash_attention_ref, mamba_scan_ref, rmsnorm_ref
+from repro_torch.kernels.ref import (
+    a2a_pack_ref,
+    flash_attention_ref,
+    mamba_scan_ref,
+    rmsnorm_ref,
+)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
-__all__ = ["flash_attention", "mamba_scan", "rmsnorm", "reset_launches"]
+__all__ = ["a2a_pack", "flash_attention", "mamba_scan", "rmsnorm", "reset_launches"]
 
 
 def _no_path(name: str, t: torch.Tensor):
@@ -63,7 +69,19 @@ def mamba_scan(a, b, c, h0=None):
     raise _no_path("mamba_scan", a)
 
 
-_DISPATCHERS = (rmsnorm, flash_attention, mamba_scan)
+def a2a_pack(x: torch.Tensor) -> torch.Tensor:
+    """[No, Ni, blk, d] -> [Ni, No, blk, d] (the leading two dims swapped),
+    any dtype; contiguous output."""
+    if x.is_cuda:
+        out = a2a_pack_cuda(x)
+        a2a_pack.launches += 1
+        return out
+    if x.device.type == "cpu":
+        return a2a_pack_ref(x)
+    raise _no_path("a2a_pack", x)
+
+
+_DISPATCHERS = (rmsnorm, flash_attention, mamba_scan, a2a_pack)
 
 
 def reset_launches() -> None:

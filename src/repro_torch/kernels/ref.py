@@ -8,7 +8,8 @@ import math
 
 import torch
 
-__all__ = ["flash_attention_ref", "mamba_scan_ref", "rmsnorm_ref", "scaled_err"]
+__all__ = ["a2a_pack_ref", "flash_attention_ref", "mamba_scan_ref", "rmsnorm_ref",
+           "scaled_err"]
 
 _NEG = -1e30
 
@@ -63,6 +64,13 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def a2a_pack_ref(x: torch.Tensor) -> torch.Tensor:
+    """[No, Ni, blk, d] -> [Ni, No, blk, d], contiguous: the reference's
+    ``swapaxes(x, 0, 1)``.  One PyTorch call, so it is also the library
+    yardstick of the kernel."""
+    return x.transpose(0, 1).contiguous()
 
 
 def scaled_err(out: torch.Tensor, want: torch.Tensor) -> float:

@@ -50,7 +50,7 @@ def test_port_imports_nothing_of_jax_or_the_reference(path):
 def _entry_points():
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import params_from_numpy
-    from repro_torch.launch import serve
+    from repro_torch.launch import ep_dispatch, serve
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServeEngine
 
@@ -62,11 +62,12 @@ def _entry_points():
         "lm.init_cache": lambda: lm.init_cache(cfg, 2, 8),
         "params_from_numpy": lambda: params_from_numpy(cfg, {}),
         "serve CLI": lambda: serve.main(["--arch", "yi_6b", "--smoke"]),
+        "ep_dispatch CLI": lambda: ep_dispatch.main([]),
     }
 
 
 @pytest.mark.parametrize("name", ["ServeEngine", "lm.init_model", "lm.init_cache",
-                                  "params_from_numpy", "serve CLI"])
+                                  "params_from_numpy", "serve CLI", "ep_dispatch CLI"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")

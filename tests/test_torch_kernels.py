@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.a2a_pack import a2a_pack_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
@@ -122,6 +123,26 @@ def test_mamba_scan_cpu_call_runs_the_plain_version_uncounted():
     assert ops.mamba_scan.launches == before
 
 
+@pytest.mark.parametrize("shape,dt", [((3, 4, 8, 16), "float32"), ((2, 2, 4, 4), "float32"),
+                                      ((8, 1, 2, 32), "float32"), ((2, 3, 5, 7), "bfloat16")])
+def test_a2a_pack_matches_pallas(jax_kernels, shape, dt):
+    """The regroup is a copy: exact, in any dtype."""
+    jops, _ = jax_kernels
+    jx, tx = _both(RNG.randn(*shape).astype(np.float32), dt)
+    out = ops.a2a_pack(tx)
+    assert out.dtype == tx.dtype and out.is_contiguous()
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(jops.a2a_pack(jx).astype(np.float32)))
+
+
+def test_a2a_pack_cpu_call_runs_the_plain_version_uncounted():
+    x = torch.randn(3, 4, 5, 6)
+    before = ops.a2a_pack.launches
+    torch.testing.assert_close(ops.a2a_pack(x), ref.a2a_pack_ref(x), rtol=0, atol=0)
+    torch.testing.assert_close(ops.a2a_pack(x), x.permute(1, 0, 2, 3), rtol=0, atol=0)
+    assert ops.a2a_pack.launches == before
+
+
 def _scan_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
     return (torch.rand(B, S, di, N, dtype=dtype), torch.randn(B, S, di, N, dtype=dtype),
             torch.randn(B, S, N, dtype=dtype))
@@ -137,6 +158,9 @@ def _scan_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
     (lambda: mamba_scan_cuda(_scan_args()[0].transpose(2, 3).contiguous().transpose(2, 3),
                              *_scan_args()[1:]), "contiguous"),
     (lambda: mamba_scan_cuda(*_scan_args(), torch.zeros(2, 8)), r"h0 \[B, di, N\]"),
+    (lambda: a2a_pack_cuda(torch.randn(2, 4, 3, 8)), "CUDA device"),
+    (lambda: a2a_pack_cuda(torch.randn(2, 4, 24)), r"want x \[No, Ni, blk, d\]"),
+    (lambda: a2a_pack_cuda(torch.randn(2, 4, 0, 8)), "nonempty"),
     (lambda: rmsnorm_cuda(torch.randn(4, 64), torch.rand(64)), "CUDA device"),
     (lambda: rmsnorm_cuda(torch.randn(4, 60), torch.rand(60)), "multiple of 8"),
     (lambda: rmsnorm_cuda(torch.randn(4, 64).half(), torch.rand(64)), "bfloat16"),
@@ -251,6 +275,35 @@ def test_mamba_scan_wrapper_refuses_a_strided_card_tensor(cuda):
         mamba_scan_cuda(a[:, ::2], b[:, ::2], c[:, ::2])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dt", [
+    ((2, 4, 768, 5120), torch.bfloat16),  # EP dispatch of 1024 tokens x top-6 per rank
+    ((4, 2, 768, 5120), torch.bfloat16),
+    ((3, 4, 8, 16), torch.float32),       # the reference tests' shapes
+    ((2, 2, 4, 4), torch.float32),
+    ((8, 1, 2, 32), torch.float32),
+    ((2, 3, 5, 7), torch.bfloat16),       # 70-byte tiles: vectors and a tail, or bytes
+    ((3, 5, 1, 3), torch.uint8),          # 3-byte tiles
+    ((2, 2, 16, 16), torch.float64),
+])
+def test_a2a_pack_kernel_on_card(cuda, shape, dt):
+    """A copy: bit for bit against the plain version, in any dtype."""
+    x = torch.randn(*shape, device=cuda).mul(100).to(dt)
+    n0 = ops.a2a_pack.launches
+    out = ops.a2a_pack(x)
+    torch.cuda.synchronize()
+    assert ops.a2a_pack.launches == n0 + 1
+    assert out.dtype == dt and out.shape == (shape[1], shape[0]) + shape[2:]
+    assert torch.equal(out, ref.a2a_pack_ref(x))
+
+
+@pytest.mark.cuda
+def test_a2a_pack_wrapper_refuses_a_strided_card_tensor(cuda):
+    x = torch.randn(4, 2, 3, 8, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        a2a_pack_cuda(x.transpose(0, 1))
+
+
 # Faults planted in copies of the kernels' sources, each of a kind a kernel
 # like these can ship with: the check above must refuse every one of them at
 # the serving shapes, where the sound kernels pass it.
@@ -271,6 +324,15 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "scan_readout_last_lane_left_out": (
         "mamba_scan", "float p = __fmul_rn(h, cv[u]);",
         "float p = n == N - 1 ? 0.f : __fmul_rn(h, cv[u]);"),
+    "pack_tile_written_to_o_i": (
+        "a2a_pack", "uint8_t* dst = out + (i * No + o) * tile_bytes;",
+        "uint8_t* dst = out + t * tile_bytes;"),
+    "pack_tail_bytes_dropped": (
+        "a2a_pack", "b < tile_bytes; b += (long long)gridDim.x * kThreads)",
+        "b < nvec * 16; b += (long long)gridDim.x * kThreads)"),
+    "pack_chunk_stride_off_by_one_vector": (
+        "a2a_pack", "const long long chunk0 = (long long)blockIdx.x * kChunk;",
+        "const long long chunk0 = (long long)blockIdx.x * (kChunk + 1);"),
 }
 
 
@@ -302,6 +364,21 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
     kernel = PLANTED_FAULTS[fault][0]
     gen = torch.Generator(device=cuda).manual_seed(0)
     tol = TOL["bfloat16"]
+    if kernel == "a2a_pack":  # a copy: the check is equality
+        shape = (2, 3, 5, 7) if "tail" in fault else (2, 4, 768, 5120)
+        x = torch.randn(*shape, generator=gen, device=cuda).to(torch.bfloat16)
+        want = ref.a2a_pack_ref(x)  # kept alive, so no output reuses its memory
+        sound = a2a_pack_cuda(x)
+        module = importlib.import_module("repro_torch.kernels.a2a_pack")
+        monkeypatch.setitem(build._LIBS, kernel,
+                            build.load(faulty_libraries[fault], module._SIGNATURES))
+        faulty = a2a_pack_cuda(x)
+        torch.cuda.synchronize()
+        print(f"\n[planted] {fault}: sound equal {torch.equal(sound, want)}, faulty equal "
+              f"{torch.equal(faulty, want)}, faulty bytes differing "
+              f"{int((faulty.view(torch.uint8) != want.view(torch.uint8)).sum())}")
+        assert torch.equal(sound, want) and not torch.equal(faulty, want)
+        return
     if kernel == "rmsnorm":
         x = torch.randn(2048, 4096, generator=gen, device=cuda).to(torch.bfloat16)
         w = (torch.rand(4096, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
