@@ -10,10 +10,11 @@ Phases, each reported on its own lines:
    with ``nvcc`` (one process per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
    the Yi-6B and Falcon-Mamba-7B serving paths give it plus ragged,
-   windowed, small-head, initial-state and small-state cases: error, kernel
-   time, plain time, the time of one PyTorch library call computing the
-   same function where there is one (each with its inputs cold in device
-   memory and warm in L2), and the card's least time (bound);
+   windowed, small-head, long-prompt, initial-state and small-state
+   cases: error, kernel time, plain time, the time of one PyTorch library
+   call computing the same function where there is one (each with its
+   inputs cold in device memory and warm in L2), and the card's least time
+   (bound);
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
    greedy.  The kernels' launch counts over that run must show that every
@@ -263,45 +264,70 @@ def _attn_pairs(Sq, Skv, causal, window) -> int:
     return n
 
 
-def flash_cases(gen):
-    """Kernel against plain version: Yi prefill, ragged, windowed, hd 16."""
+#: phase 3's attention cases: (label, BH, g, Sq, Skv, hd, causal, window)
+FLASH_SPECS = [
+    ("yi prefill", 4 * 32, 8, 512, 512, 128, True, None),
+    ("ragged", 4 * 32, 8, 300, 300, 128, True, None),
+    ("window 128", 4 * 32, 8, 512, 512, 128, True, 128),
+    ("hd 16", 4 * 8, 4, 256, 256, 16, True, None),
+    ("long prompt", 32, 8, 4096, 4096, 128, True, None),  # one sequence at Yi's context
+]
+
+
+def flash_inputs(gen, BH, g, Sq, Skv, hd):
+    """bf16 q [BH, Sq, hd] and k, v [BH // g, Skv, hd] on the card."""
+    import torch
+
+    mk = lambda n, s: torch.randn(n, s, hd, generator=gen,  # noqa: E731
+                                  device="cuda").to(torch.bfloat16)
+    return mk(BH, Sq), mk(BH // g, Skv), mk(BH // g, Skv)
+
+
+def flash_library(Sq, Skv, causal, window):
+    """The library yardstick: PyTorch's fused attention on [1, BH, S, hd]."""
     import torch
     import torch.nn.functional as F
+
+    mask = None
+    if window is not None:
+        qp = torch.arange(Sq, device="cuda")[:, None]
+        kp = torch.arange(Skv, device="cuda")[None, :]
+        mask = (kp > qp - window) & ((kp <= qp) if causal else True)
+
+    def lib(q, k, v):
+        return F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask,
+            is_causal=mask is None and causal, enable_gqa=True)[0]
+
+    return lib
+
+
+def flash_bounds(BH, g, Sq, Skv, hd, causal, window) -> dict:
+    """The card's least time for one call, by bytes and by operations."""
+    nbytes = (2 * BH * Sq + 2 * (BH // g) * Skv) * hd * 2  # q in, o out, k and v, bf16
+    flops = 4 * hd * BH * _attn_pairs(Sq, Skv, causal, window)  # QK^T and PV
+    return {"bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_ops_ms": flops / PEAK_BF16_TC_FLOPS * 1e3}
+
+
+def flash_cases(gen):
+    """Kernel against plain version: Yi prefill, ragged, windowed, hd 16,
+    and one sequence at Yi's 4096 context (bound by the tensor cores)."""
+    import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
 
-    specs = [  # (label, BH, g, Sq, Skv, hd, causal, window)
-        ("yi prefill", 4 * 32, 8, 512, 512, 128, True, None),
-        ("ragged", 4 * 32, 8, 300, 300, 128, True, None),
-        ("window 128", 4 * 32, 8, 512, 512, 128, True, 128),
-        ("hd 16", 4 * 8, 4, 256, 256, 16, True, None),
-    ]
     cases = []
-    for label, BH, g, Sq, Skv, hd, causal, window in specs:
-        mk = lambda n, s: torch.randn(n, s, hd, generator=gen,  # noqa: E731
-                                      device="cuda").to(torch.bfloat16)
-        q, k, v = mk(BH, Sq), mk(BH // g, Skv), mk(BH // g, Skv)
+    for label, BH, g, Sq, Skv, hd, causal, window in FLASH_SPECS:
+        q, k, v = flash_inputs(gen, BH, g, Sq, Skv, hd)
         kw = dict(group_size=g, causal=causal, window=window)
         out = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
         abs_err, err = _err(out, flash_attention_ref(q.float(), k.float(), v.float(), **kw))
         if not err <= TOL_BF16:
             raise AssertionError(f"flash_attention {label}: scaled err {err} > {TOL_BF16}")
-        # library yardstick: PyTorch's fused attention on [B, H, S, hd]
-        qp = torch.arange(Sq, device="cuda")[:, None]
-        kp = torch.arange(Skv, device="cuda")[None, :]
-        mask = None
-        if window is not None:
-            mask = (kp <= qp) & (kp > qp - window)
-
-        def lib(q, k, v):
-            return F.scaled_dot_product_attention(
-                q[None], k[None], v[None], attn_mask=mask,
-                is_causal=mask is None and causal, enable_gqa=True)[0]
-
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        flops = 4 * hd * BH * _attn_pairs(Sq, Skv, causal, window)  # QK^T and PV
+        lib = flash_library(Sq, Skv, causal, window)
         cases.append({
             "shape": f"{label}: q[{BH},{Sq},{hd}] kv[{BH // g},{Skv},{hd}] g={g}"
                      f"{' causal' if causal else ''}"
@@ -311,9 +337,9 @@ def flash_cases(gen):
             **_times(lambda q, k, v: flash_attention_cuda(q, k, v, **kw),
                      lambda q, k, v: flash_attention_ref(q, k, v, **kw),
                      lib, (q, k, v), iters=20),
-            "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-            "bound_ops_ms": flops / PEAK_BF16_TC_FLOPS * 1e3,
+            **flash_bounds(BH, g, Sq, Skv, hd, causal, window),
         })
+        del q, k, v, out
     return cases
 
 

@@ -5,102 +5,175 @@
 // of src/repro/kernels/flash_attention.py.  On the TPU the KV-block grid
 // dimension runs in order on one core and the softmax state (m, l, acc)
 // lives in VMEM scratch across grid steps.  Here CTAs run in parallel and in
-// no order, so one CTA owns one (batch*head, 64-row q tile) and walks the KV
-// tiles in a loop of its own, keeping m and l in registers and acc in shared
-// memory.  GQA maps q-head row `bh` to kv row `bh / group`, as the Pallas
-// index maps do.  KV tiles past the causal frontier or before the window are
-// never visited (the Pallas kernel's `needed` test).  Unlike the Pallas
-// kernel, the ragged edge is masked: Sq and Skv need not be multiples of 64
-// (a served prompt rarely is).
+// no order, so one CTA owns one (batch*head, q tile) and walks the KV tiles
+// in a loop of its own.  GQA maps q-head row `bh` to kv row `bh / group`, as
+// the Pallas index maps do.  KV tiles past the causal frontier or before the
+// window are never visited (the Pallas kernel's `needed` test).  Unlike the
+// Pallas kernel, the ragged edge is masked: Sq and Skv need not be
+// multiples of the tiles (a served prompt rarely is).
 //
 // Bound on the H100: per q-head a causal pass does ~2*S*S*hd flops and
 // moves ~4*S*hd bytes (q in, o out, bf16; K/V are shared by the group), so
 // ~S/2 flop/byte.  At the Yi prefill shape (S = 512) that is just under the
 // ~295 flop/byte ridge: bytes bind, barely; longer prompts are bound by the
-// tensor cores.  This first version takes the simple route to both: Q K^T
-// and P V run on the tensor cores as bf16 16x16x16 WMMA fragments with fp32
-// accumulation, K/V tiles are staged once per CTA in shared memory with
-// 16-byte loads, and the softmax is scalar fp32.  It does not overlap loads
-// with math (no cp.async/TMA, no wgmma, no warp
-// specialisation); that is later work.
+// tensor cores.  The design (FlashAttention-2's, on mma.sync) keeps every
+// intermediate in registers and every load in flight under the math:
+//
+// - each warp owns 16 q rows; Q is loaded once and held as ldmatrix
+//   A-fragments for the whole KV loop;
+// - S = Q K^T runs on mma.sync m16n8k16 (bf16 in, fp32 accumulate), K's
+//   B-fragments come from shared memory through ldmatrix, and the scores
+//   stay in the accumulator fragments: each thread holds 2 rows x 2
+//   columns of every 16x8 block;
+// - the online softmax works on those fragments: a row's max takes two
+//   quad shuffles (xor 1, 2); each thread keeps m and its own share of l
+//   for its 2 rows, and the shares of l are summed over the quad once, at
+//   the end; scores are kept times scale * log2(e), so exp is one exp2f;
+// - P never leaves registers: the accumulator layout of m16n8k16 is the
+//   A-operand layout of the next product, so the probabilities are packed
+//   pairwise to bf16x2 and O += P V runs straight from them, V's
+//   B-fragments from ldmatrix.trans; O is rescaled in registers;
+// - K and V tiles arrive by cp.async (16-byte copies, rows past Skv
+//   zero-filled) into a ring of 2 stages: tile j+1's K is in flight while
+//   tile j's softmax and P V run, its V while the next scores do;
+// - shared rows are padded by 16 bytes, so the 8 row addresses of each
+//   ldmatrix phase fall on distinct banks;
+// - masks are applied only on the tiles where they can bite: the causal
+//   diagonal, the window's edge and the last (ragged) KV tile;
+// - q tiles are launched heaviest first (batch*head is the fast grid
+//   axis, q tiles in reverse), so the last wave holds the shortest rows.
+//
+// What did not pay on the H100: 32 q rows per warp (each K/V fragment
+// feeding two m tiles) needs more than 255 registers at hd 128 and spills;
+// fewer, larger CTAs lose at the serving shapes; skipping the 16-key
+// blocks that the causal mask removes whole, by a warp-uniform test inside
+// the unrolled products, cost more than the products it saved.  The next
+// design for prompts bound by the tensor cores is wgmma with TMA.
 //
 // Layout: q [BH, Sq, HD], k/v [BH/group, Skv, HD], o [BH, Sq, HD], all
 // contiguous bf16.  C interface (ctypes): returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
 
-constexpr int BQ = 64;        // q rows per CTA
-constexpr int BK = 64;        // kv rows per tile
-constexpr int NWARPS = BQ / 16;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr float kNeg = -1e30f;  // masked score, as in the reference
+constexpr int kWarps = 4;             // warps per CTA, 16 q rows each
+constexpr int BQ = 16 * kWarps;       // q rows per CTA
+constexpr int BK = 64;                // kv rows per tile
+constexpr int NTHREADS = 32 * kWarps;
+constexpr int STAGES = 2;             // depth of the K/V ring
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kNeg = -1e30f;        // masked score, as in the reference
+constexpr float kNegL2 = kNeg * kLog2e;  // the same in the kernel's log2 units
 
 template <int HD>
 struct Smem {
-  static constexpr int LDH = HD + 8;   // bf16 Q/K/V tiles (pad against bank conflicts)
-  static constexpr int LDS = BK + 4;   // fp32 scores
-  static constexpr int LDP = BK + 8;   // bf16 probabilities
-  static constexpr int LDO = HD + 4;   // fp32 output accumulator
-  // every region size is a multiple of 128 bytes, so each region start is
-  // aligned as WMMA requires (32 bytes)
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(bf16) * BQ * LDH;
-  static constexpr size_t v_off = k_off + sizeof(bf16) * BK * LDH;
-  static constexpr size_t s_off = v_off + sizeof(bf16) * BK * LDH;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(bf16) * BQ * LDP;
-  static constexpr size_t bytes = o_off + sizeof(float) * BQ * LDO;
+  // row stride in bf16: 16 bytes of pad put the 8 rows of an ldmatrix
+  // phase on 8 distinct groups of 4 banks
+  static constexpr int LD = HD + 8;
+  static constexpr int stage = sizeof(bf16) * BK * LD;  // bytes of one K or V tile
+  static constexpr int q_off = 0;
+  static constexpr int k_off = q_off + sizeof(bf16) * BQ * LD;
+  static constexpr int v_off = k_off + STAGES * stage;
+  static constexpr int bytes = v_off + STAGES * stage;
 };
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory; src_bytes = 0 writes 16 zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ROWS rows of a [n, HD] matrix from row r0 into shared memory at dst
+// (stride LD), by cp.async; rows past n are zero-filled, their source
+// clamped to a valid row
+template <int HD, int ROWS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, int r0, int n,
+                                          int tid) {
+  constexpr int VPR = HD / 8;  // 16-byte vectors per row
+  constexpr int CHUNKS = ROWS * VPR;
+#pragma unroll
+  for (int j = 0; j < (CHUNKS + NTHREADS - 1) / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
+    if (CHUNKS % NTHREADS == 0 || i < CHUNKS) {
+      const int r = i / VPR, c = (i % VPR) * 8;
+      const int gr = r0 + r;
+      cp_async16(dst + (r * Smem<HD>::LD + c) * (int)sizeof(bf16),
+                 src + (size_t)min(gr, n - 1) * HD + c, gr < n ? 16 : 0);
+    }
+  }
+}
 
 template <int HD>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
-                 int group, int causal, int window, float scale) {
+                 int group, int causal, int window, float scale_log2) {
   using L = Smem<HD>;
-  constexpr int LDH = L::LDH, LDS = L::LDS, LDP = L::LDP, LDO = L::LDO;
-  constexpr int VPR = HD / 8;  // 16-byte vectors per row
+  constexpr int LD = L::LD;
+  constexpr int NS = BK / 8;   // 16x8 score blocks per warp and tile
+  constexpr int NO = HD / 8;   // 16x8 output blocks per warp
+  constexpr int KQ = HD / 16;  // k-steps of Q K^T
 
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::q_off);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::k_off);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::v_off);
-  float* Ss = reinterpret_cast<float*>(smem + L::s_off);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::p_off);
-  float* Os = reinterpret_cast<float*>(smem + L::o_off);
+  const uint32_t sq = smem_addr(smem + L::q_off);
+  const uint32_t sk = smem_addr(smem + L::k_off);
+  const uint32_t sv = smem_addr(smem + L::v_off);
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
   const bf16* qb = q + (size_t)bh * Sq * HD;
   const bf16* kb = k + (size_t)(bh / group) * Skv * HD;
   const bf16* vb = v + (size_t)(bh / group) * Skv * HD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int wr = warp * 16;  // this warp's first row in the tile
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-
-  for (int i = tid; i < BQ * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    uint4 val = zero;
-    if (q0 + r < Sq) val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + r) * HD + c);
-    *reinterpret_cast<uint4*>(Qs + r * LDH + c) = val;
-  }
-  for (int i = tid; i < BQ * LDO; i += NTHREADS) Os[i] = 0.f;
-
-  // per-row softmax state of this warp's 16 rows, replicated in every lane
-  float m_row[16], l_row[16];
-#pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    m_row[rr] = kNeg;
-    l_row[rr] = 0.f;
-  }
+  const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
+  const int wr = warp * 16;               // this warp's first row in the tile
+  const int qw0 = q0 + wr;                // ... and in the sequence
+  const int qr = qw0 + g;                 // this thread's rows: qr and qr + 8
 
   // KV tiles that can hold an unmasked key for some row of this q tile
   const int q_last = min(q0 + BQ, Sq) - 1;
@@ -108,118 +181,163 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kt_hi = causal ? min(nk, q_last / BK + 1) : nk;
   const int lo = q0 - window + 1;
   const int kt_lo = (window > 0 && lo > 0) ? lo / BK : 0;
+  const int ntiles = kt_hi - kt_lo;
 
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    for (int i = tid; i < BK * VPR; i += NTHREADS) {
-      const int r = i / VPR, c = (i % VPR) * 8;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < Skv) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + r) * HD + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + r) * HD + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LDH + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + r * LDH + c) = vv;
+  // groups in commit order: Q + K(0), V(0), then K(j+1), V(j+1) per tile j
+  if (ntiles > 0) {
+    load_rows<HD, BQ>(sq, qb, q0, Sq, tid);
+    load_rows<HD, BK>(sk, kb, kt_lo * BK, Skv, tid);
+    cp_async_commit();
+    load_rows<HD, BK>(sv, vb, kt_lo * BK, Skv, tid);
+    cp_async_commit();
+  }
+
+  // each lane's ldmatrix row address, in bytes from its tile's start
+  const uint32_t q_lane = ((wr + (lane & 15)) * LD + (lane >> 4) * 8) * sizeof(bf16);
+  const uint32_t k_lane = (((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8) *
+                          sizeof(bf16);
+  const uint32_t v_lane = (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) *
+                          sizeof(bf16);
+
+  uint32_t qf[KQ][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int nb = 0; nb < NO; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  float m[2] = {kNegL2, kNegL2};  // running max of rows qr, qr + 8 (log2 units)
+  float l[2] = {0.f, 0.f};        // this thread's share of their sums
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = (kt_lo + it) * BK;
+    const uint32_t cur = (it % STAGES) * L::stage;
+    const uint32_t nxt = ((it + 1) % STAGES) * L::stage;
+
+    cp_async_wait<1>();  // K tile it has landed (and Q, at it = 0)
+    __syncthreads();     // ... for every thread; every warp is done with tile it - 1
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KQ; ++kk) ldsm_x4(qf[kk], sq + q_lane + kk * 32);
     }
+
+    // S[16 x BK] = Q K^T for this warp's rows
+    float s[NS][4];
+#pragma unroll
+    for (int nb = 0; nb < NS; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+      for (int p = 0; p < NS / 2; ++p) {
+        uint32_t b[4];
+        ldsm_x4(b, sk + cur + k_lane + (p * 16 * LD) * sizeof(bf16) + kk * 32);
+        mma16816(s[2 * p], qf[kk], b[0], b[1]);
+        mma16816(s[2 * p + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    // the next K tile, into the stage every warp finished before the barrier
+    if (it + 1 < ntiles) load_rows<HD, BK>(sk + nxt, kb, k0 + BK, Skv, tid);
+    cp_async_commit();
+
+#pragma unroll
+    for (int nb = 0; nb < NS; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] *= scale_log2;
+
+    // masks, only on a tile where one can bite for some row of this warp
+    const bool edge = k0 + BK > Skv || (causal && k0 + BK - 1 > qw0) ||
+                      (window > 0 && k0 <= qw0 + 15 - window);
+    if (edge) {
+#pragma unroll
+      for (int nb = 0; nb < NS; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + nb * 8 + 2 * t + (e & 1);
+          const int qp = qr + (e >> 1) * 8;
+          if (kp >= Skv) {
+            s[nb][e] = -INFINITY;  // ragged edge: past the end of the keys, never attended
+          } else {
+            bool ok = causal ? (kp <= qp) : true;
+            if (window > 0) ok = ok && (kp > qp - window);
+            if (!ok) s[nb][e] = kNegL2;
+          }
+        }
+      }
+    }
+
+    // online softmax on the fragments: row i of this thread is qr + 8 i
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int nb = 0; nb < NS; ++nb) mx = fmaxf(mx, fmaxf(s[nb][2 * i], s[nb][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float alpha = exp2f(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < NS; ++nb) {
+        s[nb][2 * i] = exp2f(s[nb][2 * i] - mx);
+        s[nb][2 * i + 1] = exp2f(s[nb][2 * i + 1] - mx);
+        sum += s[nb][2 * i] + s[nb][2 * i + 1];
+      }
+      l[i] = l[i] * alpha + sum;
+#pragma unroll
+      for (int nb = 0; nb < NO; ++nb) { acc[nb][2 * i] *= alpha; acc[nb][2 * i + 1] *= alpha; }
+    }
+
+    cp_async_wait<1>();  // V tile it has landed (K tile it + 1 may be in flight)
     __syncthreads();
 
-    // S[16 x BK] = Q[16 x HD] K^T for this warp's rows
+    // O[16 x HD] += P[16 x BK] V[BK x HD], P packed from the score fragments
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-      wmma::fill_fragment(sacc, 0.f);
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t pa[4] = {
+          pack_bf16x2(s[2 * j][0], s[2 * j][1]), pack_bf16x2(s[2 * j][2], s[2 * j][3]),
+          pack_bf16x2(s[2 * j + 1][0], s[2 * j + 1][1]),
+          pack_bf16x2(s[2 * j + 1][2], s[2 * j + 1][3])};
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + wr * LDH + kk * 16, LDH);
-        wmma::load_matrix_sync(b, Ks + n * 16 * LDH + kk * 16, LDH);
-        wmma::mma_sync(sacc, a, b, sacc);
+      for (int p = 0; p < NO / 2; ++p) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, sv + cur + v_lane + (j * 16 * LD + p * 16) * sizeof(bf16));
+        mma16816(acc[2 * p], pa, b[0], b[1]);
+        mma16816(acc[2 * p + 1], pa, b[2], b[3]);
       }
-      wmma::store_matrix_sync(Ss + wr * LDS + n * 16, sacc, LDS, wmma::mem_row_major);
     }
-    __syncwarp();
 
-    // online softmax, one row at a time; lane owns columns lane and lane+32
-#pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = wr + rr;
-      const int qp = q0 + r;
-      float sv[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const int kp = k0 + c;
-        float s = Ss[r * LDS + c] * scale;
-        if (kp >= Skv) {
-          s = -INFINITY;  // ragged edge: past the end of the keys, never attended
-        } else {
-          bool ok = causal ? (kp <= qp) : true;
-          if (window > 0) ok = ok && (kp > qp - window);
-          if (!ok) s = kNeg;
-        }
-        sv[j] = s;
-      }
-      float mloc = fmaxf(sv[0], sv[1]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mloc = fmaxf(mloc, __shfl_xor_sync(0xffffffffu, mloc, off));
-      const float m_new = fmaxf(m_row[rr], mloc);
-      const float alpha = expf(m_row[rr] - m_new);
-      const float p0 = expf(sv[0] - m_new), p1 = expf(sv[1] - m_new);
-      Ps[r * LDP + lane] = __float2bfloat16(p0);
-      Ps[r * LDP + lane + 32] = __float2bfloat16(p1);
-      float psum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l_row[rr] = l_row[rr] * alpha + psum;
-      m_row[rr] = m_new;
-      for (int c = lane; c < HD; c += 32) Os[r * LDO + c] *= alpha;
-    }
-    __syncwarp();
-
-    // O[16 x HD] += P[16 x BK] V[BK x HD]
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, Os + wr * LDO + n * 16, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + wr * LDP + kk * 16, LDP);
-        wmma::load_matrix_sync(b, Vs + kk * 16 * LDH + n * 16, LDH);
-        wmma::mma_sync(oacc, a, b, oacc);
-      }
-      wmma::store_matrix_sync(Os + wr * LDO + n * 16, oacc, LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
+    // the next V tile, into the stage every warp finished before the last barrier
+    if (it + 1 < ntiles) load_rows<HD, BK>(sv + nxt, vb, k0 + BK, Skv, tid);
+    cp_async_commit();
   }
-  __syncthreads();  // the zeroed accumulator is visible even if no tile ran
 
+  // epilogue: the quad's shares of l summed, O / max(l, 1e-30) written as
+  // bf16x2 straight from the fragments
 #pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int qp = q0 + wr + rr;
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int qp = qr + 8 * i;
     if (qp >= Sq) continue;
-    const float l = fmaxf(l_row[rr], 1e-30f);
-    bf16* orow = o + ((size_t)bh * Sq + qp) * HD;
-    for (int c = lane; c < HD; c += 32)
-      orow[c] = __float2bfloat16(Os[(wr + rr) * LDO + c] / l);
+    li = fmaxf(li, 1e-30f);
+    bf16* orow = o + ((size_t)bh * Sq + qp) * HD + 2 * t;
+#pragma unroll
+    for (int nb = 0; nb < NO; ++nb)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
+          __floats2bfloat162_rn(acc[nb][2 * i] / li, acc[nb][2 * i + 1] / li);
   }
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
            int group, int causal, int window, float scale, cudaStream_t stream) {
-  const int bytes = (int)Smem<HD>::bytes;
+  const int bytes = Smem<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((Sq + BQ - 1) / BQ, BH);
+  dim3 grid(BH, (Sq + BQ - 1) / BQ);
   flash_fwd_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Skv, group, causal, window, scale);
+      static_cast<bf16*>(o), Sq, Skv, group, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -229,7 +347,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                                       int BH, int Sq, int Skv, int head_dim, int group,
                                       int causal, int window, float scale, void* stream) {
-  if (BH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0 || BH % group != 0 || BH > 65535)
+  if (BH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0 || BH % group != 0 || BH > 65535 ||
+      (Sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {

@@ -8,10 +8,13 @@ Replaces the TPU kernel ``flash_attention_kernel`` /
 window masks, fp32 m/l/acc, and KV tiles past the causal frontier or before
 the window skipped.  On the H100 a causal pass at head_dim 128 does ~S/2
 flops per byte moved, so the Yi prefill (S = 512) is bound by bytes, barely,
-and longer prompts by the tensor cores; the kernel runs both products on
-the tensor cores (bf16 WMMA, fp32 accumulation) and stages each K/V tile in
-shared memory once per 64 q rows.  Unlike the Pallas kernel it masks the
-ragged edge, so Sq and Skv need not be multiples of its 64-row tiles.
+and longer prompts by the tensor cores.  The kernel is FlashAttention-2's
+design on ``mma.sync``: each warp holds 16 q rows, scores, probabilities and
+the output accumulator stay in registers (bf16 operands, fp32
+accumulation), and K/V tiles of 64 rows arrive by ``cp.async`` into a
+two-stage ring in shared memory while the previous tile is computed.
+Unlike the Pallas kernel it masks the ragged edge, so Sq and Skv need not
+be multiples of its tiles.
 
 The wrapper checks shapes, dtypes, device, contiguity and alignment, and
 raises on anything the kernel does not take; it allocates the output and
@@ -34,7 +37,7 @@ __all__ = ["HEAD_DIMS", "flash_attention_cuda"]
 #: head dims the kernel is instantiated for (120 and 256 come with the
 #: danube and gemma configs)
 HEAD_DIMS = (16, 64, 128)
-_MAX_BH = 65535  # gridDim.y
+_MAX_BH = 65535  # the C interface's limit
 _SIGNATURES = {
     "flash_attention_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

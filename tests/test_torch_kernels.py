@@ -200,6 +200,7 @@ def _card(a: np.ndarray, dev, dt=torch.bfloat16):
     (8, 33, 77, 64, 4, None, True),        # Sq != Skv
     (32, 256, 256, 16, 4, None, True),     # yi smoke head_dim
     (4, 1, 1, 16, 1, None, True),          # one token
+    (32, 4096, 4096, 128, 8, None, True),  # one yi sequence at its 4096 context
 ])
 def test_flash_attention_kernel_on_card(cuda, BH, Sq, Skv, hd, g, win, causal):
     q = _card(RNG.randn(BH, Sq, hd).astype(np.float32), cuda)
@@ -312,9 +313,13 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "flash_attention", "const int kt_hi = causal ? min(nk, q_last / BK + 1) : nk;",
         "const int kt_hi = (causal ? min(nk, q_last / BK + 1) : nk) - (q0 >= 256);"),
     "flash_rescale_by_alpha_left_out": (
-        "flash_attention", "for (int c = lane; c < HD; c += 32) Os[r * LDO + c] *= alpha;", ""),
+        "flash_attention",
+        "for (int nb = 0; nb < NO; ++nb) { acc[nb][2 * i] *= alpha; acc[nb][2 * i + 1] *= alpha; }",
+        "for (int nb = 0; nb < NO; ++nb) {}"),
     "flash_window_one_key_too_many": (
         "flash_attention", "ok = ok && (kp > qp - window);", "ok = ok && (kp >= qp - window);"),
+    "flash_ring_read_before_its_group_landed": (
+        "flash_attention", "cp_async_wait<1>();  // K tile it has landed (and Q, at it = 0)", ""),
     "rmsnorm_last_warp_sum_left_out": (
         "rmsnorm", "for (int i = 0; i < (int)(blockDim.x >> 5); ++i)",
         "for (int i = 0; i < (int)(blockDim.x >> 5) - 1; ++i)"),
@@ -408,4 +413,5 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
     print(f"\n[planted] {fault}: scaled err sound {errs['sound'][0]:.6g}, faulty "
           f"{errs['faulty'][0]:.6g} (tol {tol}); error over the largest "
           f"value: sound {errs['sound'][1]:.6g}, faulty {errs['faulty'][1]:.6g}")
-    assert errs["sound"][0] <= tol < errs["faulty"][0]
+    # the check is ``err <= tol``: a faulty output of NaNs fails it too
+    assert errs["sound"][0] <= tol and not errs["faulty"][0] <= tol
