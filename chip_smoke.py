@@ -17,11 +17,17 @@ Phases, each reported on its own lines:
    (bound);
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
-   greedy.  The kernels' launch counts over that run must show that every
-   RMSNorm and every prefill attention went through them, and the prefill
-   logits must be no further from a float32 recomputation than the same
-   bf16 model's logits through the plain versions are, and within the bf16
-   tolerance (rms) of the latter;
+   greedy, each decode step a replay of the engine's captured CUDA graph.
+   The kernels' launch counts over that run (each replay adds the launches
+   captured in it) must show that every RMSNorm and every prefill attention
+   went through them, and the prefill logits must be no further from a
+   float32 recomputation than the same bf16 model's logits through the
+   plain versions are, and within the bf16 tolerance (rms) of the latter.
+   The same requests decoded by an eager engine (the step op by op from
+   Python) must give the same tokens, with the logits' difference printed
+   (0 expected: the same kernels on the same inputs); the two engines are
+   driven step by step in turns, so their step times compare, and each
+   engine's launches are counted over its own calls only;
 5. full-width Falcon-Mamba-7B, after Yi's weights are freed, served and
    checked the same way: every RMSNorm and every prefill selective scan
    must go through the kernels;
@@ -41,15 +47,16 @@ Phases, each reported on its own lines:
    broadcasts (full-lane; k-ported, k = 1, 2, 3) and scatters (k-ported,
    k = 2) a 25 MiB payload, exactly.  Its times are host-clock times of
    host-staged gloo, not interconnect numbers.  The same job then runs
-   as one NCCL rank (a world of one: no peer, but the transport's NCCL
-   branch, which must stage nothing).
+   in this process as one NCCL rank (a world of one: no peer, but the
+   transport's NCCL branch, which must stage nothing).
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
 (every case, the serving numbers, the compiler's register report) goes to
 ``build/chip_smoke/``.  Any failed check
 raises, and the script exits non-zero; without CUDA, or outside a checkout
-of the repository, it exits non-zero before printing any result.
+of the repository, it exits non-zero before printing any result.  The
+``[done]`` line gives each phase's seconds.
 """
 
 from __future__ import annotations
@@ -496,7 +503,7 @@ def collectives_job(pods, lanes, tokens, top_k, d_model, bucket, device="cuda",
     ops.reset_launches()
     dispatch = ep_dispatch.run_rank(mesh, tokens=tokens, top_k=top_k, d_model=d_model,
                                     dtype="bfloat16", device=device, seed=seed)
-    launches = {f.__name__: f.launches for f in ops._DISPATCHERS}
+    launches = ops.launch_counts()
     bad = [k for k in ("flat_equals_fulllane", "flat_equals_oracle",
                        "fulllane_equals_oracle") if not dispatch[k]]
     if bad:
@@ -552,8 +559,8 @@ def collectives_job(pods, lanes, tokens, top_k, d_model, bucket, device="cuda",
 
 
 def collectives_phase() -> list:
-    """Phase 7: ``collectives_job`` in 8 ranks on this card, then in one NCCL
-    rank."""
+    """Phase 7: ``collectives_job`` in 8 ranks on this card, then as one NCCL
+    rank in this process."""
     from repro_torch.launch import ranks
 
     world = COLLECTIVES["pods"] * COLLECTIVES["lanes"]
@@ -585,9 +592,9 @@ def collectives_phase() -> list:
                   f"{c['cross_pod_bytes']} bytes; staged through the host {c['staged_bytes']} "
                   f"bytes")
 
-    # the transport's NCCL branch, in the one NCCL world one card allows
-    nccl = ranks.run("chip_smoke:collectives_job", 1, backend="nccl", timeout_s=300,
-                     kwargs={**COLLECTIVES, "pods": 1, "lanes": 1, "device": "cuda"})[0]
+    # the transport's NCCL branch, in the one NCCL world one card allows:
+    # this process is its rank, which saves a rank process's start-up
+    nccl = _nccl_rank({**COLLECTIVES, "pods": 1, "lanes": 1, "device": "cuda"})
     staged = sum(c["staged_bytes"] for counts in _traffic(nccl).values()
                  for c in counts.values())
     if not nccl["transport"].startswith("nccl,") or staged:
@@ -597,6 +604,21 @@ def collectives_phase() -> list:
           f"CUDA tensors as they are): every check passed, transport {nccl['transport']}, "
           f"a2a_pack launches {nccl['launches']['a2a_pack']}, 0 bytes staged")
     return results
+
+
+def _nccl_rank(kwargs: dict) -> dict:
+    """``collectives_job(**kwargs)`` as the one rank of an NCCL world, in
+    this process."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        return collectives_job(**kwargs)
+    finally:
+        dist.destroy_process_group()
 
 
 def _traffic(result) -> dict:
@@ -616,17 +638,6 @@ def _print_cases(name, cases, tol) -> None:
               f"plain {c['plain_ms_warm']:.6f}; "
               f"bound {max(c['bound_bytes_ms'], c['bound_ops_ms']):.6f} ms "
               f"(bytes {c['bound_bytes_ms']:.6f}, ops {c['bound_ops_ms']:.6f})")
-
-
-class StepTimes:
-    """The engine's duck-typed monitor hook: records every decode step."""
-
-    def __init__(self):
-        self.seconds: list[float] = []
-
-    def observe(self, dt: float) -> str:
-        self.seconds.append(dt)
-        return "ok"
 
 
 def _widths(cfg) -> tuple:
@@ -651,16 +662,143 @@ SERVED = {
 }
 
 
+def _finite_greedy(logits, generator):
+    """The serving phase's sampler: greedy, after a check that every logit
+    is finite."""
+    import torch
+
+    from repro_torch.serving.engine import greedy_sample
+
+    if not torch.isfinite(logits).all():
+        raise AssertionError("non-finite logits in serving")
+    return greedy_sample(logits, generator)
+
+
+class _Driven:
+    """One engine of ``_serve_in_turns`` and what its calls did: host-clock
+    times of its admission and of each decode step, the device memory
+    segments its admission created (``cudaMalloc`` calls), the kernels'
+    launches and the peak device memory over its own calls, the logits of
+    every sampling."""
+
+    def __init__(self, cfg, params, *, cuda_graph: bool, slots: int, capacity: int):
+        import torch
+
+        from repro_torch.serving.engine import ServeEngine
+
+        self.logits = []
+
+        def sampler(lg, generator):
+            self.logits.append(lg)  # a replay returns a copy, an eager step a new tensor
+            return _finite_greedy(lg, generator)
+
+        t0 = time.perf_counter()
+        self.eng = ServeEngine(cfg, params, num_slots=slots, capacity=capacity,
+                               sampler=sampler, device="cuda", cuda_graph=cuda_graph)
+        torch.cuda.synchronize()
+        self.build_s = time.perf_counter() - t0
+        self.launches = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan"), 0)
+        self.step_s, self.prefill_ms, self.prefill_segments = [], None, None
+        self.peak_mem_gb = 0.0
+
+    def call(self, fn, *args) -> float:
+        """``fn(*args)``, counted and timed (it ends in the host copy of the
+        sampled tokens, so it is synchronised); returns its seconds."""
+        import torch
+
+        from repro_torch.kernels import ops
+
+        torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        t0 = time.perf_counter()
+        fn(*args)
+        dt = time.perf_counter() - t0
+        after = ops.launch_counts()
+        for k in self.launches:
+            self.launches[k] += after[k] - before[k]
+        self.peak_mem_gb = max(self.peak_mem_gb, torch.cuda.max_memory_allocated() / 1e9)
+        return dt
+
+    def result(self, reqs) -> dict:
+        return {"done": reqs, "logits": self.logits, "launches": self.launches,
+                "per_replay": None if self.eng.graph is None else self.eng.graph.launches,
+                "build_s": self.build_s, "prefill_ms": self.prefill_ms,
+                "prefill_segments": self.prefill_segments,
+                "step_s": self.step_s, "peak_mem_gb": self.peak_mem_gb}
+
+
+def _serve_in_turns(cfg, params, prompts, *, slots: int, capacity: int,
+                    max_new: int) -> tuple[dict, dict]:
+    """Serve ``prompts`` through two fresh engines on the same parameters,
+    the decode step as a captured CUDA graph (the main path) and eager, in
+    turns: both admit, then each lock-step of one is followed by the same
+    step of the other, the order swapped every step.  Each engine's
+    launches are counted over its own calls only, from 0.  Returns (graph,
+    eager) as ``_Driven.result`` gives them."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Request
+
+    ops.reset_launches()
+    engines = [_Driven(cfg, params, cuda_graph=g, slots=slots, capacity=capacity)
+               for g in (True, False)]
+    reqs = [[Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+            for _ in engines]
+    for d, rs in zip(engines, reqs):
+        segments = torch.cuda.memory_stats()["segment.all.allocated"]
+        d.prefill_ms = d.call(d.eng.admit, rs) * 1e3
+        d.prefill_segments = torch.cuda.memory_stats()["segment.all.allocated"] - segments
+    for step in range(max_new - 1):  # the prefill samples the first token
+        for d in engines[::-1] if step % 2 else engines:
+            d.step_s.append(d.call(d.eng.step))
+    for d in engines:
+        d.eng.drain()
+    return tuple(d.result(rs) for d, rs in zip(engines, reqs))
+
+
+def _compare_decodes(graph: dict, eager: dict, slots: int) -> dict:
+    """The graph path's tokens and logits against the eager path's, sampling
+    by sampling.  Both run the same kernels on the same inputs, so 0 is
+    expected; a difference must stay within ``TOL_BF16`` (rms, per row),
+    and a token may differ only where the eager top-2 gap is within twice
+    the difference (a near tie), after which that row's inputs differ and
+    it is no longer compared."""
+    g_tok = [r.out_tokens for r in graph["done"]]
+    e_tok = [r.out_tokens for r in eager["done"]]
+    released, max_abs, worst_rms = {}, 0.0, 0.0
+    for i, (g, e) in enumerate(zip(graph["logits"], eager["logits"])):
+        for row in range(slots):
+            if row in released:
+                continue
+            d = (g[row].float() - e[row].float()).abs().max().item()
+            max_abs, worst_rms = max(max_abs, d), max(worst_rms, _rms_rel(g[row], e[row]))
+            if worst_rms > TOL_BF16:
+                raise AssertionError(f"sampling {i}, row {row}: graph logits {worst_rms} "
+                                     f"rms from the eager step's > {TOL_BF16}")
+            if g_tok[row][i] != e_tok[row][i]:
+                top2 = e[row].float().topk(2).values
+                if (top2[0] - top2[1]).item() > 2 * d:
+                    raise AssertionError(f"sampling {i}, row {row}: graph token "
+                                         f"{g_tok[row][i]} != eager {e_tok[row][i]}")
+                released[row] = i
+    equal = sum(a == b for gt, et in zip(g_tok, e_tok) for a, b in zip(gt, et))
+    return {"tokens_equal": equal, "tokens": sum(map(len, g_tok)),
+            "logits_max_abs_diff": max_abs, "logits_worst_rms_rel": worst_rms,
+            "rows_released_at_near_ties": released,
+            "samplings": min(len(graph["logits"]), len(eager["logits"]))}
+
+
 def serve(arch: str, seed: int = 0) -> dict:
-    """Serve ``arch`` at full width and check its launches and logits."""
+    """Serve ``arch`` at full width through the captured decode step, check
+    its launches and logits, and hold it against the eager step."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.models.params import map_tree
-    from repro_torch.serving.engine import Request, ServeEngine, greedy_sample
+    from repro_torch.serving.engine import Request, ServeEngine
 
     cfg = get_config(arch)
     want = SERVED[arch]
@@ -678,82 +816,94 @@ def serve(arch: str, seed: int = 0) -> dict:
 
     rng = np.random.RandomState(seed)
 
-    def requests(n_tokens, n_new):
-        return [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, n_tokens)
-                        .astype(np.int32), max_new_tokens=n_new) for i in range(slots)]
+    def prompts():
+        return [rng.randint(0, cfg.vocab_size, prompt_len).astype(np.int32)
+                for _ in range(slots)]
 
-    # warm-up drive at the same shapes (cuBLAS handles and heuristics),
-    # before the counts are set to 0
-    ServeEngine(cfg, params, num_slots=slots, capacity=capacity,
-                device="cuda").run(requests(prompt_len, 3))
+    # warm-up drive at the same shapes and through the same sampler
+    # (cuBLAS handles and heuristics, each kernel's first load), before the
+    # counts are set to 0; eager, since the graph engine warms its own step
+    # before capture
+    ServeEngine(cfg, params, num_slots=slots, capacity=capacity, sampler=_finite_greedy,
+                device="cuda", cuda_graph=False).run(
+        [Request(rid=i, prompt=p, max_new_tokens=3) for i, p in enumerate(prompts())])
 
-    prefill_logits = []
-
-    def sampler(logits, generator):
-        if not prefill_logits:
-            prefill_logits.append(logits.clone())
-        if not torch.isfinite(logits).all():
-            raise AssertionError("non-finite logits in serving")
-        return greedy_sample(logits, generator)
-
-    times = StepTimes()
-    eng = ServeEngine(cfg, params, num_slots=slots, capacity=capacity,
-                      sampler=sampler, monitor=times, device="cuda")
-    reqs = requests(prompt_len, max_new)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    eng.admit(reqs)  # prefill; ends in the host copy of the first tokens
-    t1 = time.perf_counter()
-    done = eng.run([])
-    t2 = time.perf_counter()
-    launches = {"rmsnorm": ops.rmsnorm.launches,
-                "flash_attention": ops.flash_attention.launches,
-                "mamba_scan": ops.mamba_scan.launches}
-
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    decode_steps = len(times.seconds)
-    prefill_ms = (t1 - t0) * 1e3
+    # in turns: graph (the run checked and counted) and eager (the run it
+    # is held against), step by step on the same requests
+    served = prompts()
+    main, eager = _serve_in_turns(cfg, params, served, slots=slots, capacity=capacity,
+                                  max_new=max_new)
+    done, launches = main["done"], main["launches"]
+    decode_steps = len(main["step_s"])
     gen_tokens = sum(len(r.out_tokens) for r in done)
+    total_s = main["prefill_ms"] / 1e3 + sum(main["step_s"])
+    med = {m: statistics.median(r["step_s"]) * 1e3 for m, r in (("graph", main),
+                                                                  ("eager", eager))}
     res = {
         "requests": len(done), "tokens": gen_tokens, "decode_steps": decode_steps,
-        "prefill_ms": prefill_ms,
-        "decode_ms_per_step_median": statistics.median(times.seconds) * 1e3,
-        "decode_ms_per_step_mean": statistics.fmean(times.seconds) * 1e3,
-        "tok_per_s": gen_tokens / (t2 - t0),
-        "peak_mem_gb": peak_gb, "launches": launches,
+        "prefill_ms": main["prefill_ms"], "prefill_ms_eager": eager["prefill_ms"],
+        "prefill_new_segments": main["prefill_segments"],
+        "prefill_new_segments_eager": eager["prefill_segments"],
+        "decode_ms_per_step_median": med["graph"],
+        "decode_ms_per_step_mean": statistics.fmean(main["step_s"]) * 1e3,
+        "decode_ms_per_step_median_eager": med["eager"],
+        "tok_per_s": gen_tokens / total_s,
+        "peak_mem_gb": main["peak_mem_gb"], "peak_mem_gb_eager": eager["peak_mem_gb"],
+        "launches": launches, "launches_per_replay": main["per_replay"],
+        "engine_build_ms": main["build_s"] * 1e3,
+        "engine_build_ms_eager": eager["build_s"] * 1e3,
     }
-    print(f"[serve] prefill {slots}x{prompt_len} tokens: {prefill_ms:.2f} ms; "
-          f"decode {decode_steps} steps of {slots} tokens: median "
+    print(f"[serve] prefill {slots}x{prompt_len} tokens: {main['prefill_ms']:.2f} ms, "
+          f"{main['prefill_segments']} new device segments (eager engine, admitted next: "
+          f"{eager['prefill_ms']:.2f} ms, {eager['prefill_segments']}); decode as a CUDA graph, "
+          f"{decode_steps} steps of {slots} tokens: median "
           f"{res['decode_ms_per_step_median']:.3f} ms, mean "
           f"{res['decode_ms_per_step_mean']:.3f} ms per step; "
-          f"{gen_tokens} tokens in {(t2 - t0) * 1e3:.1f} ms = "
-          f"{res['tok_per_s']:.1f} tok/s; peak memory {peak_gb:.2f} GB")
-    print(f"[serve] launches over the run: {launches}")
+          f"{gen_tokens} tokens in {total_s * 1e3:.1f} ms = {res['tok_per_s']:.1f} tok/s; "
+          f"peak memory over its calls {main['peak_mem_gb']:.2f} GB (eager "
+          f"{eager['peak_mem_gb']:.2f} GB; both engines resident)")
+    print(f"[serve] decode ms per step (host clock, median over {decode_steps} steps each, "
+          f"graph and eager in turns): graph {med['graph']:.3f}, eager {med['eager']:.3f}; "
+          f"eager / graph {med['eager'] / med['graph']:.2f}; engine built in "
+          f"{main['build_s'] * 1e3:.1f} ms with the step captured, "
+          f"{eager['build_s'] * 1e3:.1f} ms without")
+    print(f"[serve] launches over the graph engine's calls: {launches}; per replay of "
+          f"the captured step: {main['per_replay']}")
 
     if len(done) != slots or any(len(r.out_tokens) != max_new for r in done):
         raise AssertionError(f"not every request got {max_new} tokens: "
                              f"{[len(r.out_tokens) for r in done]}")
     per_forward = want["norms_per_layer"] * cfg.num_layers + 1
+    if main["per_replay"] != {"rmsnorm": per_forward, "flash_attention": 0,
+                              "mamba_scan": 0, "a2a_pack": 0}:
+        raise AssertionError(f"launches per replay {main['per_replay']}: want "
+                             f"{per_forward} rmsnorm and nothing else")
     want_launches = {"rmsnorm": per_forward * (1 + decode_steps), "flash_attention": 0,
                      "mamba_scan": 0, **want["prefill"]}
-    if launches != want_launches:
-        raise AssertionError(f"launches {launches} != {want_launches} ({per_forward} "
-                             f"norms per forward, 1 prefill + {decode_steps} decode "
-                             f"steps)")
+    for mode, run in (("graph", main), ("eager", eager)):
+        if run["launches"] != want_launches:
+            raise AssertionError(f"{mode} engine: launches {run['launches']} != "
+                                 f"{want_launches} ({per_forward} norms per forward, 1 "
+                                 f"prefill + {decode_steps} decode steps)")
+
+    cmp = _compare_decodes(main, eager, slots)
+    print(f"[serve] graph against eager decode, same requests: {cmp['tokens_equal']}/"
+          f"{cmp['tokens']} tokens equal; logits of {cmp['samplings']} samplings: max abs "
+          f"diff {cmp['logits_max_abs_diff']:.6g}, worst rms {cmp['logits_worst_rms_rel']:.6g} "
+          f"(tol {TOL_BF16}); rows released at a near tie: "
+          f"{cmp['rows_released_at_near_ties'] or 'none'}")
+    res["graph_vs_eager"] = cmp
 
     # the same prefill through the plain versions of the kernels, in the
     # model's bf16 and in float32 (the reference for the bf16 rounding)
-    tokens = torch.from_numpy(np.stack([r.prompt for r in reqs]).astype(np.int64)).cuda()
+    tokens = torch.from_numpy(np.stack(served).astype(np.int64)).cuda()
     with plain_kernels():
         plain, _ = lm.prefill(cfg, params, {"tokens": tokens}, capacity=capacity)
         params32 = map_tree(lambda _, t: t.float(), params)
         exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"), params32,
                               {"tokens": tokens}, capacity=capacity)
         del params32
-    kern = prefill_logits[0]
+    kern = main["logits"][0]
     err_kern, err_plain = _rms_rel(kern, exact), _rms_rel(plain, exact)
     err_kp = _rms_rel(kern, plain)
     top2 = exact.topk(2, dim=-1).values
@@ -807,7 +957,16 @@ def main() -> int:
     t_start = time.perf_counter()
 
     smi = card()
+    phase_s = {}
+    mark = [time.perf_counter()]
+
+    def done(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase] = now - mark[0]
+        mark[0] = now
+
     fault_libs = build_kernels()
+    done("build")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = rmsnorm_cases(gen)
@@ -816,18 +975,22 @@ def main() -> int:
     for name, cases, tol in (("rmsnorm", rms, TOL_BF16), ("flash_attention", fla, TOL_BF16),
                              ("mamba_scan", mam, TOL_F32)):
         _print_cases(name, cases, tol)
+    done("kernels")
 
     served = {}
     for arch in SERVED:  # one model on the card at a time
         gc.collect()
         torch.cuda.empty_cache()
         served[arch] = serve(arch)
+        done(f"serve {arch}")
     gc.collect()
     torch.cuda.empty_cache()
 
     pack = pack_cases(gen, fault_libs)
     _print_cases("a2a_pack", pack, 0)
+    done("a2a_pack")
     ranks = collectives_phase()
+    done("collectives")
 
     by_model = lambda k: {a: r["launches"][k] for a, r in served.items()}  # noqa: E731
     kernels = [
@@ -847,7 +1010,8 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "serve": served, "collectives": ranks}, indent=1))
-    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
+    print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + ")")
     print(smi)
     print(json.dumps({"kernels": kernels}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {

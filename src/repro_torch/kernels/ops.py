@@ -7,7 +7,9 @@ run the plain versions).  Nothing falls back from the card to the CPU.
 
 Each dispatcher counts the kernel launches it makes in its ``launches``
 attribute, so a run can show that its main path went through the kernels;
-CPU calls are not counted.
+CPU calls are not counted.  A call made while a CUDA graph is captured
+launches nothing: the graph's owner takes those counts back and adds them
+again at every replay (``add_launches``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from repro_torch.kernels.ref import (
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
-__all__ = ["a2a_pack", "flash_attention", "mamba_scan", "rmsnorm", "reset_launches"]
+__all__ = ["a2a_pack", "flash_attention", "mamba_scan", "rmsnorm", "add_launches",
+           "launch_counts", "reset_launches"]
 
 
 def _no_path(name: str, t: torch.Tensor):
@@ -88,6 +91,18 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for fn in _DISPATCHERS:
         fn.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Every kernel's launch count, by dispatcher name."""
+    return {fn.__name__: fn.launches for fn in _DISPATCHERS}
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` (by dispatcher name, as ``launch_counts`` gives them)
+    to the kernels' launch counts."""
+    for fn in _DISPATCHERS:
+        fn.launches += counts.get(fn.__name__, 0)
 
 
 reset_launches()

@@ -10,7 +10,18 @@ prompts of 512 tokens, a cache of 1024.  Prints, for the prefill and for
 out of it), the device's busy time (the sum of the device's own records:
 kernels, copies and memsets; this path runs on one stream, so none
 overlap), hence the device's idle share, and the kernels that take most
-device time and the operators that take most host time.
+device time and the operators that take most host time.  The decode step is
+measured both ways, eager (op by op from Python) and as the engine's
+captured CUDA graph, in turns (eager, graph, graph, eager) on fresh
+engines: host times move between calls, so only turns inside one call
+compare the two.  Each turn also times the engine's build (the capture)
+and two admissions on the host clock: the first, right after the build,
+and a second after the first wave has drained (its prompts fill the cache
+to ``CAPACITY``, so that prefill runs over 4 x 1024 positions), each with
+the device memory segments the allocator had to create for it
+(``cudaMalloc`` calls: the allocator's cache did not hold the memory).
+Last, a graph and an eager engine are built together and admitted one
+after the other, in both orders, twice.
 """
 
 from __future__ import annotations
@@ -29,6 +40,8 @@ from repro_torch.models import lm
 from repro_torch.serving.engine import Request, ServeEngine
 
 SLOTS, PROMPT_LEN, CAPACITY, STEPS, TOP = 4, 512, 1024, 4, 10
+TURNS = ("eager", "graph", "graph", "eager")
+ORDERS = (("graph", "eager"), ("eager", "graph")) * 2
 
 
 def _device_us(evt) -> float:
@@ -66,14 +79,14 @@ def main(argv=None):
                            device=device)
     rng = np.random.RandomState(0)
 
-    def requests():
-        return [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, PROMPT_LEN)
-                        .astype(np.int32), max_new_tokens=10**9)
+    def requests(length=PROMPT_LEN, max_new=10**9):
+        return [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, length)
+                        .astype(np.int32), max_new_tokens=max_new)
                 for i in range(SLOTS)]
 
-    def engine():
+    def engine(mode="eager"):
         return ServeEngine(cfg, params, num_slots=SLOTS, capacity=CAPACITY,
-                           device=device)
+                           device=device, cuda_graph=mode == "graph")
 
     warm = engine()
     warm.admit(requests())
@@ -82,27 +95,61 @@ def main(argv=None):
     del warm
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    # each window runs twice on fresh engines: timed alone, then profiled;
+    # the prefill runs twice on fresh engines: timed alone, then profiled;
     # both end in a host copy of the sampled tokens, so they are synchronised
-    eng = engine()
     t0 = time.perf_counter()
-    eng.admit(requests())
+    engine().admit(requests())
     wall = time.perf_counter() - t0
     with profile(activities=acts) as prof:
         engine().admit(requests())
     _report(f"prefill {SLOTS}x{PROMPT_LEN}", prof, wall, 1)
 
-    t0 = time.perf_counter()
-    for _ in range(STEPS):
+    # each turn: a fresh engine (build timed), the first admission timed,
+    # one step untimed, STEPS steps timed alone, STEPS more profiled, then
+    # the second admission timed once the first wave has drained
+    for mode in TURNS:
+        t0 = time.perf_counter()
+        eng = engine(mode)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        first = _admission(eng, requests(max_new=2 + 2 * STEPS))
         eng.step()
-    wall = time.perf_counter() - t0
-    eng = engine()
-    eng.admit(requests())
-    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
         for _ in range(STEPS):
             eng.step()
-    _report(f"decode step of {SLOTS} tokens", prof, wall, STEPS)
+        wall = time.perf_counter() - t0
+        with profile(activities=acts) as prof:
+            for _ in range(STEPS):
+                eng.step()
+        _report(f"decode step of {SLOTS} tokens, {mode}", prof, wall, STEPS)
+        assert len(eng.drain()) == SLOTS
+        second = _admission(eng, requests(CAPACITY - eng.pos))
+        print(f"[profile] {mode} engine: built in {build_ms:.3f} ms; first admission "
+              f"({SLOTS}x{PROMPT_LEN}) {first[0]:.3f} ms host wall, {first[1]} new device "
+              f"segments; second, after a drain ({SLOTS}x{CAPACITY}) {second[0]:.3f} ms, "
+              f"{second[1]} new segments")
+        del eng
 
+    # a graph engine and an eager engine alive together (as chip_smoke.py
+    # holds them), built in that order and then admitted in each order:
+    # whether the graph engine's admission or the first one is the slower
+    for order in ORDERS:
+        engines = {m: engine(m) for m in ("graph", "eager")}
+        ms = {m: _admission(engines[m], requests()) for m in order}
+        print("[profile] both engines built, admitted " + ", then ".join(
+            f"{m} {ms[m][0]:.3f} ms ({ms[m][1]} new segments)" for m in order))
+        del engines
+
+
+def _admission(eng: ServeEngine, reqs: list) -> tuple[float, int]:
+    """Admit ``reqs``: host ms (it ends in the host copy of the sampled
+    tokens, so it is synchronised) and the device memory segments the
+    allocator created meanwhile (its ``cudaMalloc`` calls)."""
+    segments = torch.cuda.memory_stats()["segment.all.allocated"]
+    t0 = time.perf_counter()
+    assert len(eng.admit(reqs)) == SLOTS
+    ms = (time.perf_counter() - t0) * 1e3
+    return ms, torch.cuda.memory_stats()["segment.all.allocated"] - segments
 
 if __name__ == "__main__":
     main()

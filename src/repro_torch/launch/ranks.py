@@ -14,10 +14,15 @@ calls ``function(**kwargs)``, saves its result (tensors, numbers, strings,
 lists and dicts; read back with ``weights_only=True``) and checks that it
 never imported JAX.
 
-The parent waits until every rank has exited or the deadline has passed.  If
-a rank fails, the rest are killed and the error carries that rank's stderr;
-at the deadline every rank is killed.  A rank that dies never hangs the
-caller.
+The parent waits until every rank has exited or the deadline has passed.  A
+rank whose job raises writes the exception, the time it was caught and its
+traceback to ``rank<r>.exc`` before it tears its connections down, so its
+peers, which then fail in their collectives, fail later than it.  After the
+first non-zero exit the parent waits a short grace for the others, kills
+the rest and raises with the rank that failed first (the earliest ``.exc``)
+named first and the bystanders after it (a rank that died without a
+record, by a signal or in native code, comes before every record); at the
+deadline every rank is killed.  A rank that dies never hangs the caller.
 """
 
 from __future__ import annotations
@@ -27,15 +32,20 @@ import datetime
 import importlib
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 __all__ = ["RankFailed", "run"]
 
 SRC = Path(__file__).resolve().parents[2]
+#: seconds the parent waits, after the first rank fails, for the others to
+#: exit and write their errors (never past the deadline)
+GRACE_S = 2.0
 
 
 class RankFailed(RuntimeError):
@@ -75,12 +85,16 @@ def run(job: str, world: int, *, kwargs: dict | None = None, backend: str = "glo
 
 
 def _wait(procs, tmp: Path, deadline: float) -> None:
+    exited: list[int] = []  # ranks in the order the parent saw them exit
+    grace_end = None
     while True:
         codes = [p.poll() for p in procs]
-        failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
-        if failed:  # every rank that has failed so far: one of them is the cause
-            raise RankFailed("\n".join(f"rank {r} of {len(procs)} exited {codes[r]}:\n"
-                                        f"{_tail(tmp / f'rank{r}.err')}" for r in failed))
+        exited += [r for r, c in enumerate(codes) if c is not None and r not in exited]
+        if grace_end is None and any(c not in (None, 0) for c in codes):
+            grace_end = min(time.monotonic() + GRACE_S, deadline)
+        if grace_end is not None and (all(c is not None for c in codes)
+                                      or time.monotonic() > grace_end):
+            raise RankFailed(_failure(codes, exited, tmp))
         if all(c == 0 for c in codes):
             return
         if time.monotonic() > deadline:
@@ -90,8 +104,60 @@ def _wait(procs, tmp: Path, deadline: float) -> None:
         time.sleep(0.05)
 
 
+def _failure(codes: list, exited: list[int], tmp: Path) -> str:
+    """The error of a failed run, the cause first.  A rank that failed
+    without a ``.exc`` record died outside Python's exception handling (a
+    signal, ``os._exit``, an abort in native code), before the peers whose
+    collectives it broke could record theirs, so the first such rank to
+    exit is the cause.  Otherwise the cause is the rank whose job raised
+    first (the earliest record).  Then the bystanders: the other failed
+    ranks without a record in the order they exited, the ranks with a
+    record by its time, and the ranks still running (to be killed)."""
+    records = {}
+    for r in range(len(codes)):
+        path = tmp / f"rank{r}.exc"
+        if path.exists():
+            records[r] = json.loads(path.read_text())
+    order = [r for r in exited if codes[r] != 0 and r not in records]
+    order += sorted(records, key=lambda r: records[r]["time"])
+    order += [r for r, c in enumerate(codes) if c is None and r not in records]
+
+    def entry(r: int) -> str:
+        code = codes[r]
+        head = f"rank {r} of {len(codes)} " + (
+            "still running, killed" if code is None
+            else f"killed by {_signal_name(-code)}" if code < 0
+            else f"exited {code}")
+        if r in records:
+            rec = records[r]
+            head += f": {rec['type']}: {rec['message']}\n{rec['traceback']}"
+        return f"{head}\n{_tail(tmp / f'rank{r}.err')}"
+
+    text = entry(order[0])
+    if order[1:]:
+        text += "\n--- bystanders, after the rank above ---\n"
+        text += "\n".join(entry(r) for r in order[1:])
+    return text
+
+
+def _signal_name(number: int) -> str:
+    try:
+        return signal.Signals(number).name
+    except ValueError:
+        return f"signal {number}"
+
+
 def _tail(path: Path, n: int = 4000) -> str:
     return path.read_bytes()[-n:].decode(errors="replace")
+
+
+def _record(path: Path, exc: BaseException, when: float) -> None:
+    """Write ``exc`` (its type, message and traceback) and ``when`` to
+    ``path``, atomically."""
+    rec = {"time": when, "type": type(exc).__name__, "message": str(exc),
+           "traceback": "".join(traceback.format_exception(exc))}
+    path.with_suffix(".tmp").write_text(json.dumps(rec))
+    os.replace(path.with_suffix(".tmp"), path)
 
 
 def main(argv=None) -> None:
@@ -118,6 +184,11 @@ def main(argv=None) -> None:
             **json.loads((tmp / "kwargs.json").read_text()))
         # no rank tears its connections down while another still uses them
         dist.barrier()
+    except BaseException as e:
+        # recorded before the teardown below makes the peers fail: the
+        # parent names the rank with the earliest record as the cause
+        _record(tmp / f"rank{args.rank}.exc", e, time.time())
+        raise
     finally:
         dist.destroy_process_group()
     if "jax" in sys.modules:

@@ -4,10 +4,14 @@
       --requests 4 --max-new 16            # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
       --requests 4 --max-new 16            # the Mamba path, on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --eager
+                                           # the decode step from Python, not a CUDA graph
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --smoke \\
       --device cpu                         # plain PyTorch on the CPU
 
-All requests are admitted in one wave, so ``--requests`` may not exceed
+On the card each decode step replays one captured CUDA graph; ``--eager``
+runs it op by op from Python instead, as the CPU always does.  All requests
+are admitted in one wave, so ``--requests`` may not exceed
 ``--slots``, and every prompt and its new tokens must fit the cache: the
 engine admits a wave only into an empty cache, and a request it cannot
 admit or finish would never complete.
@@ -39,6 +43,8 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--eager", action="store_true",
+                    help="decode step op by op, not as a captured CUDA graph (the card)")
     args = ap.parse_args(argv)
     if args.requests > args.slots:
         ap.error(f"--requests {args.requests} > --slots {args.slots}: requests "
@@ -54,7 +60,8 @@ def main(argv=None):
     sampler = (greedy_sample if args.temperature == 0.0
                else temperature_sample(args.temperature))
     eng = ServeEngine(cfg, params, num_slots=args.slots, capacity=args.capacity,
-                      sampler=sampler, seed=args.seed, device=device)
+                      sampler=sampler, seed=args.seed, device=device,
+                      cuda_graph=False if args.eager else None)
 
     rng = np.random.RandomState(args.seed)
     reqs = [
@@ -67,7 +74,8 @@ def main(argv=None):
     dt = time.time() - t0
     total_tokens = sum(len(r.out_tokens) for r in done)
     print(f"[serve] {len(done)} requests, {total_tokens} tokens in {dt:.2f}s "
-          f"({total_tokens/max(dt,1e-9):.1f} tok/s) on {device}")
+          f"({total_tokens/max(dt,1e-9):.1f} tok/s) on {device}, decode step "
+          f"{'eager' if eng.graph is None else 'as a CUDA graph'}")
     for r in done[:4]:
         print(f"  rid={r.rid}: {r.out_tokens[:8]}...")
     return done

@@ -92,11 +92,17 @@ def attention(
     positions: torch.Tensor,  # [B, S]
     *,
     cache: dict | None = None,  # decode: this layer's cache, updated in place
-    cache_pos: int | None = None,  # decode: number of valid entries in cache
+    cache_pos: torch.Tensor | None = None,  # decode: tokens already in the cache, 0-d int64
     capacity: int | None = None,  # prefill: size of the filled cache (default S)
 ) -> AttnResult:
     """Prefill when ``cache`` is None (returns the filled cache), else one
-    decode step against ``cache``."""
+    decode step against ``cache``.
+
+    ``cache_pos`` is a 0-d int64 tensor on the cache's device, which a
+    captured decode step reads at every replay.  Nothing is read back to the
+    host, so nothing checks it here: ``lm.check_position`` keeps it inside
+    a full-attention cache, where the reference's ``dynamic_update_slice``
+    would clamp it."""
     _check_gqa(cfg)
     a = cfg.attn
     B, S, _ = x.shape
@@ -110,14 +116,9 @@ def attention(
 
     if cache is not None:
         C = cache["k"].shape[1]
-        if a.sliding_window is not None:
-            widx = cache_pos % C
-        elif 0 <= cache_pos < C:
-            widx = cache_pos
-        else:
-            raise ValueError(f"cache_pos {cache_pos} outside a cache of {C}")
-        cache["k"][:, widx] = k[:, 0]
-        cache["v"][:, widx] = v[:, 0]
+        widx = (cache_pos % C if a.sliding_window is not None else cache_pos).reshape(1)
+        cache["k"].index_copy_(1, widx, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, widx, v.to(cache["v"].dtype))
         idx = torch.arange(C, device=x.device)
         if a.sliding_window is not None:
             # ring buffer: slot s holds position cache_pos - ((cache_pos - s) % C)

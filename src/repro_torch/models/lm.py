@@ -33,7 +33,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.params import ParamMeta, init_params, map_tree, torch_dtype
 
-__all__ = ["model_meta", "init_model", "init_cache", "prefill", "decode_step"]
+__all__ = ["model_meta", "init_model", "init_cache", "prefill", "decode_step",
+           "check_position"]
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -80,20 +81,23 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device="cuda") -
 
 
 def _slot_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
-                device) -> dict:
+                device, dtype) -> dict:
     if spec.mixer == "attn":
-        return attn_mod.init_attn_cache(cfg, batch, capacity, device=device)
-    return mamba_mod.init_mamba_cache(cfg, batch, device=device)
+        return attn_mod.init_attn_cache(cfg, batch, capacity, device=device, dtype=dtype)
+    return mamba_mod.init_mamba_cache(cfg, batch, device=device, dtype=dtype)
 
 
-def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda") -> dict:
+def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda",
+               dtype=torch.bfloat16) -> dict:
     """Zero caches (KV for attention, conv window and state for Mamba),
-    stacked over periods like the parameters."""
+    stacked over periods like the parameters.  KV and conv window in
+    ``dtype`` (bf16, as the reference's; ``prefill``'s filled cache takes
+    the model dtype), the Mamba state in float32."""
     device = resolve_device(device)
     _check_supported(cfg)
     blocks = {}
     for i, spec in enumerate(cfg.layer_pattern):
-        one = _slot_cache(cfg, spec, batch, capacity, device)
+        one = _slot_cache(cfg, spec, batch, capacity, device, dtype)
         blocks[f"slot{i}"] = {n: t.expand((cfg.num_periods,) + t.shape).clone()
                               for n, t in one.items()}
     return {"blocks": blocks}
@@ -148,15 +152,38 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
     return lg[:, 0], cache
 
 
+def check_position(cfg: ModelConfig, cache: dict, cache_pos: int) -> None:
+    """Raise if a decode step at ``cache_pos`` would write outside ``cache``:
+    a full-attention cache holds ``capacity`` positions; a sliding-window
+    ring and a Mamba state hold any."""
+    if cache_pos < 0:
+        raise ValueError(f"cache_pos {cache_pos} is negative")
+    if cfg.attn is None or cfg.attn.sliding_window is not None:
+        return
+    for j, spec in enumerate(cfg.layer_pattern):
+        C = cache["blocks"][f"slot{j}"]["k"].shape[2]  # [periods, B, C, Hkv, hd]
+        if spec.mixer == "attn" and cache_pos >= C:
+            raise ValueError(f"cache_pos {cache_pos} outside a cache of {C}")
+
+
 def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
-                cache_pos: int):
+                cache_pos: int | torch.Tensor):
     """One decode step.  ``tokens`` [B, 1]; ``cache_pos`` the number of
-    tokens already in the cache.  Returns (logits [B, V], cache), the cache
-    updated in place."""
+    tokens already in the cache, a Python int (checked by
+    ``check_position``) or a 0-d int64 tensor on the cache's device (not
+    checked: the caller keeps it in range).  Returns (logits [B, V], cache),
+    the cache updated in place.
+
+    The step reads its inputs, writes the cache in place and reads nothing
+    back to the host, so one capture of it with a tensor position serves
+    every position (``serving/decode_graph.py``)."""
     _check_supported(cfg)
     x = L.embed(cfg, params["embed"], tokens)
     B = x.shape[0]
-    positions = torch.full((B, 1), cache_pos, device=x.device)
+    if not isinstance(cache_pos, torch.Tensor):
+        check_position(cfg, cache, cache_pos)
+        cache_pos = torch.full((), cache_pos, dtype=torch.int64, device=x.device)
+    positions = cache_pos.expand(B, 1)
     for i in range(cfg.num_periods):
         for j, spec in enumerate(cfg.layer_pattern):
             slot = f"slot{j}"

@@ -1,0 +1,118 @@
+"""The decode step as one captured CUDA graph: the port's counterpart of the
+reference's jitted step (``repro/serving/engine.py``, ``jax.jit`` of
+``lm.decode_step`` with the cache position traced).
+
+Run from Python, one decode step at serving batch launches some 2,000 to
+3,000 small kernels, and the host's launch cost, not the card, sets its
+time.  ``DecodeGraph`` records the step's launches once and replays them
+with one call.  It owns static buffers that every replay reads and writes:
+
+* ``tokens`` [B, 1] int64 and ``pos`` (0-d int64), the step's inputs, which
+  ``replay`` overwrites on the device;
+* ``cache``, the cache it was given, written in place by every replay (the
+  caller loads a new prefill's cache into it with ``load``);
+* the logits the captured step writes, of which ``replay`` returns a copy.
+
+Capture first runs warm-up steps on a side stream, as ``torch.cuda.graphs``
+asks (cuBLAS handles and workspaces, the kernels' libraries), over a scratch
+copy of the cache: a warm-up is a real step, and on the cache itself it
+would advance a Mamba state.  It then captures on a side stream of its own
+and leaves the allocator's cache as it was.  Nothing falls back to the
+eager step: on the CPU, or when capture fails, the class raises.
+
+Kernel launch counts (``kernels/ops.py``) are Python integers that a
+wrapper adds to when it is called: at capture, where nothing is launched.
+Capture takes those counts back and keeps them as ``launches``, which every
+replay adds to the dispatchers' counts again.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import lm
+from repro_torch.models.params import map_tree
+
+__all__ = ["DecodeGraph"]
+
+
+def _leaves(tree: dict) -> list[torch.Tensor]:
+    out = []
+    map_tree(lambda _, t: out.append(t), tree)
+    return out
+
+
+class DecodeGraph:
+    """``lm.decode_step`` captured once over ``cache`` (its tensors stacked
+    over periods, batch in dim 1, on a CUDA device) and replayed per step."""
+
+    #: eager steps run before capture, on a side stream
+    WARMUP_STEPS = 3
+
+    def __init__(self, cfg: ModelConfig, params: dict, cache: dict):
+        leaves = _leaves(cache)
+        device = leaves[0].device
+        if device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs the cache on a CUDA device, not {device}: "
+                             "the CPU runs the eager step")
+        self.cfg, self.params, self.cache = cfg, params, cache
+        self.tokens = torch.zeros(leaves[0].shape[1], 1, dtype=torch.int64, device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.graph = torch.cuda.CUDAGraph()
+        self.launches = self._capture()
+
+    def _warm_up(self, cache: dict) -> None:
+        """``WARMUP_STEPS`` eager steps over ``cache`` on a side stream."""
+        side = torch.cuda.Stream(device=self.pos.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP_STEPS):
+                lm.decode_step(self.cfg, self.params, self.tokens, cache, self.pos)
+        torch.cuda.current_stream().wait_stream(side)
+
+    def _capture(self) -> dict[str, int]:
+        self._warm_up(map_tree(lambda _, t: t.clone(), self.cache))
+        before = ops.launch_counts()
+        torch.cuda.synchronize(self.pos.device)
+        try:
+            # not ``torch.cuda.graph``, which empties the allocator's cache
+            # first: the next prefill would then allocate its activations
+            # anew with ``cudaMalloc``
+            with torch.cuda.stream(torch.cuda.Stream(device=self.pos.device)):
+                self.graph.capture_begin()
+                try:
+                    self._logits, _ = lm.decode_step(self.cfg, self.params, self.tokens,
+                                                     self.cache, self.pos)
+                finally:
+                    self.graph.capture_end()
+        except RuntimeError as e:
+            raise RuntimeError(f"{self.cfg.name}: the decode step could not be captured "
+                               "in a CUDA graph") from e
+        finally:
+            captured = {k: n - before[k] for k, n in ops.launch_counts().items()}
+            ops.add_launches({k: -n for k, n in captured.items()})
+        return captured
+
+    def load(self, cache: dict) -> None:
+        """Copy ``cache`` (a prefill's) into the captured cache; its tensors
+        must have the captured ones' shapes and dtypes."""
+        def check(path, have, new):
+            if (new.shape, new.dtype) != (have.shape, have.dtype):
+                raise ValueError(f"cache {path}: {tuple(new.shape)} {new.dtype} does not "
+                                 f"match the captured {tuple(have.shape)} {have.dtype}")
+
+        map_tree(check, self.cache, cache)
+        map_tree(lambda _, have, new: have.copy_(new), self.cache, cache)
+
+    def replay(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """One decode step: ``tokens`` [B, 1] at position ``pos`` (the tokens
+        already in the cache).  Returns the logits [B, V]; the cache is
+        updated in place."""
+        lm.check_position(self.cfg, self.cache, pos)
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+        self.graph.replay()
+        ops.add_launches(self.launches)
+        return self._logits.clone()

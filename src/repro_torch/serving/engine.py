@@ -8,6 +8,13 @@ their slot.  As in the reference, the cache has one synchronized write
 position: admission left-pads every prompt to the longest one with token 0,
 and the pad tokens are not masked (under Mamba they enter the state).
 
+On the card the decode step runs as one captured CUDA graph
+(``serving/decode_graph.py``), as the reference jits it: the engine captures
+it when it is built, over a cache of ``num_slots`` x ``capacity`` that every
+admission's prefill is copied into, and each ``step`` replays it.  Sampling
+stays outside the graph.  ``cuda_graph=False`` runs the step eagerly, as the
+CPU always does.
+
 The reference's decode-collective planner (``plan_mesh``,
 ``plan_decode_collectives``, ``inject_fault``) comes with the planner slice.
 """
@@ -24,8 +31,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.models.params import torch_dtype
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs.trace import TRACER
+from repro_torch.serving.decode_graph import DecodeGraph
 
 __all__ = ["Request", "ServeEngine", "greedy_sample", "temperature_sample"]
 
@@ -67,7 +76,11 @@ class ServeEngine:
         monitor=None,
         plan_mesh: tuple[int, int, int] | None = None,
         device="cuda",
+        cuda_graph: bool | None = None,
     ):
+        """``cuda_graph``: replay the decode step as a captured CUDA graph;
+        None means on for ``cuda`` and off for ``cpu``, and True on the CPU
+        raises."""
         self.device = resolve_device(device)
         if plan_mesh is not None:
             raise NotImplementedError(
@@ -78,6 +91,10 @@ class ServeEngine:
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:
             raise ValueError(f"params on {emb.device}, engine on {self.device}")
+        if cuda_graph is None:
+            cuda_graph = self.device.type == "cuda"
+        if cuda_graph and self.device.type != "cuda":
+            raise ValueError(f"cuda_graph=True needs device 'cuda', not {self.device}")
         self.cfg = cfg
         self.params = params
         self.num_slots = num_slots
@@ -92,6 +109,10 @@ class ServeEngine:
         # through it and stops decoding on "evict".
         self.monitor = monitor
         self.monitor_actions: list[str] = []
+        self.graph = None
+        if cuda_graph:  # its cache takes the model dtype, as a prefill's does
+            self.graph = DecodeGraph(cfg, params, lm.init_cache(
+                cfg, num_slots, capacity, device=self.device, dtype=torch_dtype(cfg.dtype)))
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         return self.sampler(logits, self.generator).cpu().numpy()
@@ -110,11 +131,16 @@ class ServeEngine:
             p = np.asarray(req.prompt)
             toks[slot, start + max_len - len(p):start + max_len] = p
             self.slots[slot] = req
-        lgts, self.cache = lm.prefill(
+        lgts, cache = lm.prefill(
             self.cfg, self.params,
             {"tokens": torch.from_numpy(toks).to(self.device)},
             capacity=self.capacity,
         )
+        if self.graph is None:
+            self.cache = cache
+        else:  # into the buffers the captured step reads
+            self.graph.load(cache)
+            self.cache = self.graph.cache
         self.pos = start + max_len
         # first sampled token from prefill logits
         nxt = self._sample(lgts)
@@ -127,8 +153,11 @@ class ServeEngine:
         """One lock-step decode for all active slots."""
         if self.cache is None or self.pos >= self.capacity:
             return
-        lgts, self.cache = lm.decode_step(self.cfg, self.params, self._pending,
-                                          self.cache, self.pos)
+        if self.graph is None:
+            lgts, self.cache = lm.decode_step(self.cfg, self.params, self._pending,
+                                              self.cache, self.pos)
+        else:
+            lgts = self.graph.replay(self._pending, self.pos)
         self.pos += 1
         nxt = self._sample(lgts)
         self._pending = torch.from_numpy(nxt.astype(np.int64)).to(self.device)[:, None]

@@ -24,7 +24,9 @@ from repro.serving import engine as JE
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as tserve
+from repro_torch.models import lm as TLM
 from repro_torch.serving import engine as TE
+from repro_torch.serving.decode_graph import DecodeGraph
 
 TOL = 1e-5
 SLOTS, CAP, MAX_NEW = 4, 48, 6
@@ -118,6 +120,18 @@ def test_engine_refuses_planner_until_its_slice():
     _, tcfg, _, tp, _ = _setup()
     with pytest.raises(NotImplementedError, match="planner"):
         TE.ServeEngine(tcfg, tp, plan_mesh=(2, 8, 2), device="cpu")
+
+
+def test_engine_refuses_a_cuda_graph_on_the_cpu():
+    """The CPU runs the eager step; a graph asked for there raises rather
+    than falling back to it."""
+    _, tcfg, _, tp, _ = _setup()
+    assert TE.ServeEngine(tcfg, tp, device="cpu").graph is None
+    with pytest.raises(ValueError, match="cuda_graph=True needs device 'cuda'"):
+        TE.ServeEngine(tcfg, tp, device="cpu", cuda_graph=True)
+    cache = TLM.init_cache(tcfg, SLOTS, CAP, device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        DecodeGraph(tcfg, tp, cache)
 
 
 def test_serve_cli_runs_smoke_on_cpu():

@@ -49,11 +49,13 @@ def _rel(got: torch.Tensor, want) -> float:
     return float(np.abs(got.float().numpy() - want).max() / max(np.abs(want).max(), 1e-6))
 
 
+@pytest.mark.parametrize("position", ["int", "tensor"])
 @pytest.mark.parametrize("window", [None, 8])
-def test_prefill_and_decode_match_reference(window):
+def test_prefill_and_decode_match_reference(window, position):
     """Logits and caches after prefill and after each of 4 decode steps;
     ``window=8`` runs the sliding-window ring cache (8 slots for 16 + 4
-    positions)."""
+    positions).  The position is given as an int or as the 0-d tensor that
+    the captured decode step reads at every replay."""
     jcfg, tcfg = _configs(window=window)
     jp, tp = _params(jcfg, tcfg)
     rng = np.random.RandomState(0)
@@ -74,7 +76,8 @@ def test_prefill_and_decode_match_reference(window):
         step = toks[:, S + t:S + t + 1]
         jl, jc = JLM.decode_step(jcfg, jp, jnp.asarray(step, jnp.int32), jc,
                                  jnp.int32(S + t))
-        tl, tc = TLM.decode_step(tcfg, tp, torch.from_numpy(step), tc, S + t)
+        pos = S + t if position == "int" else torch.tensor(S + t)
+        tl, tc = TLM.decode_step(tcfg, tp, torch.from_numpy(step), tc, pos)
         assert _rel(tl, jl) < TOL_F32, f"step {t}"
         for n in ("k", "v"):
             assert _rel(tc["blocks"]["slot0"][n], jc["blocks"]["slot0"][n]) < TOL_F32
@@ -104,6 +107,23 @@ def test_decode_matches_full_forward(dtype, tol):
     lg, _ = TLM.decode_step(cfg, params, toks[:, 32:], cache, 32)
     err = (lg.float() - full.float()).abs().max() / full.float().abs().max()
     assert err < tol
+
+
+def test_decode_position_outside_a_full_cache_raises():
+    """An int position is checked against the cache before it becomes the
+    0-d tensor the step reads; a sliding-window ring takes any position."""
+    for window in (None, 8):
+        _, cfg = _configs(window=window)
+        params = TLM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        cache = TLM.init_cache(cfg, B, CAP, device="cpu")
+        tok = torch.zeros(B, 1, dtype=torch.int64)
+        with pytest.raises(ValueError, match="is negative"):
+            TLM.decode_step(cfg, params, tok, cache, -1)
+        if window is None:
+            with pytest.raises(ValueError, match=f"outside a cache of {CAP}"):
+                TLM.decode_step(cfg, params, tok, cache, CAP)
+        else:
+            TLM.decode_step(cfg, params, tok, cache, CAP)
 
 
 def test_init_cache_is_bf16_and_stacked():

@@ -122,8 +122,11 @@ def test_mixer_prefill_cache_and_decode_match_reference():
         assert _rel(tc[n], jc[n]) < TOL_F32, n
 
 
-def test_prefill_and_decode_match_reference():
-    """Logits and caches after prefill and after each of 4 decode steps."""
+@pytest.mark.parametrize("position", ["int", "tensor"])
+def test_prefill_and_decode_match_reference(position):
+    """Logits and caches after prefill and after each of 4 decode steps, the
+    position given as an int or as the 0-d tensor that the captured decode
+    step reads."""
     jcfg, tcfg = _configs()
     jp, tp = _params(jcfg, tcfg)
     toks = np.random.RandomState(3).randint(0, tcfg.vocab_size, (B, S + STEPS))
@@ -139,7 +142,8 @@ def test_prefill_and_decode_match_reference():
         step = toks[:, S + t:S + t + 1]
         jl, jc = JLM.decode_step(jcfg, jp, jnp.asarray(step, jnp.int32), jc,
                                  jnp.int32(S + t))
-        tl, tc = TLM.decode_step(tcfg, tp, torch.from_numpy(step), tc, S + t)
+        pos = S + t if position == "int" else torch.tensor(S + t)
+        tl, tc = TLM.decode_step(tcfg, tp, torch.from_numpy(step), tc, pos)
         assert _rel(tl, jl) < TOL_F32, f"step {t}"
         for n in ("conv", "ssm"):
             assert _rel(tc["blocks"]["slot0"][n], jc["blocks"]["slot0"][n]) < TOL_F32, \

@@ -23,6 +23,24 @@ def test_a_failing_rank_stops_the_run_with_its_error():
     assert time.monotonic() - t0 < 100  # the others, waiting in a barrier, were killed
 
 
+@pytest.mark.parametrize("how,attempt", [("raise", a) for a in range(10)]
+                         + [("kill", a) for a in range(3)])
+def test_the_failing_rank_is_named_first(how, attempt):
+    """The bystanders, waiting in a barrier, fail as soon as the failing
+    rank tears its connections down, and often exit before it: the error
+    must still name the rank that failed, first, every time.  A rank killed
+    by a signal writes no record of its own; its bystanders do, and it must
+    still come first."""
+    with pytest.raises(ranks.RankFailed) as exc:
+        ranks.run("torch_rank_jobs:fail_on_rank", 3, kwargs={"rank": 1, "how": how},
+                  timeout_s=120)
+    msg = str(exc.value)
+    want = {"raise": "rank 1 of 3 exited 1: RuntimeError: planted failure on rank 1",
+            "kill": "rank 1 of 3 killed by SIGKILL\n"}[how]
+    assert msg.startswith(want), msg[:3000]
+    assert "--- bystanders, after the rank above ---" in msg
+
+
 def test_ranks_past_the_deadline_are_killed():
     t0 = time.monotonic()
     with pytest.raises(ranks.RankFailed, match="still running at the deadline"):

@@ -119,11 +119,17 @@ def run_cases() -> dict:
     return out
 
 
-def fail_on_rank(rank: int) -> int:
-    """Raise on ``rank``; the others wait for it in a collective."""
+def fail_on_rank(rank: int, how: str = "raise") -> int:
+    """Fail on ``rank``, by raising or (``how="kill"``) by a SIGKILL that no
+    Python handler sees; the others wait for it in a collective."""
+    import os
+    import signal
+
     import torch.distributed as dist
 
     if dist.get_rank() == rank:
+        if how == "kill":
+            os.kill(os.getpid(), signal.SIGKILL)
         raise RuntimeError(f"planted failure on rank {rank}")
     dist.barrier()
     return dist.get_rank()
