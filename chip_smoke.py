@@ -231,7 +231,9 @@ def build_kernels() -> dict:
 
 
 def rmsnorm_cases(gen):
-    """Kernel against plain version at the serving shapes of Yi-6B."""
+    """Kernel against plain version at the serving shapes of Yi-6B and
+    Falcon-Mamba-7B, a ragged T (one row past the prefill's 2048) and a
+    second width (DeepSeek-V2's 5120)."""
     import torch
     import torch.nn.functional as F
 
@@ -239,7 +241,8 @@ def rmsnorm_cases(gen):
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     cases = []
-    for T, d in ((2048, 4096), (4, 4096)):  # prefill 4 x 512 tokens; decode 4 tokens
+    # prefill 4 x 512 tokens; decode 4 tokens; ragged; second width
+    for T, d in ((2048, 4096), (4, 4096), (2049, 4096), (2048, 5120)):
         x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
         out = rmsnorm_cuda(x, w, 1e-6)

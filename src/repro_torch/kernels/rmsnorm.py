@@ -2,13 +2,16 @@
 
 Replaces the TPU kernel ``rmsnorm_kernel`` / ``rmsnorm_pallas`` of the
 reference (``repro/kernels/rmsnorm.py``).  On the H100 it is bound by bytes:
-``2*T*d*sizeof(x) + d*sizeof(w)`` moved for ~3 flops per value.  The kernel
-gives one CTA to each row, reads and writes 16 bytes per thread per access
-and reduces the fp32 sum of squares by warp shuffles (see the source).
+``2*T*d*sizeof(x) + d*sizeof(w)`` moved for ~4 flops per value.  The kernel
+reads each row of x once into registers and w once per CTA as 16-byte
+vectors; with many rows a persistent grid walks them with the next row's
+copy in flight, with few rows each row gets a CTA of its own (see the
+source).
 
-The wrapper checks shapes, dtypes, device, contiguity and alignment, and
-raises on anything the kernel does not take; it allocates the output and
-launches on PyTorch's current stream.  Its plain version is
+The wrapper checks shapes, dtypes, device, contiguity and the 16-byte
+alignment of x and w (both are read in 16-byte vectors), and raises on
+anything the kernel does not take; it allocates the output and launches
+on PyTorch's current stream.  Its plain version is
 ``ref.rmsnorm_ref``; ``ops.rmsnorm`` chooses between them by device.
 """
 
@@ -34,8 +37,8 @@ _SIGNATURES = {
 
 def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x`` [T, d] and ``w`` [d] of one dtype, float32 or bfloat16, both
-    contiguous on one CUDA device; ``d`` a multiple of 8.  Returns
-    ``x * rsqrt(mean(x^2) + eps) * w`` in ``x.dtype``."""
+    contiguous and 16-byte aligned on one CUDA device; ``d`` a multiple of
+    8.  Returns ``x * rsqrt(mean(x^2) + eps) * w`` in ``x.dtype``."""
     if x.dim() != 2 or w.dim() != 1 or w.shape[0] != x.shape[1]:
         raise ValueError(f"rmsnorm: want x [T, d] and w [d], got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
@@ -50,8 +53,8 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.T
                          f"{x.device} and {w.device}")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("rmsnorm: x and w must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError("rmsnorm: x must be 16-byte aligned")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("rmsnorm: x and w must be 16-byte aligned")
     lib = build.library("rmsnorm", _SIGNATURES)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):

@@ -215,14 +215,19 @@ def test_flash_attention_kernel_on_card(cuda, BH, Sq, Skv, hd, g, win, causal):
     assert ref.scaled_err(out, want) <= TOL["bfloat16"]
 
 
+# every width the repo's configs give RMSNorm (and 4104, whose 513 vectors
+# fill no warp evenly), the smoke widths 8 and 96, at the decode step's and the
+# prefill's T and one row more than the latter; then the widths past the
+# register path's 16 warps x 4 vectors, which take the general kernel
+RMSNORM_WIDTHS = (8, 96, 256, 512, 1536, 2560, 3072, 3584, 3840, 4096, 4104, 5120, 8192)
+RMSNORM_CASES = [(100, 96, torch.float32), (3, 64, torch.float32), (5, 8, torch.bfloat16)] + [
+    (T, d, dt) for dt in (torch.bfloat16, torch.float32) for T in (1, 4, 2048, 2049)
+    for d in RMSNORM_WIDTHS] + [
+    (3, 8200, torch.float32), (300, 8200, torch.float32), (3, 16392, torch.bfloat16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,d,dt", [
-    (2048, 4096, torch.bfloat16),
-    (4, 4096, torch.bfloat16),
-    (100, 96, torch.float32),
-    (3, 64, torch.float32),
-    (5, 8, torch.bfloat16),
-])
+@pytest.mark.parametrize("T,d,dt", RMSNORM_CASES)
 def test_rmsnorm_kernel_on_card(cuda, T, d, dt):
     x = _card(RNG.randn(T, d).astype(np.float32), cuda, dt)
     w = _card(RNG.rand(d).astype(np.float32) + 0.5, cuda, dt)
@@ -233,6 +238,17 @@ def test_rmsnorm_kernel_on_card(cuda, T, d, dt):
     want = ref.rmsnorm_ref(x.float(), w.float())
     tol = TOL["bfloat16"] if dt == torch.bfloat16 else TOL["float32"]
     assert ref.scaled_err(out, want) <= tol
+
+
+@pytest.mark.cuda
+def test_rmsnorm_wrapper_refuses_an_unaligned_w(cuda):
+    """w is read in 16-byte vectors: a w one element into its storage is
+    refused."""
+    x = torch.randn(4, 64, device=cuda, dtype=torch.bfloat16)
+    w = torch.rand(65, device=cuda, dtype=torch.bfloat16)[1:]
+    assert w.is_contiguous() and w.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rmsnorm_cuda(x, w)
 
 
 def _scan_on_card(dev, B, S, di, N, with_h0, seed=0):
@@ -320,9 +336,14 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "flash_attention", "ok = ok && (kp > qp - window);", "ok = ok && (kp >= qp - window);"),
     "flash_ring_read_before_its_group_landed": (
         "flash_attention", "cp_async_wait<1>();  // K tile it has landed (and Q, at it = 0)", ""),
-    "rmsnorm_last_warp_sum_left_out": (
-        "rmsnorm", "for (int i = 0; i < (int)(blockDim.x >> 5); ++i)",
-        "for (int i = 0; i < (int)(blockDim.x >> 5) - 1; ++i)"),
+    "rmsnorm_last_row_not_prefetched": (
+        "rmsnorm", "if (next < T_rows) load(nxt, (int)next);  // in flight while this row reduces",
+        "if (next < T_rows - 1) load(nxt, (int)next);"),
+    "rmsnorm_w_vector_from_the_next_column": (
+        "rmsnorm", "if (i < nvec) wv[k] = wr[i];", "if (i < nvec) wv[k] = wr[i ^ 1];"),
+    "rmsnorm_block_step_last_warp_left_out": (
+        "rmsnorm", "return warp_sum(lane < W ? part[lane] : 0.f);",
+        "return warp_sum(lane < W - 1 ? part[lane] : 0.f);"),
     "scan_state_dropped_at_half": (
         "mamba_scan", "h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);",
         "h = __fadd_rn(__fmul_rn(av[u], t0 + u == S / 2 ? 0.f : h), bv[u]);"),
@@ -339,6 +360,17 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "a2a_pack", "const long long chunk0 = (long long)blockIdx.x * kChunk;",
         "const long long chunk0 = (long long)blockIdx.x * (kChunk + 1);"),
 }
+
+
+@pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
+def test_planted_fault_names_a_line_of_its_source(fault):
+    """Each fault's sound line occurs exactly once in its kernel's source, so
+    a rewrite that strands a fault is found here and not only on the card."""
+    from repro_torch.kernels import build
+
+    kernel, sound, faulty = PLANTED_FAULTS[fault]
+    assert kernel in build.KERNELS and sound != faulty
+    assert (build.SRC_DIR / f"{kernel}.cu").read_text().count(sound) == 1
 
 
 @pytest.fixture(scope="module")
@@ -384,8 +416,8 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
               f"{int((faulty.view(torch.uint8) != want.view(torch.uint8)).sum())}")
         assert torch.equal(sound, want) and not torch.equal(faulty, want)
         return
-    if kernel == "rmsnorm":
-        x = torch.randn(2048, 4096, generator=gen, device=cuda).to(torch.bfloat16)
+    if kernel == "rmsnorm":  # the prefill shape with one row more: a ragged share
+        x = torch.randn(2049, 4096, generator=gen, device=cuda).to(torch.bfloat16)
         w = (torch.rand(4096, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
         call = lambda: rmsnorm_cuda(x, w, 1e-6)  # noqa: E731
         want = ref.rmsnorm_ref(x.float(), w.float(), eps=1e-6)
