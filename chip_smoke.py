@@ -9,12 +9,15 @@ Phases, each reported on its own lines:
 2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` compiled
    with ``nvcc`` (one process per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the Yi-6B and Falcon-Mamba-7B serving paths give it plus ragged,
-   windowed, small-head, long-prompt, initial-state and small-state
-   cases: error, kernel time, plain time, the time of one PyTorch library
-   call computing the same function where there is one (each with its
-   inputs cold in device memory and warm in L2), and the card's least time
-   (bound);
+   the serving paths of the five served models give it plus ragged,
+   windowed (a window edge inside a KV tile), small-head, long-prompt,
+   initial-state and small-state cases: error, kernel time, plain time, the
+   time of one PyTorch library call computing the same function where there
+   is one (each with its inputs cold in device memory and warm in L2), and
+   the card's least time (bound); faults planted in copies of the flash
+   kernel's source (hd 120's zero-filled pad vector read from the next row,
+   hd 256's second half of the output columns left unwritten) must each
+   fail that check;
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
    greedy, each decode step a replay of the engine's captured CUDA graph.
@@ -28,9 +31,14 @@ Phases, each reported on its own lines:
    (0 expected: the same kernels on the same inputs); the two engines are
    driven step by step in turns, so their step times compare, and each
    engine's launches are counted over its own calls only;
-5. full-width Falcon-Mamba-7B, after Yi's weights are freed, served and
-   checked the same way: every RMSNorm and every prefill selective scan
-   must go through the kernels;
+5. full-width Falcon-Mamba-7B, H2O-Danube3-4B, Gemma-7B and MusicGen-Large,
+   each after the last one's weights are freed, served and checked the same
+   way: every RMSNorm and every prefill selective scan or attention must go
+   through the kernels.  Danube serves prompts of 4608 tokens into a
+   4096-slot sliding-window ring (capacity 5120), so the window binds, and
+   its graph engine's logits at decode step 8 must match a prefill through
+   the kernels over each row's prompt and first 8 tokens; MusicGen serves
+   prompts of 512 x 4 codebooks;
 6. the full-lane alltoall's block regroup, ``a2a_pack``, against its plain
    version on the card, bit for bit (a copy), at the EP-dispatch shapes of
    DeepSeek-V2's width and the reference tests' shapes, timed as in phase
@@ -66,6 +74,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -111,6 +120,19 @@ PACK_FAULTS = {
         "const long long chunk0 = (long long)blockIdx.x * kChunk;",
         "const long long chunk0 = (long long)blockIdx.x * (kChunk + 1);", (2, 4, 768, 5120)),
 }
+#: faults planted in copies of ``csrc/flash_attention.cu`` (name: sound
+#: line, faulty line, label of the phase-3 case it is checked at): each must
+#: fail that case's check.  ``tests/test_torch_kernels.py`` plants the same.
+FLASH_FAULTS = {
+    "hd120_pad_vector_from_the_next_row": (
+        "const int bytes = gr < n && c < HD ? 16 : 0;  // zeros past the end and in the pad",
+        "const int bytes = gr < n ? 16 : 0;", "danube prefill"),
+    "hd256_second_half_of_the_columns_unwritten": (
+        "for (int nb = 0; nb < HD / 8; ++nb)",
+        "for (int nb = 0; nb < (HD == 256 ? HD / 16 : HD / 8); ++nb)", "gemma prefill"),
+}
+#: every planted fault, by the kernel whose source it is planted in
+PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS}
 #: phase 7's mesh and sizes: DeepSeek-V2's width, 1024 tokens x top-6 per
 #: rank (768 rows per destination); PyTorch DDP's default 25 MiB bucket
 COLLECTIVES = {"pods": 2, "lanes": 4, "tokens": 1024, "top_k": 6, "d_model": 5120,
@@ -203,20 +225,21 @@ def card() -> str:
 
 
 def build_kernels() -> dict:
-    """Every kernel and every planted fault of ``PACK_FAULTS``, one ``nvcc``
-    per source, all at once.  Returns the planted faults' libraries."""
+    """Every kernel and every planted fault of ``PLANTED``, one ``nvcc`` per
+    source, all at once.  Returns the planted faults' libraries by name."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    src = (build.SRC_DIR / "a2a_pack.cu").read_text()
     planted = OUT_DIR / "planted"
     planted.mkdir(parents=True, exist_ok=True)
     fault_jobs = {}
-    for name, (sound, faulty, _) in PACK_FAULTS.items():
-        if src.count(sound) != 1:
-            raise AssertionError(f"planted fault {name}: its sound line is not in a2a_pack.cu")
-        (planted / f"{name}.cu").write_text(src.replace(sound, faulty))
-        fault_jobs[f"a2a_pack:{name}"] = (planted / f"{name}.cu", planted / f"{name}.so")
+    for kernel, faults in PLANTED.items():
+        src = (build.SRC_DIR / f"{kernel}.cu").read_text()
+        for name, (sound, faulty, _) in faults.items():
+            if src.count(sound) != 1:
+                raise AssertionError(f"planted fault {name}: its sound line is not in {kernel}.cu")
+            (planted / f"{name}.cu").write_text(src.replace(sound, faulty))
+            fault_jobs[f"{kernel}:{name}"] = (planted / f"{name}.cu", planted / f"{name}.so")
     build.compile_sources({**build.jobs(), **fault_jobs})
     secs = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -227,13 +250,18 @@ def build_kernels() -> dict:
     for line in log.splitlines():
         if "Used" in line or "spill" in line or line.startswith("=="):
             print(f"[build]   {line.strip()}")
+        elif "Compiling entry function" in line:  # which template instance the next lines are
+            name = line.split("'")[1]
+            print(f"[build]   {re.sub(r'^_ZN.*?_cu_[0-9a-f]{8}[0-9]+', '', name)[:60]}")
     return {name.split(":")[1]: lib for name, (_, lib) in fault_jobs.items()}
 
 
 def rmsnorm_cases(gen):
     """Kernel against plain version at the serving shapes of Yi-6B and
-    Falcon-Mamba-7B, a ragged T (one row past the prefill's 2048) and a
-    second width (DeepSeek-V2's 5120)."""
+    Falcon-Mamba-7B, a ragged T (one row past the prefill's 2048), a second
+    width (DeepSeek-V2's 5120), and the prefill and decode shapes of
+    H2O-Danube3 (d 3840, 4 x 4608 tokens), Gemma (3072) and MusicGen
+    (2048)."""
     import torch
     import torch.nn.functional as F
 
@@ -241,8 +269,10 @@ def rmsnorm_cases(gen):
     from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
     cases = []
-    # prefill 4 x 512 tokens; decode 4 tokens; ragged; second width
-    for T, d in ((2048, 4096), (4, 4096), (2049, 4096), (2048, 5120)):
+    # prefill 4 x 512 tokens; decode 4 tokens; ragged; second width; then
+    # danube's, gemma's and musicgen's prefill and decode
+    for T, d in ((2048, 4096), (4, 4096), (2049, 4096), (2048, 5120), (18432, 3840),
+                 (4, 3840), (2048, 3072), (4, 3072), (2048, 2048), (4, 2048)):
         x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
         out = rmsnorm_cuda(x, w, 1e-6)
@@ -281,15 +311,29 @@ FLASH_SPECS = [
     ("window 128", 4 * 32, 8, 512, 512, 128, True, 128),
     ("hd 16", 4 * 8, 4, 256, 256, 16, True, None),
     ("long prompt", 32, 8, 4096, 4096, 128, True, None),  # one sequence at Yi's context
+    # the dense serving slice: 4 requests each, Danube past its window
+    ("danube prefill", 4 * 32, 4, 4608, 4608, 120, True, 4096),
+    ("gemma prefill", 4 * 16, 1, 512, 512, 256, True, None),
+    ("musicgen prefill", 4 * 32, 1, 512, 512, 64, True, None),
+    ("ragged hd 120", 4 * 32, 4, 300, 300, 120, True, None),
+    ("ragged hd 256", 4 * 16, 1, 300, 300, 256, True, None),
+    # window edges inside a KV tile (64 keys; 32 at hd 256)
+    ("window 100, hd 120", 4 * 32, 4, 512, 512, 120, True, 100),
+    ("window 50, hd 256", 4 * 16, 1, 512, 512, 256, True, 50),
 ]
 
 
 def flash_inputs(gen, BH, g, Sq, Skv, hd):
-    """bf16 q [BH, Sq, hd] and k, v [BH // g, Skv, hd] on the card."""
+    """bf16 q [BH, Sq, hd] and k, v [BH // g, Skv, hd] on the card, each
+    the head of a longer allocation, so that a planted fault reading one
+    vector past a row's end reads memory that is there."""
     import torch
 
-    mk = lambda n, s: torch.randn(n, s, hd, generator=gen,  # noqa: E731
-                                  device="cuda").to(torch.bfloat16)
+    def mk(n, s):
+        buf = torch.empty(n * s * hd + 64, dtype=torch.bfloat16, device="cuda")
+        x = buf[:n * s * hd].view(n, s, hd)
+        return x.copy_(torch.randn(n, s, hd, generator=gen, device="cuda"))
+
     return mk(BH, Sq), mk(BH // g, Skv), mk(BH // g, Skv)
 
 
@@ -320,15 +364,20 @@ def flash_bounds(BH, g, Sq, Skv, hd, causal, window) -> dict:
             "bound_ops_ms": flops / PEAK_BF16_TC_FLOPS * 1e3}
 
 
-def flash_cases(gen):
+def flash_cases(gen, fault_libs):
     """Kernel against plain version: Yi prefill, ragged, windowed, hd 16,
-    and one sequence at Yi's 4096 context (bound by the tensor cores)."""
+    one sequence at Yi's 4096 context (bound by the tensor cores), and the
+    dense serving slice's shapes at hd 120, 256 and 64; then every planted
+    fault of ``FLASH_FAULTS`` against its case's check."""
     import torch
 
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.kernels.ref import flash_attention_ref, scaled_err
 
     cases = []
+    faults = {label: name for name, (_, _, label) in FLASH_FAULTS.items()}
     for label, BH, g, Sq, Skv, hd, causal, window in FLASH_SPECS:
         q, k, v = flash_inputs(gen, BH, g, Sq, Skv, hd)
         kw = dict(group_size=g, causal=causal, window=window)
@@ -337,6 +386,24 @@ def flash_cases(gen):
         abs_err, err = _err(out, flash_attention_ref(q.float(), k.float(), v.float(), **kw))
         if not err <= TOL_BF16:
             raise AssertionError(f"flash_attention {label}: scaled err {err} > {TOL_BF16}")
+        fault = {}
+        if label in faults:  # before the timed calls, whose freed outputs hold right answers
+            name = faults[label]
+            saved = build._LIBS["flash_attention"]
+            try:
+                build._LIBS["flash_attention"] = build.load(fault_libs[name], fa_mod._SIGNATURES)
+                faulty = flash_attention_cuda(q, k, v, **kw)
+                torch.cuda.synchronize()
+            finally:
+                build._LIBS["flash_attention"] = saved
+            f_err = scaled_err(faulty, flash_attention_ref(q.float(), k.float(), v.float(), **kw))
+            print(f"[kernel] flash_attention planted fault {name} at {label}: scaled err "
+                  f"{f_err:.6g} (sound {err:.6g}, tol {TOL_BF16})")
+            if f_err <= TOL_BF16:  # a faulty output of NaNs fails the check too
+                raise AssertionError(f"planted fault {name} passed the check: {f_err}")
+            fault = {"planted_fault_scaled_err": {  # JSON has no NaN
+                name: f_err if math.isfinite(f_err) else str(f_err)}}
+            del faulty
         lib = flash_library(Sq, Skv, causal, window)
         cases.append({
             "shape": f"{label}: q[{BH},{Sq},{hd}] kv[{BH // g},{Skv},{hd}] g={g}"
@@ -347,7 +414,7 @@ def flash_cases(gen):
             **_times(lambda q, k, v: flash_attention_cuda(q, k, v, **kw),
                      lambda q, k, v: flash_attention_ref(q, k, v, **kw),
                      lib, (q, k, v), iters=20),
-            **flash_bounds(BH, g, Sq, Skv, hd, causal, window),
+            **flash_bounds(BH, g, Sq, Skv, hd, causal, window), **fault,
         })
         del q, k, v, out
     return cases
@@ -651,17 +718,32 @@ def _widths(cfg) -> tuple:
                 m.resolved_dt_rank(cfg.d_model), cfg.vocab_size, cfg.dtype)
     a = cfg.attn
     return (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
-            cfg.d_ff, cfg.vocab_size, cfg.dtype)
+            cfg.d_ff, cfg.vocab_size, a.sliding_window, cfg.num_codebooks, cfg.act,
+            cfg.dtype)
 
 
-#: what each served model must be: its published widths (``_widths``), and
-#: the kernel launches over one prefill (norms per layer: Falcon-Mamba's
-#: layers have no second norm)
+#: what each served model must be: its published widths (``_widths``), the
+#: kernel launches over one prefill (norms per layer: Falcon-Mamba's layers
+#: have no second norm), its prompt length and cache capacity (4 requests,
+#: 32 new tokens each), and where set, the decode step whose logits must
+#: match a prefill over each row's prompt and its tokens so far
+_DENSE = {"norms_per_layer": 2, "prompt": 512, "capacity": 1024}
 SERVED = {
-    "yi_6b": {"widths": (32, 4096, 32, 4, 128, 11008, 64000, "bfloat16"),
-              "norms_per_layer": 2, "prefill": {"flash_attention": 32}},
-    "falcon_mamba_7b": {"widths": (64, 4096, 16, 4, 2, 256, 65024, "bfloat16"),
-                        "norms_per_layer": 1, "prefill": {"mamba_scan": 64}},
+    "yi_6b": {**_DENSE, "prefill": {"flash_attention": 32},
+              "widths": (32, 4096, 32, 4, 128, 11008, 64000, None, 1, "silu", "bfloat16")},
+    "falcon_mamba_7b": {**_DENSE, "norms_per_layer": 1, "prefill": {"mamba_scan": 64},
+                        "widths": (64, 4096, 16, 4, 2, 256, 65024, "bfloat16")},
+    # past the 4096-token window: the ring wraps at prefill (4608 % 4096 = 512)
+    "h2o_danube_3_4b": {**_DENSE, "prompt": 4608, "capacity": 5120, "full_forward_at": 8,
+                        "prefill": {"flash_attention": 24},
+                        "widths": (24, 3840, 32, 8, 120, 10240, 32000, 4096, 1, "silu",
+                                   "bfloat16")},
+    "gemma_7b": {**_DENSE, "prefill": {"flash_attention": 28},
+                 "widths": (28, 3072, 16, 16, 256, 24576, 256000, None, 1, "geglu",
+                            "bfloat16")},
+    "musicgen_large": {**_DENSE, "prefill": {"flash_attention": 48},
+                       "widths": (48, 2048, 32, 32, 64, 8192, 2048, None, 4, "gelu",
+                                  "bfloat16")},
 }
 
 
@@ -767,6 +849,9 @@ def _compare_decodes(graph: dict, eager: dict, slots: int) -> dict:
     and a token may differ only where the eager top-2 gap is within twice
     the difference (a near tie), after which that row's inputs differ and
     it is no longer compared."""
+    import numpy as np
+    import torch
+
     g_tok = [r.out_tokens for r in graph["done"]]
     e_tok = [r.out_tokens for r in eager["done"]]
     released, max_abs, worst_rms = {}, 0.0, 0.0
@@ -779,9 +864,10 @@ def _compare_decodes(graph: dict, eager: dict, slots: int) -> dict:
             if worst_rms > TOL_BF16:
                 raise AssertionError(f"sampling {i}, row {row}: graph logits {worst_rms} "
                                      f"rms from the eager step's > {TOL_BF16}")
-            if g_tok[row][i] != e_tok[row][i]:
-                top2 = e[row].float().topk(2).values
-                if (top2[0] - top2[1]).item() > 2 * d:
+            differ = torch.from_numpy(np.atleast_1d(np.not_equal(g_tok[row][i], e_tok[row][i])))
+            if differ.any():  # a token, or for K codebooks some of the K
+                top2 = e[row].float().reshape(len(differ), -1).topk(2).values
+                if (top2[:, 0] - top2[:, 1])[differ].min().item() > 2 * d:
                     raise AssertionError(f"sampling {i}, row {row}: graph token "
                                          f"{g_tok[row][i]} != eager {e_tok[row][i]}")
                 released[row] = i
@@ -807,7 +893,9 @@ def serve(arch: str, seed: int = 0) -> dict:
     want = SERVED[arch]
     if _widths(cfg) != want["widths"]:
         raise AssertionError(f"{arch} is not at its published widths: {_widths(cfg)}")
-    slots, capacity, prompt_len, max_new = 4, 1024, 512, 32
+    slots, capacity, prompt_len, max_new = 4, want["capacity"], want["prompt"], 32
+    k = cfg.num_codebooks
+    prompt_shape = (prompt_len, k) if k > 1 else (prompt_len,)
 
     t0 = time.perf_counter()
     params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
@@ -820,7 +908,7 @@ def serve(arch: str, seed: int = 0) -> dict:
     rng = np.random.RandomState(seed)
 
     def prompts():
-        return [rng.randint(0, cfg.vocab_size, prompt_len).astype(np.int32)
+        return [rng.randint(0, cfg.vocab_size, prompt_shape).astype(np.int32)
                 for _ in range(slots)]
 
     # warm-up drive at the same shapes and through the same sampler
@@ -856,7 +944,8 @@ def serve(arch: str, seed: int = 0) -> dict:
         "engine_build_ms": main["build_s"] * 1e3,
         "engine_build_ms_eager": eager["build_s"] * 1e3,
     }
-    print(f"[serve] prefill {slots}x{prompt_len} tokens: {main['prefill_ms']:.2f} ms, "
+    print(f"[serve] prefill {slots}x{'x'.join(map(str, prompt_shape))} tokens (cache of "
+          f"{capacity}, {_kv_slots(cfg, capacity)}): {main['prefill_ms']:.2f} ms, "
           f"{main['prefill_segments']} new device segments (eager engine, admitted next: "
           f"{eager['prefill_ms']:.2f} ms, {eager['prefill_segments']}); decode as a CUDA graph, "
           f"{decode_steps} steps of {slots} tokens: median "
@@ -896,29 +985,36 @@ def serve(arch: str, seed: int = 0) -> dict:
           f"(tol {TOL_BF16}); rows released at a near tie: "
           f"{cmp['rows_released_at_near_ties'] or 'none'}")
     res["graph_vs_eager"] = cmp
+    if "full_forward_at" in want:
+        res["decode_vs_full_forward"] = _decode_vs_full_forward(
+            cfg, params, served, main, want["full_forward_at"], capacity)
 
     # the same prefill through the plain versions of the kernels, in the
     # model's bf16 and in float32 (the reference for the bf16 rounding)
     tokens = torch.from_numpy(np.stack(served).astype(np.int64)).cuda()
+    torch.cuda.reset_peak_memory_stats()
     with plain_kernels():
         plain, _ = lm.prefill(cfg, params, {"tokens": tokens}, capacity=capacity)
         params32 = map_tree(lambda _, t: t.float(), params)
         exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"), params32,
                               {"tokens": tokens}, capacity=capacity)
         del params32
+    res["peak_mem_gb_float32_check"] = torch.cuda.max_memory_allocated() / 1e9
     kern = main["logits"][0]
     err_kern, err_plain = _rms_rel(kern, exact), _rms_rel(plain, exact)
     err_kp = _rms_rel(kern, plain)
     top2 = exact.topk(2, dim=-1).values
     noise = (plain.float() - exact).abs().max(dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > 2 * LOGIT_NOISE_RATIO * noise
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_NOISE_RATIO * noise
     same = kern.float().argmax(-1) == exact.argmax(-1)
     print(f"[serve] prefill logits against float32: rms err through the kernels "
           f"{err_kern:.6f}, through the plain versions {err_plain:.6f} (ratio "
           f"{err_kern / err_plain:.4f}, at most {LOGIT_NOISE_RATIO}); kernels vs plain: "
           f"max abs {_err(kern, plain)[0]:.5f}, rms {err_kp:.6f} (tol {TOL_BF16}); first "
-          f"token equal to float32's in {int(same.sum())}/{slots} rows, "
-          f"{int(decided.sum())} rows with a top-2 gap above the bf16 noise")
+          f"token equal to float32's in {int(same.sum())}/{same.numel()} rows"
+          f"{' x codebooks' if k > 1 else ''}, {int(decided.sum())} with a top-2 gap above "
+          f"the bf16 noise; peak memory with the float32 copy "
+          f"{res['peak_mem_gb_float32_check']:.2f} GB")
     if not err_kern <= LOGIT_NOISE_RATIO * err_plain:
         raise AssertionError(f"prefill logits: rms err {err_kern} through the kernels > "
                              f"{LOGIT_NOISE_RATIO} x {err_plain} through the plain versions")
@@ -930,6 +1026,53 @@ def serve(arch: str, seed: int = 0) -> dict:
     res.update(prefill_logit_rms_err_kernels=err_kern, prefill_logit_rms_err_plain=err_plain,
                prefill_logit_rms_err_kernels_vs_plain=err_kp)
     return res
+
+
+def _kv_slots(cfg, capacity: int) -> str:
+    """What one sequence's cache holds, for the report."""
+    if cfg.attn is None:
+        return "a Mamba state"
+    w = cfg.attn.sliding_window
+    return (f"a {min(w, capacity)}-slot sliding-window ring" if w is not None
+            else f"{capacity} KV slots")
+
+
+def _decode_vs_full_forward(cfg, params, served, main: dict, at: int, capacity: int) -> dict:
+    """The graph engine's logits at decode step ``at`` against the last
+    logits of a prefill, through the kernels, over each row's prompt and
+    its first ``at`` tokens: within ``TOL_BF16`` (rms), and the same argmax
+    wherever the prefill's top-2 gap exceeds twice the row's largest
+    difference (the bf16 noise between the two paths).  Past a sliding
+    window, this holds only if prefill leaves the ring as decode reads it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import lm
+
+    ctx = np.stack([np.concatenate([p, np.asarray(r.out_tokens[:at], p.dtype)])
+                    for p, r in zip(served, main["done"])])
+    full, _ = lm.prefill(cfg, params, {"tokens": torch.from_numpy(ctx.astype(np.int64)).cuda()},
+                         capacity=capacity)
+    dec = main["logits"][at]
+    rms = _rms_rel(dec, full)
+    noise = (dec.float() - full.float()).abs().max(dim=-1).values
+    top2 = full.float().topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * noise
+    same = dec.float().argmax(-1) == full.float().argmax(-1)
+    print(f"[serve] decode step {at} (position {ctx.shape[1] - 1}) against a prefill of "
+          f"{ctx.shape[0]}x{ctx.shape[1]} tokens through the kernels: rms {rms:.6f} (tol "
+          f"{TOL_BF16}), max abs {noise.max().item():.5f}; argmax equal in "
+          f"{int(same.sum())}/{same.numel()} rows, {int(decided.sum())} with a top-2 gap above "
+          f"twice the difference, all of them equal: {bool(same[decided].all())}")
+    if not rms <= TOL_BF16:
+        raise AssertionError(f"decode step {at}: logits rms {rms} from the full forward's "
+                             f"> {TOL_BF16}")
+    if not bool(same[decided].all()):
+        raise AssertionError(f"decode step {at}: argmax differs from the full forward's "
+                             "where the top-2 gap exceeds the noise")
+    return {"step": at, "positions": int(ctx.shape[1]), "rms_rel": rms,
+            "max_abs": noise.max().item(), "argmax_equal": int(same.sum()),
+            "decided": int(decided.sum())}
 
 
 def _leaves(tree):
@@ -973,7 +1116,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     rms = rmsnorm_cases(gen)
-    fla = flash_cases(gen)
+    fla = flash_cases(gen, fault_libs)
     mam = mamba_cases(gen)
     for name, cases, tol in (("rmsnorm", rms, TOL_BF16), ("flash_attention", fla, TOL_BF16),
                              ("mamba_scan", mam, TOL_F32)):

@@ -9,8 +9,8 @@ run and in turns, and the committed kernel at 64 against 128 q rows per CTA.
 into a directory the run can read).  The script builds it, the committed
 source as it is (``kWarps`` warps of 16 q rows per CTA) and the committed
 source with the other of 4 and 8 warps, holds every build against the plain
-version at every attention shape of ``chip_smoke.py``'s phase 3
-(``ref.scaled_err`` at most 2e-2), and times them there in turns (old, 4
+version at every attention shape of ``chip_smoke.py``'s phase 3 whose head
+dim the old build has (``ref.scaled_err`` at most 2e-2), and times them there in turns (old, 4
 warps, 8 warps, SDPA, SDPA, 8 warps, 4 warps, old) with ``chip_smoke.py``'s
 method: device time of one call from a CUDA graph of 20 calls, inputs cold
 in device memory (rotating through copies spanning 4x the L2) and warm in
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
     const = {m[1]: (m[0], int(m[2])) for m in re.finditer(
         r"^constexpr int (\w+) = (\d+);.*$", src, flags=re.M)}
     line, committed = const.pop("kWarps")
-    BK, STAGES = const["BK"][1], const["STAGES"][1]
+    STAGES = const["STAGES"][1]
     out_dir = ROOT / "build" / "experiments"
     out_dir.mkdir(parents=True, exist_ok=True)
     jobs = {"old": (args.old.resolve(), out_dir / "flash_old.so")}
@@ -84,8 +84,10 @@ def main(argv=None) -> int:
         info = _ptxas(build.BUILD_LOG[name])
         if name != "old":
             w = int(name[5:])
-            for hd in info:  # Smem<HD>::bytes: Q, then STAGES of K and V, rows padded by 8
-                info[hd]["smem"] = (16 * w + 2 * STAGES * BK) * (hd + 8) * 2
+            for hd in info:  # Tile<HD>::bytes: Q, then STAGES of K and V, rows padded by 8
+                hdp = -(-hd // 16) * 16  # the head dim padded to mma's k-step
+                bk = 32 if hdp > 128 else 64
+                info[hd]["smem"] = (16 * w + 2 * STAGES * bk) * (hdp + 8) * 2
         record["builds"][name] = info
         print(f"[build] {name}: {json.dumps(dict(sorted(info.items())))} (by head dim)")
 
@@ -93,6 +95,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     order = ["old", "warps4", "warps8", "sdpa", "sdpa", "warps8", "warps4", "old"]
     for label, BH, g, Sq, Skv, hd, causal, window in cs.FLASH_SPECS:
+        if hd not in record["builds"]["old"]:
+            print(f"[time] {label}: skipped, the old build has no head dim {hd}")
+            continue
         q, k, v = cs.flash_inputs(gen, BH, g, Sq, Skv, hd)
         kw = dict(group_size=g, causal=causal, window=window)
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)

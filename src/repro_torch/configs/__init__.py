@@ -50,11 +50,7 @@ _NOT_PORTED = {
     "deepseek_v2_236b": "MoE and MLA (ROADMAP queue 1 items 7 and 9)",
     "dbrx_132b": "MoE (ROADMAP queue 1 item 7)",
     "jamba_1_5_large_398b": "MoE (ROADMAP queue 1 item 7)",
-    "musicgen_large": "multi-codebook embedding and GELU (ROADMAP queue 1 item 5)",
-    "gemma_7b": "GeGLU, a tied head and head_dim 256 (ROADMAP queue 1 item 5)",
     "minicpm3_4b": "MLA (ROADMAP queue 1 item 9)",
-    "h2o_danube_3_4b": "sliding-window attention at head_dim 120 "
-                       "(ROADMAP queue 1 item 5)",
     "qwen2_vl_7b": "embedding inputs and M-RoPE (ROADMAP queue 1 item 5)",
 }
 

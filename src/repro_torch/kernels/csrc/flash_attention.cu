@@ -19,8 +19,15 @@
 // tensor cores.  The design (FlashAttention-2's, on mma.sync) keeps every
 // intermediate in registers and every load in flight under the math:
 //
-// - each warp owns 16 q rows; Q is loaded once and held as ldmatrix
-//   A-fragments for the whole KV loop;
+// - each warp owns 16 q rows; Q is loaded once into shared memory and,
+//   up to hd 128, held as ldmatrix A-fragments for the whole KV loop; at hd
+//   256 those fragments (64 registers) would not fit beside the output
+//   accumulator (128), so Q is re-read by ldmatrix at every k-step, and KV
+//   tiles are 32 rows instead of 64 (scores: 16 registers, not 32; shared
+//   memory 101,376 B, so two CTAs fit an SM);
+// - a head dim that is no multiple of mma's k-step (16) is padded inside
+//   the kernel: hd 120 runs as 128, the 16th 16-byte vector of each shared
+//   row zero-filled by cp.async, and only the 120 real columns written back;
 // - S = Q K^T runs on mma.sync m16n8k16 (bf16 in, fp32 accumulate), K's
 //   B-fragments come from shared memory through ldmatrix, and the scores
 //   stay in the accumulator fragments: each thread holds 2 rows x 2
@@ -64,18 +71,23 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kWarps = 4;             // warps per CTA, 16 q rows each
 constexpr int BQ = 16 * kWarps;       // q rows per CTA
-constexpr int BK = 64;                // kv rows per tile
 constexpr int NTHREADS = 32 * kWarps;
 constexpr int STAGES = 2;             // depth of the K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNeg = -1e30f;        // masked score, as in the reference
 constexpr float kNegL2 = kNeg * kLog2e;  // the same in the kernel's log2 units
 
+// the tiling of head dim HD (the row length in device memory)
 template <int HD>
-struct Smem {
+struct Tile {
+  // the head dim padded to mma's k-step (120 -> 128): the pad columns are
+  // zeros in shared memory and are never written out
+  static constexpr int HDP = (HD + 15) / 16 * 16;
+  static constexpr int BK = HDP > 128 ? 32 : 64;  // kv rows per tile
+  static constexpr bool kHoldQ = HDP <= 128;      // Q's fragments kept in registers
   // row stride in bf16: 16 bytes of pad put the 8 rows of an ldmatrix
   // phase on 8 distinct groups of 4 banks
-  static constexpr int LD = HD + 8;
+  static constexpr int LD = HDP + 8;
   static constexpr int stage = sizeof(bf16) * BK * LD;  // bytes of one K or V tile
   static constexpr int q_off = 0;
   static constexpr int k_off = q_off + sizeof(bf16) * BQ * LD;
@@ -129,12 +141,12 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // ROWS rows of a [n, HD] matrix from row r0 into shared memory at dst
-// (stride LD), by cp.async; rows past n are zero-filled, their source
-// clamped to a valid row
+// (stride LD, HDP columns), by cp.async; rows past n are zero-filled, their
+// source clamped to a valid row, and so are the pad vectors past HD
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, int r0, int n,
                                           int tid) {
-  constexpr int VPR = HD / 8;  // 16-byte vectors per row
+  constexpr int VPR = Tile<HD>::HDP / 8;  // 16-byte vectors per shared row
   constexpr int CHUNKS = ROWS * VPR;
 #pragma unroll
   for (int j = 0; j < (CHUNKS + NTHREADS - 1) / NTHREADS; ++j) {
@@ -142,8 +154,9 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, int r0,
     if (CHUNKS % NTHREADS == 0 || i < CHUNKS) {
       const int r = i / VPR, c = (i % VPR) * 8;
       const int gr = r0 + r;
-      cp_async16(dst + (r * Smem<HD>::LD + c) * (int)sizeof(bf16),
-                 src + (size_t)min(gr, n - 1) * HD + c, gr < n ? 16 : 0);
+      const int bytes = gr < n && c < HD ? 16 : 0;  // zeros past the end and in the pad
+      cp_async16(dst + (r * Tile<HD>::LD + c) * (int)sizeof(bf16),
+                 src + (size_t)min(gr, n - 1) * HD + c, bytes);
     }
   }
 }
@@ -153,11 +166,12 @@ __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
                  int group, int causal, int window, float scale_log2) {
-  using L = Smem<HD>;
+  using L = Tile<HD>;
   constexpr int LD = L::LD;
-  constexpr int NS = BK / 8;   // 16x8 score blocks per warp and tile
-  constexpr int NO = HD / 8;   // 16x8 output blocks per warp
-  constexpr int KQ = HD / 16;  // k-steps of Q K^T
+  constexpr int BK = L::BK;
+  constexpr int NS = BK / 8;       // 16x8 score blocks per warp and tile
+  constexpr int NO = L::HDP / 8;   // 16x8 output blocks per warp
+  constexpr int KQ = L::HDP / 16;  // k-steps of Q K^T
 
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sq = smem_addr(smem + L::q_off);
@@ -199,7 +213,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t v_lane = (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) *
                           sizeof(bf16);
 
-  uint32_t qf[KQ][4];
+  uint32_t qf[L::kHoldQ ? KQ : 1][4];  // Q's A-fragments, where they are held
   float acc[NO][4];
 #pragma unroll
   for (int nb = 0; nb < NO; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
@@ -213,9 +227,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     cp_async_wait<1>();  // K tile it has landed (and Q, at it = 0)
     __syncthreads();     // ... for every thread; every warp is done with tile it - 1
-    if (it == 0) {
+    if constexpr (L::kHoldQ) {
+      if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KQ; ++kk) ldsm_x4(qf[kk], sq + q_lane + kk * 32);
+        for (int kk = 0; kk < KQ; ++kk) ldsm_x4(qf[kk], sq + q_lane + kk * 32);
+      }
     }
 
     // S[16 x BK] = Q K^T for this warp's rows
@@ -224,12 +240,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nb = 0; nb < NS; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KQ; ++kk) {
+      uint32_t a[4];
+      if constexpr (L::kHoldQ) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        ldsm_x4(a, sq + q_lane + kk * 32);
+      }
 #pragma unroll
       for (int p = 0; p < NS / 2; ++p) {
         uint32_t b[4];
         ldsm_x4(b, sk + cur + k_lane + (p * 16 * LD) * sizeof(bf16) + kk * 32);
-        mma16816(s[2 * p], qf[kk], b[0], b[1]);
-        mma16816(s[2 * p + 1], qf[kk], b[2], b[3]);
+        mma16816(s[2 * p], a, b[0], b[1]);
+        mma16816(s[2 * p + 1], a, b[2], b[3]);
       }
     }
 
@@ -310,7 +333,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // epilogue: the quad's shares of l summed, O / max(l, 1e-30) written as
-  // bf16x2 straight from the fragments
+  // bf16x2 straight from the fragments, the HD real columns only
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float li = l[i];
@@ -321,7 +344,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     li = fmaxf(li, 1e-30f);
     bf16* orow = o + ((size_t)bh * Sq + qp) * HD + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < NO; ++nb)
+    for (int nb = 0; nb < HD / 8; ++nb)
       *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
           __floats2bfloat162_rn(acc[nb][2 * i] / li, acc[nb][2 * i + 1] / li);
   }
@@ -330,7 +353,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
            int group, int causal, int window, float scale, cudaStream_t stream) {
-  const int bytes = Smem<HD>::bytes;
+  const int bytes = Tile<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -354,7 +377,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   switch (head_dim) {
     case 16: return launch<16>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
     case 64: return launch<64>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
+    case 120: return launch<120>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
     case 128: return launch<128>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
+    case 256: return launch<256>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,10 +11,13 @@ flops per byte moved, so the Yi prefill (S = 512) is bound by bytes, barely,
 and longer prompts by the tensor cores.  The kernel is FlashAttention-2's
 design on ``mma.sync``: each warp holds 16 q rows, scores, probabilities and
 the output accumulator stay in registers (bf16 operands, fp32
-accumulation), and K/V tiles of 64 rows arrive by ``cp.async`` into a
-two-stage ring in shared memory while the previous tile is computed.
-Unlike the Pallas kernel it masks the ragged edge, so Sq and Skv need not
-be multiples of its tiles.
+accumulation), and K/V tiles of 64 rows (32 at head_dim 256, where Q is
+re-read from shared memory at every k-step rather than held in registers)
+arrive by ``cp.async`` into a two-stage ring in shared memory while the
+previous tile is computed.  A head dim that is no multiple of 16 is padded
+inside the kernel, in its shared-memory tiles (no copy here).  Unlike the
+Pallas kernel it masks the ragged edge, so Sq and Skv need not be multiples
+of its tiles.
 
 The wrapper checks shapes, dtypes, device, contiguity and alignment, and
 raises on anything the kernel does not take; it allocates the output and
@@ -34,9 +37,10 @@ from repro_torch.kernels import build
 
 __all__ = ["HEAD_DIMS", "flash_attention_cuda"]
 
-#: head dims the kernel is instantiated for (120 and 256 come with the
-#: danube and gemma configs)
-HEAD_DIMS = (16, 64, 128)
+#: head dims the kernel is instantiated for: the smoke configs' 16, and the
+#: published configs' 64 (MusicGen), 120 (H2O-Danube3, run padded to 128
+#: inside the kernel), 128 (Yi) and 256 (Gemma)
+HEAD_DIMS = (16, 64, 120, 128, 256)
 _MAX_BH = 65535  # the C interface's limit
 _SIGNATURES = {
     "flash_attention_launch": (ctypes.c_int, [

@@ -14,6 +14,11 @@ __all__ = ["a2a_pack_ref", "flash_attention_ref", "mamba_scan_ref", "rmsnorm_ref
 _NEG = -1e30
 
 
+#: float32 scores the plain attention holds at once (1 GiB): longer inputs
+#: are taken in chunks of query rows, which leaves each row's softmax as it is
+_SCORES_AT_ONCE = 2**28
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # [BH, Sq, hd]
     k: torch.Tensor,  # [BHkv, Skv, hd]
@@ -29,15 +34,22 @@ def flash_attention_ref(
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     kk = k.float().repeat_interleave(group_size, dim=0)
     vv = v.float().repeat_interleave(group_size, dim=0)
-    s = torch.einsum("bqd,bkd->bqk", q.float(), kk) * scale
-    qp = torch.arange(Sq, device=q.device)[:, None]
     kp = torch.arange(Skv, device=q.device)[None, :]
-    mask = kp <= qp if causal else torch.ones(Sq, Skv, dtype=torch.bool, device=q.device)
-    if window is not None:
-        mask = mask & (kp > qp - window)
-    s = torch.where(mask[None], s, torch.full_like(s, _NEG))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p, vv).to(q.dtype)
+
+    def rows(q0: int, qc: torch.Tensor) -> torch.Tensor:
+        s = torch.einsum("bqd,bkd->bqk", qc.float(), kk) * scale
+        qp = torch.arange(q0, q0 + qc.shape[1], device=q.device)[:, None]
+        mask = kp <= qp if causal else torch.ones_like(kp, dtype=torch.bool)
+        if window is not None:
+            mask = mask & (kp > qp - window)
+        s = torch.where(mask[None], s, torch.full_like(s, _NEG))
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bqk,bkd->bqd", p, vv).to(q.dtype)
+
+    n = max(1, _SCORES_AT_ONCE // (BH * Skv))
+    if n >= Sq:
+        return rows(0, q)
+    return torch.cat([rows(i, q[:, i:i + n]) for i in range(0, Sq, n)], dim=1)
 
 
 def mamba_scan_ref(

@@ -3,9 +3,12 @@ a few decode steps of the slot engine, on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi_6b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch falcon_mamba_7b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch h2o_danube_3_4b
 
 The run has the shapes of ``chip_smoke.py``'s serving phase: 4 slots,
-prompts of 512 tokens, a cache of 1024.  Prints, for the prefill and for
+prompts of 512 tokens (of 512 x 4 codebooks for MusicGen), a cache of 1024;
+H2O-Danube3 takes prompts of 4608 tokens into a cache of 5120, past its
+4096-token window.  Prints, for the prefill and for
 4 decode steps: host wall time without the profiler (its own cost stays
 out of it), the device's busy time (the sum of the device's own records:
 kernels, copies and memsets; this path runs on one stream, so none
@@ -17,7 +20,7 @@ engines: host times move between calls, so only turns inside one call
 compare the two.  Each turn also times the engine's build (the capture)
 and two admissions on the host clock: the first, right after the build,
 and a second after the first wave has drained (its prompts fill the cache
-to ``CAPACITY``, so that prefill runs over 4 x 1024 positions), each with
+to the capacity, so that prefill runs over 4 x capacity positions), each with
 the device memory segments the allocator had to create for it
 (``cudaMalloc`` calls: the allocator's cache did not hold the memory).
 Last, a graph and an eager engine are built together and admitted one
@@ -39,7 +42,10 @@ from repro_torch.configs import get_config
 from repro_torch.models import lm
 from repro_torch.serving.engine import Request, ServeEngine
 
-SLOTS, PROMPT_LEN, CAPACITY, STEPS, TOP = 4, 512, 1024, 4, 10
+SLOTS, STEPS, TOP = 4, 4, 10
+#: (prompt length, capacity) by arch, as chip_smoke.py serves it
+SHAPES = {"h2o_danube_3_4b": (4608, 5120)}
+DEFAULT_SHAPE = (512, 1024)
 TURNS = ("eager", "graph", "graph", "eager")
 ORDERS = (("graph", "eager"), ("eager", "graph")) * 2
 
@@ -72,20 +78,23 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     args = ap.parse_args(argv)
+    prompt_len, capacity = SHAPES.get(args.arch, DEFAULT_SHAPE)
 
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
+    k = cfg.num_codebooks
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)
     rng = np.random.RandomState(0)
 
-    def requests(length=PROMPT_LEN, max_new=10**9):
-        return [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, length)
+    def requests(length=prompt_len, max_new=10**9):
+        shape = (length, k) if k > 1 else (length,)
+        return [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, shape)
                         .astype(np.int32), max_new_tokens=max_new)
                 for i in range(SLOTS)]
 
     def engine(mode="eager"):
-        return ServeEngine(cfg, params, num_slots=SLOTS, capacity=CAPACITY,
+        return ServeEngine(cfg, params, num_slots=SLOTS, capacity=capacity,
                            device=device, cuda_graph=mode == "graph")
 
     warm = engine()
@@ -102,7 +111,7 @@ def main(argv=None):
     wall = time.perf_counter() - t0
     with profile(activities=acts) as prof:
         engine().admit(requests())
-    _report(f"prefill {SLOTS}x{PROMPT_LEN}", prof, wall, 1)
+    _report(f"prefill {SLOTS}x{prompt_len}", prof, wall, 1)
 
     # each turn: a fresh engine (build timed), the first admission timed,
     # one step untimed, STEPS steps timed alone, STEPS more profiled, then
@@ -123,10 +132,10 @@ def main(argv=None):
                 eng.step()
         _report(f"decode step of {SLOTS} tokens, {mode}", prof, wall, STEPS)
         assert len(eng.drain()) == SLOTS
-        second = _admission(eng, requests(CAPACITY - eng.pos))
+        second = _admission(eng, requests(capacity - eng.pos))
         print(f"[profile] {mode} engine: built in {build_ms:.3f} ms; first admission "
-              f"({SLOTS}x{PROMPT_LEN}) {first[0]:.3f} ms host wall, {first[1]} new device "
-              f"segments; second, after a drain ({SLOTS}x{CAPACITY}) {second[0]:.3f} ms, "
+              f"({SLOTS}x{prompt_len}) {first[0]:.3f} ms host wall, {first[1]} new device "
+              f"segments; second, after a drain ({SLOTS}x{capacity}) {second[0]:.3f} ms, "
               f"{second[1]} new segments")
         del eng
 

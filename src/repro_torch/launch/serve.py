@@ -4,6 +4,8 @@
       --requests 4 --max-new 16            # on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon_mamba_7b \\
       --requests 4 --max-new 16            # the Mamba path, on the GPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen_large
+                                           # 4 codebooks: prompts [S, 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --eager
                                            # the decode step from Python, not a CUDA graph
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --smoke \\
@@ -64,9 +66,11 @@ def main(argv=None):
                       cuda_graph=False if args.eager else None)
 
     rng = np.random.RandomState(args.seed)
+    k = cfg.num_codebooks
+    shape = (args.prompt_len, k) if k > 1 else (args.prompt_len,)
     reqs = [
-        Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, args.prompt_len)
-                .astype(np.int32), max_new_tokens=args.max_new)
+        Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, shape).astype(np.int32),
+                max_new_tokens=args.max_new)
         for i in range(args.requests)
     ]
     t0 = time.time()

@@ -7,7 +7,8 @@ Two compute paths:
   (the flash kernel on the card).  The reference's prefill path is
   ``chunked_attention`` with ``q_pos = arange(S)`` and ``k_off = 0``, which
   computes exactly what the flash kernel computes.  Prefill returns the
-  filled KV cache: the last ``capacity`` keys and values, zero-padded.
+  filled KV cache: the last ``capacity`` keys and values, zero-padded; under
+  a sliding window, a ring in which position p sits in slot p % capacity.
 * decode — one new token against the KV cache, in plain PyTorch ops, as in
   the reference (``_decode_attend`` has no TPU kernel).  The new key and
   value are written into the cache in place.
@@ -139,8 +140,14 @@ def attention(
         cap = capacity or S
         if a.sliding_window is not None:
             cap = min(cap, a.sliding_window)
+        kc, vc = k[:, -cap:], v[:, -cap:]
+        if a.sliding_window is not None and S > cap:
+            # the ring's layout: position p in slot p % cap, where decode
+            # reads it (the reference leaves the last cap keys unrotated,
+            # which is that layout only when S % cap == 0)
+            kc, vc = (torch.roll(t, S % cap, dims=1) for t in (kc, vc))
         pad = max(cap - S, 0)
-        new_cache = {"k": F.pad(k[:, -cap:], (0, 0, 0, 0, 0, pad)),
-                     "v": F.pad(v[:, -cap:], (0, 0, 0, 0, 0, pad))}
+        new_cache = {"k": F.pad(kc, (0, 0, 0, 0, 0, pad)),
+                     "v": F.pad(vc, (0, 0, 0, 0, 0, pad))}
     out = o.reshape(B, S, H * hd) @ p["wo"]
     return AttnResult(out, new_cache)

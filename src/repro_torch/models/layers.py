@@ -61,40 +61,61 @@ def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     return _gelu(x @ p["w_up"]) @ p["w_down"]
 
 
-def _check_single_codebook(cfg: ModelConfig) -> None:
-    if cfg.num_codebooks != 1 or not cfg.embed_inputs:
+def _check_embed_inputs(cfg: ModelConfig) -> None:
+    if not cfg.embed_inputs:
         raise NotImplementedError(
-            f"{cfg.name}: multi-codebook and embedding-input models come with "
-            "the musicgen and qwen2-vl configs (ROADMAP queue 1 item 5)")
+            f"{cfg.name}: embedding-input models come with the qwen2-vl config "
+            "(ROADMAP queue 1 item 5)")
 
 
 def embed_meta(cfg: ModelConfig) -> dict:
-    _check_single_codebook(cfg)
-    return {"embedding": ParamMeta((cfg.padded_vocab, cfg.d_model),
-                                   ("vocab", "d_model"), scale=0.02)}
+    """One ``[V, D]`` table, or ``[K, V, D]`` for K codebooks."""
+    _check_embed_inputs(cfg)
+    v, d, k = cfg.padded_vocab, cfg.d_model, cfg.num_codebooks
+    if k > 1:
+        return {"embedding": ParamMeta((k, v, d), ("layers", "vocab", "d_model"), scale=0.02)}
+    return {"embedding": ParamMeta((v, d), ("vocab", "d_model"), scale=0.02)}
 
 
 def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] integer -> [B, S, D].  A gather: the reference's
-    one-hot matmul picks exactly one row, so the two agree bit for bit."""
-    x = p["embedding"][tokens]
+    """tokens [B, S] integer, or [B, S, K] for K codebooks -> [B, S, D].  A
+    gather: the reference's one-hot matmul picks exactly one row, so the
+    two agree bit for bit.  K codebooks' embeddings are summed in codebook
+    order (MusicGen's parallel pattern), as in the reference."""
+    emb = p["embedding"]
+    if cfg.num_codebooks > 1:
+        x = emb[0][tokens[..., 0]]
+        for k in range(1, cfg.num_codebooks):
+            x = x + emb[k][tokens[..., k]]
+    else:
+        x = emb[tokens]
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
     return x
 
 
+def _tied(cfg: ModelConfig) -> bool:
+    return cfg.tie_embeddings and cfg.num_codebooks == 1
+
+
 def head_meta(cfg: ModelConfig) -> dict:
-    _check_single_codebook(cfg)
-    if cfg.tie_embeddings:
+    """None when tied to a one-codebook embedding; else ``[D, V]``, or
+    ``[D, K * V]`` for K codebooks."""
+    _check_embed_inputs(cfg)
+    if _tied(cfg):
         return {}
-    return {"lm_head": ParamMeta((cfg.d_model, cfg.padded_vocab), ("d_model", "vocab"))}
+    return {"lm_head": ParamMeta((cfg.d_model, cfg.num_codebooks * cfg.padded_vocab),
+                                 ("d_model", "vocab"))}
 
 
 def logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """x [B, S, D] -> [B, S, V] over the padded vocab."""
-    if cfg.tie_embeddings:
+    """x [B, S, D] -> [B, S, V] over the padded vocab, or [B, S, K, V]."""
+    if _tied(cfg):
         return x @ params["embed"]["embedding"].T
-    return x @ params["head"]["lm_head"]
+    out = x @ params["head"]["lm_head"]
+    if cfg.num_codebooks > 1:
+        out = out.unflatten(-1, (cfg.num_codebooks, cfg.padded_vocab))
+    return out
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -124,8 +124,9 @@ def _period(tree: dict, i: int) -> dict:
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None):
-    """Process a prompt batch ``{"tokens": [B, S]}``; returns (last-position
-    logits [B, V], filled cache).  An attention slot's cache holds
+    """Process a prompt batch ``{"tokens": [B, S]}`` (``[B, S, K]`` for K
+    codebooks); returns (last-position logits [B, V] or [B, K, V], filled
+    cache).  An attention slot's cache holds
     ``capacity`` (default S) entries, a Mamba slot's the last conv inputs and
     the float32 state.  The filled KV cache and conv window take the model
     dtype, as the reference's do."""
@@ -134,7 +135,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
         raise NotImplementedError(
             f"prefill takes {{'tokens'}} only (positions are arange(S)); got {sorted(batch)}")
     tokens = batch["tokens"]
-    B, S = tokens.shape
+    B, S = tokens.shape[:2]
     x = L.embed(cfg, params["embed"], tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
     filled = {}
@@ -172,7 +173,8 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dic
     tokens already in the cache, a Python int (checked by
     ``check_position``) or a 0-d int64 tensor on the cache's device (not
     checked: the caller keeps it in range).  Returns (logits [B, V], cache),
-    the cache updated in place.
+    the cache updated in place; K codebooks take tokens [B, 1, K] and give
+    logits [B, K, V].
 
     The step reads its inputs, writes the cache in place and reads nothing
     back to the host, so one capture of it with a tensor position serves

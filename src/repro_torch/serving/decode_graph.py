@@ -7,7 +7,8 @@ Run from Python, one decode step at serving batch launches some 2,000 to
 time.  ``DecodeGraph`` records the step's launches once and replays them
 with one call.  It owns static buffers that every replay reads and writes:
 
-* ``tokens`` [B, 1] int64 and ``pos`` (0-d int64), the step's inputs, which
+* ``tokens`` [B, 1] int64 ([B, 1, K] for K codebooks) and ``pos`` (0-d
+  int64), the step's inputs, which
   ``replay`` overwrites on the device;
 * ``cache``, the cache it was given, written in place by every replay (the
   caller loads a new prefill's cache into it with ``load``);
@@ -58,7 +59,9 @@ class DecodeGraph:
             raise ValueError(f"a CUDA graph needs the cache on a CUDA device, not {device}: "
                              "the CPU runs the eager step")
         self.cfg, self.params, self.cache = cfg, params, cache
-        self.tokens = torch.zeros(leaves[0].shape[1], 1, dtype=torch.int64, device=device)
+        codebooks = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+        self.tokens = torch.zeros(leaves[0].shape[1], 1, *codebooks, dtype=torch.int64,
+                                  device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.graph = torch.cuda.CUDAGraph()
         self.launches = self._capture()
@@ -107,9 +110,9 @@ class DecodeGraph:
         map_tree(lambda _, have, new: have.copy_(new), self.cache, cache)
 
     def replay(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
-        """One decode step: ``tokens`` [B, 1] at position ``pos`` (the tokens
-        already in the cache).  Returns the logits [B, V]; the cache is
-        updated in place."""
+        """One decode step: ``tokens`` [B, 1] (or [B, 1, K]) at position
+        ``pos`` (the tokens already in the cache).  Returns the logits [B, V]
+        (or [B, K, V]); the cache is updated in place."""
         lm.check_position(self.cfg, self.cache, pos)
         self.tokens.copy_(tokens)
         self.pos.fill_(pos)

@@ -45,7 +45,7 @@ _STEP_EDGES = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1, 1.0, 10.0)
 @dataclasses.dataclass
 class Request:
     rid: int
-    prompt: np.ndarray  # [S] int32
+    prompt: np.ndarray  # [S] int32, or [S, K] for K codebooks
     max_new_tokens: int = 32
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
@@ -58,7 +58,8 @@ def greedy_sample(logits: torch.Tensor, generator=None) -> torch.Tensor:
 def temperature_sample(temp: float) -> Callable:
     def fn(logits, generator):
         probs = torch.softmax(logits.float() / temp, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+        picks = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1, generator=generator)
+        return picks.reshape(probs.shape[:-1]).to(torch.int32)
 
     return fn
 
@@ -114,6 +115,10 @@ class ServeEngine:
             self.graph = DecodeGraph(cfg, params, lm.init_cache(
                 cfg, num_slots, capacity, device=self.device, dtype=torch_dtype(cfg.dtype)))
 
+    def _tok_shape(self, n: int) -> tuple:
+        k = self.cfg.num_codebooks
+        return (self.num_slots, n, k) if k > 1 else (self.num_slots, n)
+
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         return self.sampler(logits, self.generator).cpu().numpy()
 
@@ -126,7 +131,7 @@ class ServeEngine:
             return []
         max_len = max(len(r.prompt) for r in admitted)
         start = self.pos
-        toks = np.zeros((self.num_slots, start + max_len), np.int64)
+        toks = np.zeros(self._tok_shape(start + max_len), np.int64)
         for slot, req in zip(free, admitted):
             p = np.asarray(req.prompt)
             toks[slot, start + max_len - len(p):start + max_len] = p
@@ -146,7 +151,7 @@ class ServeEngine:
         nxt = self._sample(lgts)
         for slot, req in zip(free, admitted):
             req.out_tokens.append(nxt[slot].tolist())
-        self._pending = torch.from_numpy(nxt.astype(np.int64)).to(self.device)[:, None]
+        self._pending = self._tokens(nxt)
         return admitted
 
     def step(self) -> None:
@@ -160,13 +165,17 @@ class ServeEngine:
             lgts = self.graph.replay(self._pending, self.pos)
         self.pos += 1
         nxt = self._sample(lgts)
-        self._pending = torch.from_numpy(nxt.astype(np.int64)).to(self.device)[:, None]
+        self._pending = self._tokens(nxt)
         for slot, req in enumerate(self.slots):
             if req is None or req.done:
                 continue
             req.out_tokens.append(nxt[slot].tolist())
             if len(req.out_tokens) >= req.max_new_tokens:
                 req.done = True
+
+    def _tokens(self, nxt: np.ndarray) -> torch.Tensor:
+        """The sampled tokens as the next step's input, [B, 1] or [B, 1, K]."""
+        return torch.from_numpy(nxt.astype(np.int64).reshape(self._tok_shape(1))).to(self.device)
 
     def drain(self) -> list[Request]:
         """Release finished requests from their slots."""

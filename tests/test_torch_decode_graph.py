@@ -2,7 +2,8 @@
 (``repro_torch.serving.decode_graph``) against the eager step, on the card.
 
 Both run the same kernels on the same inputs, so their logits must be equal
-bit for bit.  On the yi and falcon-mamba smoke configs (bf16):
+bit for bit.  On the yi, falcon-mamba, h2o-danube (a sliding window) and
+musicgen (2 codebooks: a [B, 1, K] token buffer) smoke configs (bf16):
 
 * the serving engine with the graph (the default on the card) and without
   it give the same tokens and per-step logits over 16 steps, for a first
@@ -29,7 +30,7 @@ from repro_torch.models.params import map_tree
 from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.engine import Request, ServeEngine, greedy_sample
 
-ARCHS = ["yi_6b", "falcon_mamba_7b"]
+ARCHS = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "musicgen_large"]
 SLOTS, CAP, PROMPT, STEPS = 4, 64, 8, 16
 
 
@@ -44,6 +45,12 @@ def _model(arch):
     cfg = get_smoke_config(arch)
     return cfg, lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                               device="cuda")
+
+
+def _tokens(cfg, rng, shape):
+    """Token ids of ``shape``, with a trailing codebook axis for K > 1."""
+    k = cfg.num_codebooks
+    return rng.randint(0, cfg.vocab_size, shape + ((k,) if k > 1 else ()))
 
 
 def _norms_per_forward(cfg) -> int:
@@ -82,7 +89,7 @@ def _serve(cfg, params, cuda_graph: bool, waves):
 def test_graph_engine_equals_the_eager_engine(cuda, arch):
     cfg, params = _model(arch)
     rng = np.random.RandomState(0)
-    waves = [[rng.randint(0, cfg.vocab_size, n).astype(np.int32) for n in (8, 5, 8, 3)]
+    waves = [[_tokens(cfg, rng, (n,)).astype(np.int32) for n in (8, 5, 8, 3)]
              for _ in range(2)]
     want_tokens, want_logits, _, no_graph = _serve(cfg, params, False, waves)
     tokens, logits, launches, graph = _serve(cfg, params, True, waves)
@@ -100,8 +107,8 @@ def test_graph_engine_equals_the_eager_engine(cuda, arch):
 def _replay_against_eager(cfg, params) -> None:
     """A graph captured over a prefill's cache, against eager steps from a
     copy of that cache, on the same (teacher-forced) tokens."""
-    toks = torch.from_numpy(np.random.RandomState(1).randint(
-        0, cfg.vocab_size, (SLOTS, PROMPT + STEPS))).cuda()
+    toks = torch.from_numpy(_tokens(cfg, np.random.RandomState(1),
+                                    (SLOTS, PROMPT + STEPS))).cuda()
     _, cache = lm.prefill(cfg, params, {"tokens": toks[:, :PROMPT]}, capacity=CAP)
     graph = DecodeGraph(cfg, params, map_tree(lambda _, t: t.clone(), cache))
     for t in range(STEPS):

@@ -2,8 +2,8 @@
 package's (``repro.serving.engine``), on the same parameters, prompts,
 slots and capacity, and the port's serve CLI.
 
-Float32 copies of the yi and falcon-mamba smoke configs, so the logits
-agree to 1e-5 of their scale.  The port's engine is fed the reference's
+Float32 copies of the yi, falcon-mamba and musicgen smoke configs, so the
+logits agree to 1e-5 of their scale.  The port's engine is fed the reference's
 tokens (teacher forcing), so every step's logits are comparable even where
 a near-tie could flip a greedy choice; its own greedy choice must equal
 the reference's wherever the reference's top-2 gap exceeds the tolerance.
@@ -39,7 +39,9 @@ def _setup(arch="yi_6b"):
     jp = JLM.init_model(jcfg, jax.random.PRNGKey(3))
     tp = params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
     rng = np.random.RandomState(4)
-    prompts = [rng.randint(0, tcfg.vocab_size, n).astype(np.int32) for n in PROMPT_LENS]
+    k = tcfg.num_codebooks
+    prompts = [rng.randint(0, tcfg.vocab_size, (n, k) if k > 1 else n).astype(np.int32)
+               for n in PROMPT_LENS]
     return jcfg, tcfg, jp, tp, prompts
 
 
@@ -56,6 +58,12 @@ def test_falcon_mamba_engine_matches_reference():
     """The Mamba path: as in the reference, the left pads (token 0) of the
     shorter prompts enter the state."""
     _engine_matches_reference("falcon_mamba_7b")
+
+
+def test_musicgen_engine_matches_reference():
+    """Two codebooks: prompts [S, K], logits [B, K, V], a token list of K
+    ids per request and step, as in the reference."""
+    _engine_matches_reference("musicgen_large")
 
 
 def _engine_matches_reference(arch):
@@ -84,8 +92,8 @@ def _engine_matches_reference(arch):
     for step, (got, want) in enumerate(zip(port_logits, ref_logits)):
         scale = max(np.abs(want).max(), 1e-6)
         assert np.abs(got - want).max() <= TOL * scale, f"step {step}"
-        top2 = np.sort(want, axis=-1)[:, -2:]
-        decided = (top2[:, 1] - top2[:, 0]) > TOL * scale
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        decided = (top2[..., 1] - top2[..., 0]) > TOL * scale
         assert (got.argmax(-1) == want.argmax(-1))[decided].all(), f"step {step}"
 
     greedy = TE.ServeEngine(tcfg, tp, num_slots=SLOTS, capacity=CAP, device="cpu")
@@ -142,12 +150,18 @@ def test_serve_cli_runs_falcon_mamba_smoke_on_cpu():
     _serve_cli_runs_smoke_on_cpu("falcon_mamba_7b")
 
 
+def test_serve_cli_runs_musicgen_smoke_on_cpu():
+    _serve_cli_runs_smoke_on_cpu("musicgen_large")
+
+
 def _serve_cli_runs_smoke_on_cpu(arch):
     done = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--requests", "3", "--slots", "4", "--prompt-len", "8",
                         "--max-new", "5", "--capacity", "16"])
     assert sorted(r.rid for r in done) == [0, 1, 2]
     assert all(len(r.out_tokens) == 5 for r in done)
+    k = get_smoke_config(arch).num_codebooks
+    assert all(np.shape(t) == ((k,) if k > 1 else ()) for r in done for t in r.out_tokens)
 
 
 @pytest.mark.parametrize("args,err", [
@@ -175,3 +189,5 @@ def test_temperature_sample_follows_the_softmax():
     assert abs(picks.float().mean().item() - 0.75) < 0.027
     sharp = TE.temperature_sample(0.01)(torch.tensor([[0.0, 1.0, 0.5]]), gen)
     assert sharp.tolist() == [1]
+    codebooks = TE.temperature_sample(0.01)(torch.tensor([[[0.0, 1.0], [2.0, 0.0]]] * 3), gen)
+    assert codebooks.tolist() == [[1, 0]] * 3  # [B, K, V] -> one pick per codebook

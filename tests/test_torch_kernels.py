@@ -62,6 +62,10 @@ FLASH_CASES = [  # BH, S, hd, g, window, dtype, causal
     (8, 128, 16, 4, 40, "bfloat16", True),    # GQA with a window
     (2, 64, 16, 1, None, "float32", False),   # non-causal
     (4, 64, 16, 2, 24, "float32", False),     # non-causal with a window
+    (8, 64, 120, 4, None, "bfloat16", True),  # h2o-danube's head_dim, GQA group of 4
+    (4, 96, 120, 4, 40, "float32", True),     # ... with a window
+    (2, 64, 256, 1, None, "bfloat16", True),  # gemma's head_dim
+    (2, 64, 256, 1, 24, "float32", True),     # ... with a window
 ]
 
 
@@ -201,6 +205,17 @@ def _card(a: np.ndarray, dev, dt=torch.bfloat16):
     (32, 256, 256, 16, 4, None, True),     # yi smoke head_dim
     (4, 1, 1, 16, 1, None, True),          # one token
     (32, 4096, 4096, 128, 8, None, True),  # one yi sequence at its 4096 context
+    (128, 4608, 4608, 120, 4, 4096, True),  # h2o-danube prefill, 4 x 32 heads, past its window
+    (64, 512, 512, 256, 1, None, True),     # gemma prefill, 4 x 16 heads
+    (128, 512, 512, 64, 1, None, True),     # musicgen prefill, 4 x 32 heads
+    (32, 300, 300, 120, 4, None, True),     # ragged, hd 120
+    (16, 300, 300, 256, 1, None, True),     # ragged, hd 256
+    (32, 512, 512, 120, 4, 100, True),      # a window edge inside a 64-key tile
+    (16, 512, 512, 256, 1, 50, True),       # ... inside a 32-key tile (hd 256)
+    (8, 33, 77, 120, 4, None, True),        # Sq != Skv
+    (8, 33, 77, 256, 2, None, False),       # Sq != Skv, non-causal
+    (4, 1, 1, 120, 1, None, True),          # one token
+    (8, 200, 200, 256, 1, 40, False),       # non-causal with a window
 ])
 def test_flash_attention_kernel_on_card(cuda, BH, Sq, Skv, hd, g, win, causal):
     q = _card(RNG.randn(BH, Sq, hd).astype(np.float32), cuda)
@@ -223,7 +238,9 @@ RMSNORM_WIDTHS = (8, 96, 256, 512, 1536, 2560, 3072, 3584, 3840, 4096, 4104, 512
 RMSNORM_CASES = [(100, 96, torch.float32), (3, 64, torch.float32), (5, 8, torch.bfloat16)] + [
     (T, d, dt) for dt in (torch.bfloat16, torch.float32) for T in (1, 4, 2048, 2049)
     for d in RMSNORM_WIDTHS] + [
-    (3, 8200, torch.float32), (300, 8200, torch.float32), (3, 16392, torch.bfloat16)]
+    (3, 8200, torch.float32), (300, 8200, torch.float32), (3, 16392, torch.bfloat16)] + [
+    # musicgen's width, and h2o-danube's prefill of 4 x 4608 tokens
+    (T, 2048, torch.bfloat16) for T in (4, 2048)] + [(18432, 3840, torch.bfloat16)]
 
 
 @pytest.mark.cuda
@@ -336,6 +353,13 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "flash_attention", "ok = ok && (kp > qp - window);", "ok = ok && (kp >= qp - window);"),
     "flash_ring_read_before_its_group_landed": (
         "flash_attention", "cp_async_wait<1>();  // K tile it has landed (and Q, at it = 0)", ""),
+    "flash_hd120_pad_vector_from_the_next_row": (
+        "flash_attention",
+        "const int bytes = gr < n && c < HD ? 16 : 0;  // zeros past the end and in the pad",
+        "const int bytes = gr < n ? 16 : 0;"),
+    "flash_hd256_second_half_of_the_columns_unwritten": (
+        "flash_attention", "for (int nb = 0; nb < HD / 8; ++nb)",
+        "for (int nb = 0; nb < (HD == 256 ? HD / 16 : HD / 8); ++nb)"),
     "rmsnorm_last_row_not_prefetched": (
         "rmsnorm", "if (next < T_rows) load(nxt, (int)next);  // in flight while this row reduces",
         "if (next < T_rows - 1) load(nxt, (int)next);"),
@@ -391,6 +415,13 @@ def faulty_libraries(tmp_path_factory):
     return {name: target for name, (_, target) in jobs.items()}
 
 
+def _with_slack(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in bf16 as the head of a longer allocation: a faulty kernel
+    that reads one vector past a row's end reads memory that is there."""
+    buf = torch.empty(x.numel() + 64, dtype=torch.bfloat16, device=x.device)
+    return buf[:x.numel()].copy_(x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fault", sorted(PLANTED_FAULTS))
 def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, fault):
@@ -426,10 +457,12 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         call = lambda: mamba_scan_cuda(a, b, c)[0]  # noqa: E731
         want = ref.mamba_scan_ref(a, b, c)[0]
         tol = TOL["float32"]
-    else:
-        q, k, v = (torch.randn(n, 512, 128, generator=gen, device=cuda).to(torch.bfloat16)
-                   for n in (128, 16, 16))
-        kw = dict(group_size=8, causal=True,
+    else:  # yi's prefill; the hd faults at h2o-danube's and gemma's
+        n, g, hd = ((128, 4, 120) if "hd120" in fault else (64, 1, 256) if "hd256" in fault
+                    else (128, 8, 128))
+        q, k, v = (_with_slack(torch.randn(m * 512 * hd, generator=gen, device=cuda))
+                   .view(m, 512, hd) for m in (n, n // g, n // g))
+        kw = dict(group_size=g, causal=True,
                   window=128 if "window" in fault else None)
         call = lambda: flash_attention_cuda(q, k, v, **kw)  # noqa: E731
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)

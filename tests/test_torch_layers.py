@@ -60,28 +60,45 @@ def test_mlp(act, dt):
     _close(TL.mlp({n: p[1] for n, p in pairs.items()}, tx, act), want, dt)
 
 
-@pytest.mark.parametrize("embed_scale", [False, True])
+def _codebook_cases(name: str):
+    """A flag's two values on the yi smoke config (one codebook; the ids
+    are the flag's alone) and on musicgen's (2 codebooks)."""
+    return pytest.mark.parametrize(
+        f"{name},arch", [(f, a) for a in ("yi_6b", "musicgen_large") for f in (False, True)],
+        ids=["False", "True", "musicgen-False", "musicgen-True"])
+
+
+@_codebook_cases("embed_scale")
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_embed(embed_scale, dt):
-    jcfg = dataclasses.replace(jax_smoke_config("yi_6b"), embed_scale=embed_scale)
-    tcfg = dataclasses.replace(get_smoke_config("yi_6b"), embed_scale=embed_scale)
-    jt, tt = _both(RNG.randn(tcfg.padded_vocab, tcfg.d_model), dt)
-    toks = RNG.randint(0, tcfg.vocab_size, (2, 8))
+def test_embed(embed_scale, arch, dt):
+    """One table [V, D] for tokens [B, S], or K tables [K, V, D] summed in
+    codebook order for tokens [B, S, K]."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), embed_scale=embed_scale)
+    tcfg = dataclasses.replace(get_smoke_config(arch), embed_scale=embed_scale)
+    k = tcfg.num_codebooks
+    table = (k, tcfg.padded_vocab, tcfg.d_model) if k > 1 else (tcfg.padded_vocab, tcfg.d_model)
+    assert TL.embed_meta(tcfg)["embedding"].shape == table
+    jt, tt = _both(RNG.randn(*table), dt)
+    toks = RNG.randint(0, tcfg.vocab_size, (2, 8, k) if k > 1 else (2, 8))
     want = JL.embed(jcfg, {"embedding": jt}, jnp.asarray(toks, jnp.int32))
     _close(TL.embed(tcfg, {"embedding": tt}, torch.from_numpy(toks)), want, dt, exact=True)
 
 
-@pytest.mark.parametrize("tie", [False, True])
+@_codebook_cases("tie")
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
-def test_logits(tie, dt):
-    jcfg = dataclasses.replace(jax_smoke_config("yi_6b"), tie_embeddings=tie)
-    tcfg = dataclasses.replace(get_smoke_config("yi_6b"), tie_embeddings=tie)
-    v, d = tcfg.padded_vocab, tcfg.d_model
-    (je, te), (jh, th) = _both(RNG.randn(v, d) * 0.02, dt), _both(RNG.randn(d, v) / 8, dt)
+def test_logits(tie, arch, dt):
+    """A tied or untied head [D, V], or for K codebooks an untied head
+    [D, K * V] (tying is ignored, as in the reference) giving [B, S, K, V]."""
+    jcfg = dataclasses.replace(jax_smoke_config(arch), tie_embeddings=tie)
+    tcfg = dataclasses.replace(get_smoke_config(arch), tie_embeddings=tie)
+    v, d, k = tcfg.padded_vocab, tcfg.d_model, tcfg.num_codebooks
+    (je, te), (jh, th) = _both(RNG.randn(v, d) * 0.02, dt), _both(RNG.randn(d, k * v) / 8, dt)
     jx, tx = _both(RNG.randn(2, 3, d), dt)
     want = JL.logits(jcfg, {"embed": {"embedding": je}, "head": {"lm_head": jh}}, jx)
-    tp = {"embed": {"embedding": te}, "head": {} if tie else {"lm_head": th}}
-    assert TL.head_meta(tcfg) == ({} if tie else {"lm_head": TL.head_meta(tcfg)["lm_head"]})
+    tied = tie and k == 1
+    tp = {"embed": {"embedding": te}, "head": {} if tied else {"lm_head": th}}
+    assert TL.head_meta(tcfg) == ({} if tied else {"lm_head": TL.head_meta(tcfg)["lm_head"]})
+    assert tied or TL.head_meta(tcfg)["lm_head"].shape == (d, k * v)
     _close(TL.logits(tcfg, tp, tx), want, dt)
 
 
@@ -97,10 +114,23 @@ def test_rope(theta, dt):
 def test_param_metadata_matches_the_reference():
     """Same keys, shapes and inits as the reference's metadata, so the
     reference's parameters carry across one to one."""
+    _param_metadata_matches("yi_6b")
+
+
+@pytest.mark.parametrize("arch", ["gemma_7b", "h2o_danube_3_4b", "musicgen_large",
+                                  "falcon_mamba_7b"])
+def test_config_param_metadata_matches_the_reference(arch):
+    """The same on every other served config: a tied head (gemma), a window
+    (h2o-danube), [K, V, D] codebook tables and a [D, K * V] head
+    (musicgen), the Mamba mixer (falcon-mamba)."""
+    _param_metadata_matches(arch)
+
+
+def _param_metadata_matches(arch):
     from repro.models import lm as JLM
     from repro_torch.models import lm as TLM
 
-    want = jax.tree.leaves_with_path(JLM.model_meta(jax_smoke_config("yi_6b")),
+    want = jax.tree.leaves_with_path(JLM.model_meta(jax_smoke_config(arch)),
                                      is_leaf=lambda m: hasattr(m, "axes"))
     got = {}
 
@@ -111,7 +141,7 @@ def test_param_metadata_matches_the_reference():
             else:
                 got[path + (k,)] = sub
 
-    walk(TLM.model_meta(get_smoke_config("yi_6b")), ())
+    walk(TLM.model_meta(get_smoke_config(arch)), ())
     assert {tuple(p.key for p in path): (m.shape, m.axes, m.init, m.scale)
             for path, m in want} == \
         {path: (m.shape, m.axes, m.init, m.scale) for path, m in got.items()}

@@ -1,7 +1,8 @@
 """The port's decoder LM (``repro_torch.models.lm``) against the JAX
 package's (``repro.models.lm``): prefill logits and filled cache, then four
-decode steps, on the yi smoke config with the reference's own parameters
-(``lm.init_model``) carried across by ``convert.params_from_numpy``.
+decode steps, on the yi, gemma, h2o-danube and musicgen smoke configs with
+the reference's own parameters (``lm.init_model``) carried across by
+``convert.params_from_numpy``.
 
 The parity runs on a float32 copy of the config, where the point is the
 algorithm: tolerance 1e-5 of the logits' scale (sums in other orders, and
@@ -27,8 +28,8 @@ TOL_F32 = 1e-5
 B, S, CAP, STEPS = 2, 16, 24, 4
 
 
-def _configs(dtype="float32", window=None):
-    jcfg, tcfg = jax_smoke_config("yi_6b"), get_smoke_config("yi_6b")
+def _configs(dtype="float32", window=None, arch="yi_6b"):
+    jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
     out = []
     for cfg in (jcfg, tcfg):
         cfg = dataclasses.replace(cfg, dtype=dtype)
@@ -81,6 +82,107 @@ def test_prefill_and_decode_match_reference(window, position):
         assert _rel(tl, jl) < TOL_F32, f"step {t}"
         for n in ("k", "v"):
             assert _rel(tc["blocks"]["slot0"][n], jc["blocks"]["slot0"][n]) < TOL_F32
+
+
+#: the three configs of the dense serving slice, each with a prompt length:
+#: h2o-danube's smoke window is 64, and its prompt runs past it (S % 64 == 0,
+#: where the reference's ring is right; ``test_ring_*`` below take the rest)
+CONFIG_PROMPTS = {"gemma_7b": 16, "h2o_danube_3_4b": 128, "musicgen_large": 16}
+
+
+def _tokens(cfg, rng, shape):
+    """Token ids of ``shape``, with a trailing codebook axis for K > 1."""
+    k = cfg.num_codebooks
+    return rng.randint(0, cfg.vocab_size, shape + ((k,) if k > 1 else ()))
+
+
+@pytest.mark.parametrize("arch", sorted(CONFIG_PROMPTS))
+def test_config_prefill_and_decode_match_reference(arch):
+    """Logits and caches after prefill and after each of 4 decode steps on
+    each config's smoke version: gemma (GeGLU, a tied head, the scaled
+    embedding), h2o-danube (a sliding window, its ring wrapped by the
+    prompt), musicgen (2 codebooks: tokens [B, S, K], logits [B, K, V])."""
+    jcfg, tcfg = _configs(arch=arch)
+    jp, tp = _params(jcfg, tcfg)
+    S = CONFIG_PROMPTS[arch]
+    toks = _tokens(tcfg, np.random.RandomState(0), (B, S + STEPS))
+
+    jl, jc = JLM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :S], jnp.int32)},
+                         capacity=S + STEPS)
+    tl, tc = TLM.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks[:, :S])},
+                         capacity=S + STEPS)
+    assert tuple(tl.shape) == jl.shape and tl.shape[-1] == tcfg.padded_vocab
+    assert _rel(tl, jl) < TOL_F32
+    for n in ("k", "v"):
+        want = jc["blocks"]["slot0"][n]
+        assert tuple(tc["blocks"]["slot0"][n].shape) == want.shape
+        assert _rel(tc["blocks"]["slot0"][n], want) < TOL_F32
+    for t in range(STEPS):
+        step = toks[:, S + t:S + t + 1]
+        jl, jc = JLM.decode_step(jcfg, jp, jnp.asarray(step, jnp.int32), jc,
+                                 jnp.int32(S + t))
+        tl, tc = TLM.decode_step(tcfg, tp, torch.from_numpy(step), tc, S + t)
+        assert _rel(tl, jl) < TOL_F32, f"step {t}"
+        for n in ("k", "v"):
+            assert _rel(tc["blocks"]["slot0"][n], jc["blocks"]["slot0"][n]) < TOL_F32
+
+
+# The sliding-window ring with a prompt past the window and S % window != 0:
+# decode writes position p to slot p % C and reads slot s as the position
+# congruent to s, so the filled cache must hold position p in slot p % C.
+RING_S, RING_WINDOW = 20, 8
+
+
+def _ring_setup():
+    jcfg, tcfg = _configs(window=RING_WINDOW)
+    jp, tp = _params(jcfg, tcfg)
+    toks = np.random.RandomState(5).randint(0, tcfg.vocab_size, (B, RING_S + STEPS))
+    return jcfg, tcfg, jp, tp, toks
+
+
+def test_ring_decode_matches_full_forward():
+    """The port's decode after a 20-token prompt into an 8-slot ring equals
+    its own full forward over the prompt and the decoded tokens, step by
+    step, to float32 rounding."""
+    _, cfg, _, params, toks = _ring_setup()
+    _, cache = TLM.prefill(cfg, params, {"tokens": torch.from_numpy(toks[:, :RING_S])},
+                           capacity=CAP)
+    assert cache["blocks"]["slot0"]["k"].shape[2] == RING_WINDOW
+    for t in range(STEPS):
+        n = RING_S + t
+        lg, cache = TLM.decode_step(cfg, params, torch.from_numpy(toks[:, n:n + 1]), cache, n)
+        full, _ = TLM.prefill(cfg, params, {"tokens": torch.from_numpy(toks[:, :n + 1])})
+        err = (lg - full).abs().max() / full.abs().max()
+        assert err < TOL_F32, f"step {t}: {err}"
+
+
+def test_ring_cache_is_the_reference_cache_rotated():
+    """The port's filled ring is the reference's rolled by S % C slots:
+    the same keys, each in the slot decode reads it from."""
+    jcfg, tcfg, jp, tp, toks = _ring_setup()
+    _, jc = JLM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :RING_S], jnp.int32)},
+                        capacity=CAP)
+    _, tc = TLM.prefill(tcfg, tp, {"tokens": torch.from_numpy(toks[:, :RING_S])},
+                        capacity=CAP)
+    for n in ("k", "v"):
+        want = np.roll(np.asarray(jc["blocks"]["slot0"][n], np.float32),
+                       RING_S % RING_WINDOW, axis=2)  # [periods, B, C, Hkv, hd]
+        assert _rel(tc["blocks"]["slot0"][n], want) < TOL_F32
+
+
+def test_reference_ring_caveat_decode_misses_its_full_forward():
+    """Reference caveat (ROADMAP): the reference stores the last C keys of
+    a prompt unrotated, so past the window with S % C != 0 its first decode
+    step overwrites a key inside the window and keeps one outside it.  Its
+    decode then differs from its own full forward far beyond rounding."""
+    jcfg, _, jp, _, toks = _ring_setup()
+    _, jc = JLM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :RING_S], jnp.int32)},
+                        capacity=CAP)
+    lg, _ = JLM.decode_step(jcfg, jp, jnp.asarray(toks[:, RING_S:RING_S + 1], jnp.int32),
+                            jc, jnp.int32(RING_S))
+    full, _ = JLM.prefill(jcfg, jp, {"tokens": jnp.asarray(toks[:, :RING_S + 1], jnp.int32)})
+    lg, full = np.asarray(lg, np.float32), np.asarray(full, np.float32)
+    assert np.abs(lg - full).max() / np.abs(full).max() > 1000 * TOL_F32
 
 
 def test_bf16_prefill_matches_reference():
@@ -154,8 +256,8 @@ def test_bf16_params_carry_across_exactly():
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["gemma_7b", "dbrx_132b", "jamba_1_5_large_398b",
-                                  "deepseek_v2_236b"])
+@pytest.mark.parametrize("arch", ["qwen2_vl_7b", "minicpm3_4b", "dbrx_132b",
+                                  "jamba_1_5_large_398b", "deepseek_v2_236b"])
 def test_registry_names_what_is_not_ported(arch):
     from repro_torch.configs import get_config
 
