@@ -9,7 +9,7 @@ Phases, each reported on its own lines:
 2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` compiled
    with ``nvcc`` (one process per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the serving paths of the five served models give it plus ragged,
+   the serving paths of the seven served models give it plus ragged,
    windowed (a window edge inside a KV tile), small-head, long-prompt,
    initial-state and small-state cases: error, kernel time, plain time, the
    time of one PyTorch library call computing the same function where there
@@ -17,7 +17,8 @@ Phases, each reported on its own lines:
    the card's least time (bound); faults planted in copies of the flash
    kernel's source (hd 120's zero-filled pad vector read from the next row,
    hd 256's second half of the output columns left unwritten) must each
-   fail that check;
+   fail that check, and so must a fault planted in the MLA pair (q/k head
+   dim 96, v head dim 64: v's last 16-column block left unwritten);
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
    greedy, each decode step a replay of the engine's captured CUDA graph.
@@ -31,14 +32,24 @@ Phases, each reported on its own lines:
    (0 expected: the same kernels on the same inputs); the two engines are
    driven step by step in turns, so their step times compare, and each
    engine's launches are counted over its own calls only;
-5. full-width Falcon-Mamba-7B, H2O-Danube3-4B, Gemma-7B and MusicGen-Large,
-   each after the last one's weights are freed, served and checked the same
-   way: every RMSNorm and every prefill selective scan or attention must go
-   through the kernels.  Danube serves prompts of 4608 tokens into a
-   4096-slot sliding-window ring (capacity 5120), so the window binds, and
-   its graph engine's logits at decode step 8 must match a prefill through
-   the kernels over each row's prompt and first 8 tokens; MusicGen serves
-   prompts of 512 x 4 codebooks;
+5. full-width Falcon-Mamba-7B, H2O-Danube3-4B, Gemma-7B, MusicGen-Large and
+   MiniCPM3-4B, each after the last one's weights are freed, served and
+   checked the same way: every RMSNorm and every prefill selective scan or
+   attention must go through the kernels.  Danube serves prompts of 4608
+   tokens into a 4096-slot sliding-window ring (capacity 5120), so the
+   window binds, and its graph engine's logits at decode step 8 must match
+   a prefill through the kernels over each row's prompt and first 8
+   tokens; MusicGen serves prompts of 512 x 4 codebooks; MiniCPM3 runs MLA
+   (the expanded prefill through flash at q/k head dim 96 and v head dim
+   64, the absorbed decode over the latent cache).  Last, full-width
+   Qwen2-VL-7B, which takes embeddings and M-RoPE positions and which no
+   engine drives (the reference's refuses it): seeded embeds [4, 512, 3584]
+   with positions whose t is the index and whose h and w walk a 16 x 16
+   image grid, through ``lm.prefill``, then 31 decode steps on seeded
+   embeds, each a replay of ``DecodeGraph`` with the eager step in turns
+   beside it (equal logits), its launches counted, decode step 8 held to a
+   prefill over the same 520 embeds and positions, and its prefill logits
+   held to float32 as the served models' are;
 6. the full-lane alltoall's block regroup, ``a2a_pack``, against its plain
    version on the card, bit for bit (a copy), at the EP-dispatch shapes of
    DeepSeek-V2's width and the reference tests' shapes, timed as in phase
@@ -128,8 +139,12 @@ FLASH_FAULTS = {
         "const int bytes = gr < n && c < HD ? 16 : 0;  // zeros past the end and in the pad",
         "const int bytes = gr < n ? 16 : 0;", "danube prefill"),
     "hd256_second_half_of_the_columns_unwritten": (
-        "for (int nb = 0; nb < HD / 8; ++nb)",
-        "for (int nb = 0; nb < (HD == 256 ? HD / 16 : HD / 8); ++nb)", "gemma prefill"),
+        "for (int nb = 0; nb < HDV / 8; ++nb)",
+        "for (int nb = 0; nb < (HDV == 256 ? HDV / 16 : HDV / 8); ++nb)", "gemma prefill"),
+    "mla_last_v_column_block_unwritten": (
+        "for (int nb = 0; nb < HDV / 8; ++nb)",
+        "for (int nb = 0; nb < (HDQK != HDV ? HDV / 8 - 2 : HDV / 8); ++nb)",
+        "minicpm3 prefill"),
 }
 #: every planted fault, by the kernel whose source it is planted in
 PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS}
@@ -260,8 +275,9 @@ def rmsnorm_cases(gen):
     """Kernel against plain version at the serving shapes of Yi-6B and
     Falcon-Mamba-7B, a ragged T (one row past the prefill's 2048), a second
     width (DeepSeek-V2's 5120), and the prefill and decode shapes of
-    H2O-Danube3 (d 3840, 4 x 4608 tokens), Gemma (3072) and MusicGen
-    (2048)."""
+    H2O-Danube3 (d 3840, 4 x 4608 tokens), Gemma (3072), MusicGen (2048),
+    Qwen2-VL (3584) and MiniCPM3 (2560, and inside MLA 768 for ``q_norm``
+    and 256 for ``kv_norm``)."""
     import torch
     import torch.nn.functional as F
 
@@ -270,9 +286,11 @@ def rmsnorm_cases(gen):
 
     cases = []
     # prefill 4 x 512 tokens; decode 4 tokens; ragged; second width; then
-    # danube's, gemma's and musicgen's prefill and decode
+    # danube's, gemma's, musicgen's, qwen2-vl's and minicpm3's prefill and decode
     for T, d in ((2048, 4096), (4, 4096), (2049, 4096), (2048, 5120), (18432, 3840),
-                 (4, 3840), (2048, 3072), (4, 3072), (2048, 2048), (4, 2048)):
+                 (4, 3840), (2048, 3072), (4, 3072), (2048, 2048), (4, 2048),
+                 (2048, 3584), (4, 3584), (2048, 2560), (4, 2560), (2048, 768), (4, 768),
+                 (2048, 256), (4, 256)):
         x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
         out = rmsnorm_cuda(x, w, 1e-6)
@@ -304,41 +322,51 @@ def _attn_pairs(Sq, Skv, causal, window) -> int:
     return n
 
 
-#: phase 3's attention cases: (label, BH, g, Sq, Skv, hd, causal, window)
+#: phase 3's attention cases: (label, BH, g, Sq, Skv, hd, hd_v, causal,
+#: window), hd the q/k head dim and hd_v v's
 FLASH_SPECS = [
-    ("yi prefill", 4 * 32, 8, 512, 512, 128, True, None),
-    ("ragged", 4 * 32, 8, 300, 300, 128, True, None),
-    ("window 128", 4 * 32, 8, 512, 512, 128, True, 128),
-    ("hd 16", 4 * 8, 4, 256, 256, 16, True, None),
-    ("long prompt", 32, 8, 4096, 4096, 128, True, None),  # one sequence at Yi's context
+    ("yi prefill", 4 * 32, 8, 512, 512, 128, 128, True, None),
+    ("ragged", 4 * 32, 8, 300, 300, 128, 128, True, None),
+    ("window 128", 4 * 32, 8, 512, 512, 128, 128, True, 128),
+    ("hd 16", 4 * 8, 4, 256, 256, 16, 16, True, None),
+    ("long prompt", 32, 8, 4096, 4096, 128, 128, True, None),  # one sequence at Yi's context
     # the dense serving slice: 4 requests each, Danube past its window
-    ("danube prefill", 4 * 32, 4, 4608, 4608, 120, True, 4096),
-    ("gemma prefill", 4 * 16, 1, 512, 512, 256, True, None),
-    ("musicgen prefill", 4 * 32, 1, 512, 512, 64, True, None),
-    ("ragged hd 120", 4 * 32, 4, 300, 300, 120, True, None),
-    ("ragged hd 256", 4 * 16, 1, 300, 300, 256, True, None),
+    ("danube prefill", 4 * 32, 4, 4608, 4608, 120, 120, True, 4096),
+    ("gemma prefill", 4 * 16, 1, 512, 512, 256, 256, True, None),
+    ("musicgen prefill", 4 * 32, 1, 512, 512, 64, 64, True, None),
+    ("ragged hd 120", 4 * 32, 4, 300, 300, 120, 120, True, None),
+    ("ragged hd 256", 4 * 16, 1, 300, 300, 256, 256, True, None),
     # window edges inside a KV tile (64 keys; 32 at hd 256)
-    ("window 100, hd 120", 4 * 32, 4, 512, 512, 120, True, 100),
-    ("window 50, hd 256", 4 * 16, 1, 512, 512, 256, True, 50),
+    ("window 100, hd 120", 4 * 32, 4, 512, 512, 120, 120, True, 100),
+    ("window 50, hd 256", 4 * 16, 1, 512, 512, 256, 256, True, 50),
+    # MiniCPM3's MLA (expanded prefill: q/k 64 + 32, v 64, MHA) and its
+    # smoke pair (q/k 16 + 8, padded to 32 inside the kernel; v 16);
+    # Qwen2-VL's GQA group of 7
+    ("minicpm3 prefill", 4 * 40, 1, 512, 512, 96, 64, True, None),
+    ("ragged minicpm3", 4 * 40, 1, 300, 300, 96, 64, True, None),
+    ("hd 24/16 (minicpm3 smoke)", 4 * 4, 1, 256, 256, 24, 16, True, None),
+    ("qwen2-vl prefill", 4 * 28, 7, 512, 512, 128, 128, True, None),
 ]
 
 
-def flash_inputs(gen, BH, g, Sq, Skv, hd):
-    """bf16 q [BH, Sq, hd] and k, v [BH // g, Skv, hd] on the card, each
-    the head of a longer allocation, so that a planted fault reading one
-    vector past a row's end reads memory that is there."""
+def flash_inputs(gen, BH, g, Sq, Skv, hd, hdv=None):
+    """bf16 q [BH, Sq, hd], k [BH // g, Skv, hd] and v [BH // g, Skv, hd_v]
+    (hd_v = hd by default) on the card, each the head of a longer
+    allocation, so that a planted fault reading one vector past a row's end
+    reads memory that is there."""
     import torch
 
-    def mk(n, s):
-        buf = torch.empty(n * s * hd + 64, dtype=torch.bfloat16, device="cuda")
-        x = buf[:n * s * hd].view(n, s, hd)
-        return x.copy_(torch.randn(n, s, hd, generator=gen, device="cuda"))
+    def mk(n, s, d):
+        buf = torch.empty(n * s * d + 64, dtype=torch.bfloat16, device="cuda")
+        x = buf[:n * s * d].view(n, s, d)
+        return x.copy_(torch.randn(n, s, d, generator=gen, device="cuda"))
 
-    return mk(BH, Sq), mk(BH // g, Skv), mk(BH // g, Skv)
+    return mk(BH, Sq, hd), mk(BH // g, Skv, hd), mk(BH // g, Skv, hdv or hd)
 
 
 def flash_library(Sq, Skv, causal, window):
-    """The library yardstick: PyTorch's fused attention on [1, BH, S, hd]."""
+    """The library yardstick: PyTorch's fused attention on [1, BH, S, hd]
+    (v's head dim may differ)."""
     import torch
     import torch.nn.functional as F
 
@@ -356,19 +384,23 @@ def flash_library(Sq, Skv, causal, window):
     return lib
 
 
-def flash_bounds(BH, g, Sq, Skv, hd, causal, window) -> dict:
-    """The card's least time for one call, by bytes and by operations."""
-    nbytes = (2 * BH * Sq + 2 * (BH // g) * Skv) * hd * 2  # q in, o out, k and v, bf16
-    flops = 4 * hd * BH * _attn_pairs(Sq, Skv, causal, window)  # QK^T and PV
+def flash_bounds(BH, g, Sq, Skv, hd, causal, window, hdv=None) -> dict:
+    """The card's least time for one call, by bytes and by operations (hd_v
+    = hd by default)."""
+    hdv = hdv or hd
+    # q in, o out, k and v, bf16; QK^T at hd and PV at hd_v
+    nbytes = (BH * Sq * (hd + hdv) + (BH // g) * Skv * (hd + hdv)) * 2
+    flops = 2 * (hd + hdv) * BH * _attn_pairs(Sq, Skv, causal, window)
     return {"bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
             "bound_ops_ms": flops / PEAK_BF16_TC_FLOPS * 1e3}
 
 
 def flash_cases(gen, fault_libs):
     """Kernel against plain version: Yi prefill, ragged, windowed, hd 16,
-    one sequence at Yi's 4096 context (bound by the tensor cores), and the
-    dense serving slice's shapes at hd 120, 256 and 64; then every planted
-    fault of ``FLASH_FAULTS`` against its case's check."""
+    one sequence at Yi's 4096 context (bound by the tensor cores), the
+    dense serving slice's shapes at hd 120, 256 and 64, MiniCPM3's MLA pair
+    (96, 64) and its smoke pair (24, 16), and Qwen2-VL's group of 7; then
+    every planted fault of ``FLASH_FAULTS`` against its case's check."""
     import torch
 
     from repro_torch.kernels import build
@@ -378,8 +410,8 @@ def flash_cases(gen, fault_libs):
 
     cases = []
     faults = {label: name for name, (_, _, label) in FLASH_FAULTS.items()}
-    for label, BH, g, Sq, Skv, hd, causal, window in FLASH_SPECS:
-        q, k, v = flash_inputs(gen, BH, g, Sq, Skv, hd)
+    for label, BH, g, Sq, Skv, hd, hdv, causal, window in FLASH_SPECS:
+        q, k, v = flash_inputs(gen, BH, g, Sq, Skv, hd, hdv)
         kw = dict(group_size=g, causal=causal, window=window)
         out = flash_attention_cuda(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -405,8 +437,10 @@ def flash_cases(gen, fault_libs):
                 name: f_err if math.isfinite(f_err) else str(f_err)}}
             del faulty
         lib = flash_library(Sq, Skv, causal, window)
+        kv = (f"kv[{BH // g},{Skv},{hd}]" if hdv == hd
+              else f"k[{BH // g},{Skv},{hd}] v[{BH // g},{Skv},{hdv}]")
         cases.append({
-            "shape": f"{label}: q[{BH},{Sq},{hd}] kv[{BH // g},{Skv},{hd}] g={g}"
+            "shape": f"{label}: q[{BH},{Sq},{hd}] {kv} g={g}"
                      f"{' causal' if causal else ''}"
                      f"{f' window={window}' if window else ''} bf16",
             "max_abs_err": abs_err, "scaled_err": err,
@@ -414,7 +448,7 @@ def flash_cases(gen, fault_libs):
             **_times(lambda q, k, v: flash_attention_cuda(q, k, v, **kw),
                      lambda q, k, v: flash_attention_ref(q, k, v, **kw),
                      lib, (q, k, v), iters=20),
-            **flash_bounds(BH, g, Sq, Skv, hd, causal, window), **fault,
+            **flash_bounds(BH, g, Sq, Skv, hd, causal, window, hdv), **fault,
         })
         del q, k, v, out
     return cases
@@ -717,16 +751,23 @@ def _widths(cfg) -> tuple:
         return (cfg.num_layers, cfg.d_model, m.d_state, m.d_conv, m.expand,
                 m.resolved_dt_rank(cfg.d_model), cfg.vocab_size, cfg.dtype)
     a = cfg.attn
-    return (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
-            cfg.d_ff, cfg.vocab_size, a.sliding_window, cfg.num_codebooks, cfg.act,
-            cfg.dtype)
+    out = (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
+           cfg.d_ff, cfg.vocab_size, a.sliding_window, cfg.num_codebooks, cfg.act, cfg.dtype)
+    if a.kind == "mla":
+        out += (a.q_lora_rank, a.kv_lora_rank, a.qk_nope_head_dim, a.qk_rope_head_dim,
+                a.v_head_dim)
+    if a.mrope_sections is not None:
+        out += (a.mrope_sections,)
+    return out
 
 
 #: what each served model must be: its published widths (``_widths``), the
 #: kernel launches over one prefill (norms per layer: Falcon-Mamba's layers
-#: have no second norm), its prompt length and cache capacity (4 requests,
-#: 32 new tokens each), and where set, the decode step whose logits must
-#: match a prefill over each row's prompt and its tokens so far
+#: have no second norm, MiniCPM3's MLA adds ``q_norm`` and ``kv_norm``), its
+#: prompt length and cache capacity (4 requests, 32 new tokens each), and
+#: where set, the decode step whose logits must match a prefill over each
+#: row's prompt and its tokens so far.  Qwen2-VL takes embeddings: no engine
+#: drives it (``drive_embeds``)
 _DENSE = {"norms_per_layer": 2, "prompt": 512, "capacity": 1024}
 SERVED = {
     "yi_6b": {**_DENSE, "prefill": {"flash_attention": 32},
@@ -744,7 +785,16 @@ SERVED = {
     "musicgen_large": {**_DENSE, "prefill": {"flash_attention": 48},
                        "widths": (48, 2048, 32, 32, 64, 8192, 2048, None, 4, "gelu",
                                   "bfloat16")},
+    "minicpm3_4b": {**_DENSE, "norms_per_layer": 4, "prefill": {"flash_attention": 62},
+                    "widths": (62, 2560, 40, 40, 64, 6400, 73448, None, 1, "silu", "bfloat16",
+                               768, 256, 64, 32, 64)},
+    "qwen2_vl_7b": {**_DENSE, "full_forward_at": 8, "prefill": {"flash_attention": 28},
+                    "widths": (28, 3584, 28, 4, 128, 18944, 152064, None, 1, "silu",
+                               "bfloat16", (16, 24, 24))},
 }
+#: Qwen2-VL's prompt: text, then an image of 16 x 16 patches from token 64,
+#: then text; t is the index throughout (ROADMAP, reference caveats)
+IMAGE_SPAN = (64, 16, 16)
 
 
 def _finite_greedy(logits, generator):
@@ -886,7 +936,6 @@ def serve(arch: str, seed: int = 0) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
-    from repro_torch.models.params import map_tree
     from repro_torch.serving.engine import Request, ServeEngine
 
     cfg = get_config(arch)
@@ -986,21 +1035,38 @@ def serve(arch: str, seed: int = 0) -> dict:
           f"{cmp['rows_released_at_near_ties'] or 'none'}")
     res["graph_vs_eager"] = cmp
     if "full_forward_at" in want:
+        at = want["full_forward_at"]
+        ctx = np.stack([np.concatenate([p, np.asarray(r.out_tokens[:at], p.dtype)])
+                        for p, r in zip(served, main["done"])])
         res["decode_vs_full_forward"] = _decode_vs_full_forward(
-            cfg, params, served, main, want["full_forward_at"], capacity)
-
-    # the same prefill through the plain versions of the kernels, in the
-    # model's bf16 and in float32 (the reference for the bf16 rounding)
+            cfg, params, {"tokens": torch.from_numpy(ctx.astype(np.int64)).cuda()},
+            main["logits"][at], at, capacity)
     tokens = torch.from_numpy(np.stack(served).astype(np.int64)).cuda()
+    res.update(_prefill_against_float32(cfg, params, {"tokens": tokens}, main["logits"][0],
+                                        capacity))
+    return res
+
+
+def _prefill_against_float32(cfg, params, batch, kern, capacity: int) -> dict:
+    """The prefill's logits through the kernels (``kern``) against the same
+    prefill through the plain versions of the kernels, in the model's bf16
+    and in float32 (the reference for the bf16 rounding): no further from
+    float32 than ``LOGIT_NOISE_RATIO`` times the plain bf16 logits are,
+    within ``TOL_BF16`` (rms) of those, and the same first token wherever
+    float32's top-2 gap exceeds the bf16 noise."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
+
     torch.cuda.reset_peak_memory_stats()
     with plain_kernels():
-        plain, _ = lm.prefill(cfg, params, {"tokens": tokens}, capacity=capacity)
+        plain, _ = lm.prefill(cfg, params, batch, capacity=capacity)
         params32 = map_tree(lambda _, t: t.float(), params)
-        exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"), params32,
-                              {"tokens": tokens}, capacity=capacity)
+        exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"), params32, batch,
+                              capacity=capacity)
         del params32
-    res["peak_mem_gb_float32_check"] = torch.cuda.max_memory_allocated() / 1e9
-    kern = main["logits"][0]
+    peak = torch.cuda.max_memory_allocated() / 1e9
     err_kern, err_plain = _rms_rel(kern, exact), _rms_rel(plain, exact)
     err_kp = _rms_rel(kern, plain)
     top2 = exact.topk(2, dim=-1).values
@@ -1012,9 +1078,8 @@ def serve(arch: str, seed: int = 0) -> dict:
           f"{err_kern / err_plain:.4f}, at most {LOGIT_NOISE_RATIO}); kernels vs plain: "
           f"max abs {_err(kern, plain)[0]:.5f}, rms {err_kp:.6f} (tol {TOL_BF16}); first "
           f"token equal to float32's in {int(same.sum())}/{same.numel()} rows"
-          f"{' x codebooks' if k > 1 else ''}, {int(decided.sum())} with a top-2 gap above "
-          f"the bf16 noise; peak memory with the float32 copy "
-          f"{res['peak_mem_gb_float32_check']:.2f} GB")
+          f"{' x codebooks' if cfg.num_codebooks > 1 else ''}, {int(decided.sum())} with a "
+          f"top-2 gap above the bf16 noise; peak memory with the float32 copy {peak:.2f} GB")
     if not err_kern <= LOGIT_NOISE_RATIO * err_plain:
         raise AssertionError(f"prefill logits: rms err {err_kern} through the kernels > "
                              f"{LOGIT_NOISE_RATIO} x {err_plain} through the plain versions")
@@ -1023,9 +1088,9 @@ def serve(arch: str, seed: int = 0) -> dict:
                              f"versions > {TOL_BF16}")
     if not bool(same[decided].all()):
         raise AssertionError("first token differs where the top-2 gap exceeds the bf16 noise")
-    res.update(prefill_logit_rms_err_kernels=err_kern, prefill_logit_rms_err_plain=err_plain,
-               prefill_logit_rms_err_kernels_vs_plain=err_kp)
-    return res
+    return {"peak_mem_gb_float32_check": peak, "prefill_logit_rms_err_kernels": err_kern,
+            "prefill_logit_rms_err_plain": err_plain,
+            "prefill_logit_rms_err_kernels_vs_plain": err_kp}
 
 
 def _kv_slots(cfg, capacity: int) -> str:
@@ -1037,31 +1102,26 @@ def _kv_slots(cfg, capacity: int) -> str:
             else f"{capacity} KV slots")
 
 
-def _decode_vs_full_forward(cfg, params, served, main: dict, at: int, capacity: int) -> dict:
-    """The graph engine's logits at decode step ``at`` against the last
-    logits of a prefill, through the kernels, over each row's prompt and
-    its first ``at`` tokens: within ``TOL_BF16`` (rms), and the same argmax
-    wherever the prefill's top-2 gap exceeds twice the row's largest
-    difference (the bf16 noise between the two paths).  Past a sliding
-    window, this holds only if prefill leaves the ring as decode reads it."""
-    import numpy as np
-    import torch
-
+def _decode_vs_full_forward(cfg, params, batch: dict, dec, at: int, capacity: int) -> dict:
+    """The graph step's logits ``dec`` at decode step ``at`` against the last
+    logits of a prefill, through the kernels, of ``batch``: each row's prompt
+    and its first ``at`` decoded inputs.  Within ``TOL_BF16`` (rms), and the
+    same argmax wherever the prefill's top-2 gap exceeds twice the row's
+    largest difference (the bf16 noise between the two paths).  Past a
+    sliding window, this holds only if prefill leaves the ring as decode
+    reads it."""
     from repro_torch.models import lm
 
-    ctx = np.stack([np.concatenate([p, np.asarray(r.out_tokens[:at], p.dtype)])
-                    for p, r in zip(served, main["done"])])
-    full, _ = lm.prefill(cfg, params, {"tokens": torch.from_numpy(ctx.astype(np.int64)).cuda()},
-                         capacity=capacity)
-    dec = main["logits"][at]
+    full, _ = lm.prefill(cfg, params, batch, capacity=capacity)
+    B, n = next(iter(batch.values())).shape[:2]
     rms = _rms_rel(dec, full)
     noise = (dec.float() - full.float()).abs().max(dim=-1).values
     top2 = full.float().topk(2, dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > 2 * noise
     same = dec.float().argmax(-1) == full.float().argmax(-1)
-    print(f"[serve] decode step {at} (position {ctx.shape[1] - 1}) against a prefill of "
-          f"{ctx.shape[0]}x{ctx.shape[1]} tokens through the kernels: rms {rms:.6f} (tol "
-          f"{TOL_BF16}), max abs {noise.max().item():.5f}; argmax equal in "
+    print(f"[serve] decode step {at} (position {n - 1}) against a prefill of {B}x{n} "
+          f"{'tokens' if cfg.embed_inputs else 'embeds'} through the kernels: rms {rms:.6f} "
+          f"(tol {TOL_BF16}), max abs {noise.max().item():.5f}; argmax equal in "
           f"{int(same.sum())}/{same.numel()} rows, {int(decided.sum())} with a top-2 gap above "
           f"twice the difference, all of them equal: {bool(same[decided].all())}")
     if not rms <= TOL_BF16:
@@ -1070,9 +1130,161 @@ def _decode_vs_full_forward(cfg, params, served, main: dict, at: int, capacity: 
     if not bool(same[decided].all()):
         raise AssertionError(f"decode step {at}: argmax differs from the full forward's "
                              "where the top-2 gap exceeds the noise")
-    return {"step": at, "positions": int(ctx.shape[1]), "rms_rel": rms,
+    return {"step": at, "positions": int(n), "rms_rel": rms,
             "max_abs": noise.max().item(), "argmax_equal": int(same.sum()),
             "decided": int(decided.sum())}
+
+
+def image_positions(n: int, start: int, rows: int, cols: int) -> "np.ndarray":
+    """[n, 3] M-RoPE positions (t, h, w): t is the index; over the image
+    span of rows x cols patches from ``start``, h and w walk the grid
+    (offset by the span's start), and a text token's h and w equal its t."""
+    import numpy as np
+
+    pos = np.repeat(np.arange(n)[:, None], 3, axis=1)
+    patch = np.arange(rows * cols)
+    pos[start:start + rows * cols, 1] = start + patch // cols
+    pos[start:start + rows * cols, 2] = start + patch % cols
+    return pos
+
+
+def drive_embeds(arch: str, seed: int = 0) -> dict:
+    """Drive a model that takes embeddings (Qwen2-VL) at full width through
+    its entry points: ``lm.prefill`` over seeded embeds and M-RoPE
+    positions, then decode steps on seeded embeds, each a replay of the
+    captured step (``DecodeGraph``, the main path) with the eager step in
+    turns beside it from its own prefill.  Each path's launches are counted
+    over its own calls; checks as ``serve``'s."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.params import torch_dtype
+    from repro_torch.serving.decode_graph import DecodeGraph
+
+    cfg = get_config(arch)
+    want = SERVED[arch]
+    if _widths(cfg) != want["widths"]:
+        raise AssertionError(f"{arch} is not at its published widths: {_widths(cfg)}")
+    slots, capacity, S, steps = 4, want["capacity"], want["prompt"], 31
+    dtype = torch_dtype(cfg.dtype)
+
+    t0 = time.perf_counter()
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                           device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    embeds = torch.randn(slots, S + steps, cfg.d_model, generator=gen, device="cuda").to(dtype)
+    positions = torch.from_numpy(image_positions(S + steps, *IMAGE_SPAN)).cuda()
+    positions = positions.expand(slots, -1, -1)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {cfg.name} full width: {n_params / 1e9:.3f} B params, bf16, "
+          f"random init from seed {seed} in {time.perf_counter() - t0:.1f} s; embeds "
+          f"[{slots}, {S}, {cfg.d_model}] from seed {seed + 1}, M-RoPE positions with an image "
+          f"of {IMAGE_SPAN[1]}x{IMAGE_SPAN[2]} patches from token {IMAGE_SPAN[0]}")
+
+    def prompt(n=S):
+        return {"embeds": embeds[:, :n], "positions": positions[:, :n]}
+
+    # warm-up at the same shapes (cuBLAS handles and heuristics, each
+    # kernel's first load), before the counts are set to 0
+    _, cache = lm.prefill(cfg, params, prompt(), capacity=capacity)
+    for i in range(3):
+        lm.decode_step(cfg, params, embeds[:, S + i:S + i + 1], cache, S + i)
+    del cache
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    graph = DecodeGraph(cfg, params, lm.init_cache(cfg, slots, capacity, device="cuda",
+                                                   dtype=dtype))
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    runs = {m: {"launches": dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan"), 0),
+                "logits": [], "step_s": []} for m in ("graph", "eager")}
+
+    def call(mode, fn, *args):
+        """``fn(*args)`` synchronised, its launches counted for ``mode`` and
+        its logits kept; returns its seconds."""
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        lg = fn(*args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        after = ops.launch_counts()
+        for k in runs[mode]["launches"]:
+            runs[mode]["launches"][k] += after[k] - before[k]
+        runs[mode]["logits"].append(lg)
+        return dt
+
+    caches = {}
+
+    def prefill(mode):
+        lg, caches[mode] = lm.prefill(cfg, params, prompt(), capacity=capacity)
+        if mode == "graph":  # into the buffers the captured step reads
+            graph.load(caches.pop(mode))
+        return lg
+
+    def step(mode, i):
+        e = embeds[:, S + i:S + i + 1]
+        if mode == "graph":
+            return graph.replay(e, S + i)
+        return lm.decode_step(cfg, params, e, caches[mode], S + i)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    prefill_ms = {m: call(m, prefill, m) * 1e3 for m in ("graph", "eager")}
+    for i in range(steps):  # in turns, the order swapped every step
+        for m in ("eager", "graph") if i % 2 else ("graph", "eager"):
+            runs[m]["step_s"].append(call(m, step, m, i))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    med = {m: statistics.median(r["step_s"]) * 1e3 for m, r in runs.items()}
+    res = {"requests": slots, "decode_steps": steps, "prefill_ms": prefill_ms["graph"],
+           "prefill_ms_eager": prefill_ms["eager"], "decode_ms_per_step_median": med["graph"],
+           "decode_ms_per_step_mean": statistics.fmean(runs["graph"]["step_s"]) * 1e3,
+           "decode_ms_per_step_median_eager": med["eager"],
+           "peak_mem_gb": peak, "launches": runs["graph"]["launches"],
+           "launches_eager": runs["eager"]["launches"],
+           "launches_per_replay": graph.launches, "graph_build_ms": build_ms}
+    print(f"[serve] prefill {slots}x{S} embeds (cache of {capacity}, {_kv_slots(cfg, capacity)}): "
+          f"{prefill_ms['graph']:.2f} ms (the eager path's, next: {prefill_ms['eager']:.2f} ms); "
+          f"decode ms per step (host clock, median over {steps} steps each, in turns): graph "
+          f"{med['graph']:.3f}, eager {med['eager']:.3f}; eager / graph "
+          f"{med['eager'] / med['graph']:.2f}; step captured in {build_ms:.1f} ms; peak memory "
+          f"{peak:.2f} GB (both caches resident)")
+    print(f"[serve] launches over the graph path's calls: {runs['graph']['launches']}; per "
+          f"replay of the captured step: {graph.launches}")
+
+    per_forward = want["norms_per_layer"] * cfg.num_layers + 1
+    if graph.launches != {"rmsnorm": per_forward, "flash_attention": 0, "mamba_scan": 0,
+                          "a2a_pack": 0}:
+        raise AssertionError(f"launches per replay {graph.launches}: want {per_forward} "
+                             "rmsnorm and nothing else")
+    want_launches = {"rmsnorm": per_forward * (1 + steps), "flash_attention": 0,
+                     "mamba_scan": 0, **want["prefill"]}
+    for mode, run in runs.items():
+        if run["launches"] != want_launches:
+            raise AssertionError(f"{mode} path: launches {run['launches']} != {want_launches}"
+                                 f" ({per_forward} norms per forward, 1 prefill + {steps} "
+                                 "decode steps)")
+    max_abs, worst = 0.0, 0.0
+    for i, (g, e) in enumerate(zip(runs["graph"]["logits"], runs["eager"]["logits"])):
+        max_abs = max(max_abs, (g.float() - e.float()).abs().max().item())
+        worst = max(worst, _rms_rel(g, e))
+        if not worst <= TOL_BF16:
+            raise AssertionError(f"logits {i}: graph {worst} rms from the eager path's "
+                                 f"> {TOL_BF16}")
+    print(f"[serve] graph against eager, same inputs: logits of {1 + steps} forwards: max abs "
+          f"diff {max_abs:.6g}, worst rms {worst:.6g} (tol {TOL_BF16})")
+    res["graph_vs_eager"] = {"logits_max_abs_diff": max_abs, "logits_worst_rms_rel": worst,
+                             "forwards": 1 + steps}
+    del caches["eager"]
+    at = want["full_forward_at"]
+    res["decode_vs_full_forward"] = _decode_vs_full_forward(
+        cfg, params, prompt(S + at), runs["graph"]["logits"][at], at, capacity)
+    res.update(_prefill_against_float32(cfg, params, prompt(), runs["graph"]["logits"][0],
+                                        capacity))
+    return res
 
 
 def _leaves(tree):
@@ -1098,6 +1310,8 @@ def main() -> int:
               "(no src/repro_torch)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -1127,7 +1341,7 @@ def main() -> int:
     for arch in SERVED:  # one model on the card at a time
         gc.collect()
         torch.cuda.empty_cache()
-        served[arch] = serve(arch)
+        served[arch] = (serve if get_config(arch).embed_inputs else drive_embeds)(arch)
         done(f"serve {arch}")
     gc.collect()
     torch.cuda.empty_cache()

@@ -4,13 +4,15 @@ run and in turns, and the committed kernel at 64 against 128 q rows per CTA.
 
     python3 experiments/torch_flash_turns.py --old path/to/old/flash_attention.cu
 
-``--old`` is an earlier ``flash_attention.cu`` with the same C interface
-(for example one taken with ``git show <commit>:src/repro_torch/kernels/csrc/flash_attention.cu``
-into a directory the run can read).  The script builds it, the committed
-source as it is (``kWarps`` warps of 16 q rows per CTA) and the committed
-source with the other of 4 and 8 warps, holds every build against the plain
-version at every attention shape of ``chip_smoke.py``'s phase 3 whose head
-dim the old build has (``ref.scaled_err`` at most 2e-2), and times them there in turns (old, 4
+``--old`` is an earlier ``flash_attention.cu`` (for example one taken with
+``git show <commit>:src/repro_torch/kernels/csrc/flash_attention.cu`` into a
+directory the run can read), with the committed C interface or the one
+before the value head dim became an argument of its own (one head dim).
+The script builds it, the committed source as it is (``kWarps`` warps of 16
+q rows per CTA) and the committed source with the other of 4 and 8 warps,
+holds every build against the plain version at every attention shape of
+``chip_smoke.py``'s phase 3 whose head dims the old build has
+(``ref.scaled_err`` at most 2e-2), and times them there in turns (old, 4
 warps, 8 warps, SDPA, SDPA, 8 warps, 4 warps, old) with ``chip_smoke.py``'s
 method: device time of one call from a CUDA graph of 20 calls, inputs cold
 in device memory (rotating through copies spanning 4x the L2) and warm in
@@ -22,7 +24,9 @@ size is faster at each shape.  ``--json`` also writes every reading there.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import math
 import re
 import sys
 from pathlib import Path
@@ -34,14 +38,40 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 
+#: the C interface before the value head dim was an argument of its own
+_ONE_HEAD_DIM = {
+    "flash_attention_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]),
+    "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def _one_head_dim_call(lib, q, k, v, *, group_size, causal, window):
+    """A call of a build with the one-head-dim interface."""
+    import torch
+
+    out = torch.empty_like(q)
+    BH, Sq, hd = q.shape
+    code = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH, Sq, k.shape[1], hd,
+        group_size, int(causal), window or 0, 1.0 / math.sqrt(hd),
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"old flash_attention launch failed: CUDA error {code}")
+    return out
+
+
 def _ptxas(log: str) -> dict:
-    """By head dim: registers and (spill store, spill load) bytes, from
-    ``-Xptxas -v``."""
+    """By (q/k, v) head dims: registers and (spill store, spill load) bytes,
+    from ``-Xptxas -v``; a kernel of one head dim has both equal."""
     out, hd = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*kernelILi(\d+)E", ln)
+        m = re.search(r"Compiling entry function '.*kernelILi(\d+)E(?:Li(\d+)E)?", ln)
         if m:
-            hd = int(m.group(1))
+            hd = (int(m.group(1)), int(m.group(2) or m.group(1)))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and hd is not None:
             out.setdefault(hd, {})["spill"] = (int(m.group(1)), int(m.group(2)))
@@ -84,26 +114,32 @@ def main(argv=None) -> int:
         info = _ptxas(build.BUILD_LOG[name])
         if name != "old":
             w = int(name[5:])
-            for hd in info:  # Tile<HD>::bytes: Q, then STAGES of K and V, rows padded by 8
-                hdp = -(-hd // 16) * 16  # the head dim padded to mma's k-step
-                bk = 32 if hdp > 128 else 64
-                info[hd]["smem"] = (16 * w + 2 * STAGES * bk) * (hdp + 8) * 2
-        record["builds"][name] = info
-        print(f"[build] {name}: {json.dumps(dict(sorted(info.items())))} (by head dim)")
+            for hd, hdv in info:  # Tile::bytes: Q, then STAGES of K and V, rows padded by 8
+                hdpq, hdpv = (-(-d // 16) * 16 for d in (hd, hdv))  # padded to mma's k-step
+                bk = 32 if max(hdpq, hdpv) > 128 else 64
+                info[hd, hdv]["smem"] = ((16 * w + STAGES * bk) * (hdpq + 8)
+                                         + STAGES * bk * (hdpv + 8)) * 2
+        record["builds"][name] = {f"{a},{b}": r for (a, b), r in sorted(info.items())}
+        print(f"[build] {name}: {json.dumps(record['builds'][name])} (by q/k, v head dims)")
 
-    libs = {n: build.load(jobs[n][1], fa._SIGNATURES) for n in jobs}
+    old_dims = set(_ptxas(build.BUILD_LOG["old"]))
+    one_head_dim = "head_dim_v" not in args.old.read_text()
+    libs = {n: build.load(jobs[n][1], _ONE_HEAD_DIM if n == "old" and one_head_dim
+                          else fa._SIGNATURES) for n in jobs}
     gen = torch.Generator(device="cuda").manual_seed(0)
     order = ["old", "warps4", "warps8", "sdpa", "sdpa", "warps8", "warps4", "old"]
-    for label, BH, g, Sq, Skv, hd, causal, window in cs.FLASH_SPECS:
-        if hd not in record["builds"]["old"]:
-            print(f"[time] {label}: skipped, the old build has no head dim {hd}")
+    for label, BH, g, Sq, Skv, hd, hdv, causal, window in cs.FLASH_SPECS:
+        if (hd, hdv) not in old_dims:
+            print(f"[time] {label}: skipped, the old build has no head dims ({hd}, {hdv})")
             continue
-        q, k, v = cs.flash_inputs(gen, BH, g, Sq, Skv, hd)
+        q, k, v = cs.flash_inputs(gen, BH, g, Sq, Skv, hd, hdv)
         kw = dict(group_size=g, causal=causal, window=window)
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
         fns = {"sdpa": cs.flash_library(Sq, Skv, causal, window)}
         for n in jobs:
-            def call(q, k, v, lib=libs[n]):
+            def call(q, k, v, lib=libs[n], old=n == "old" and one_head_dim):
+                if old:
+                    return _one_head_dim_call(lib, q, k, v, **kw)
                 build._LIBS["flash_attention"] = lib
                 return fa.flash_attention_cuda(q, k, v, **kw)
             fns[n] = call
@@ -114,7 +150,7 @@ def main(argv=None) -> int:
         times = {n: [] for n in fns}
         for n in order:
             times[n].append(cs._ms(fns[n], (q, k, v), iters=20))
-        bound = cs.flash_bounds(BH, g, Sq, Skv, hd, causal, window)
+        bound = cs.flash_bounds(BH, g, Sq, Skv, hd, causal, window, hdv)
         case = {"shape": label, "q": [BH, Sq, hd], "kv": [BH // g, Skv, hd], "g": g,
                 "causal": causal, "window": window, "times": times, **bound}
         record["cases"].append(case)

@@ -47,11 +47,9 @@ ARCH_IDS = [
 
 # architectures the port cannot run yet -> what they need (ROADMAP queue 1)
 _NOT_PORTED = {
-    "deepseek_v2_236b": "MoE and MLA (ROADMAP queue 1 items 7 and 9)",
+    "deepseek_v2_236b": "MoE (ROADMAP queue 1 item 7)",
     "dbrx_132b": "MoE (ROADMAP queue 1 item 7)",
     "jamba_1_5_large_398b": "MoE (ROADMAP queue 1 item 7)",
-    "minicpm3_4b": "MLA (ROADMAP queue 1 item 9)",
-    "qwen2_vl_7b": "embedding inputs and M-RoPE (ROADMAP queue 1 item 5)",
 }
 
 # canonical dashed ids (CLI --arch) -> module name

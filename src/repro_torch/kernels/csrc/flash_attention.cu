@@ -28,6 +28,9 @@
 // - a head dim that is no multiple of mma's k-step (16) is padded inside
 //   the kernel: hd 120 runs as 128, the 16th 16-byte vector of each shared
 //   row zero-filled by cp.async, and only the 120 real columns written back;
+// - the value head dim HDV may differ from the query/key one HDQK (MLA:
+//   q/k 96, v 64): Q K^T runs over HDQK's k-steps, V's tiles, P V and the
+//   output fragments cover HDV's columns only, so V and O move no padding;
 // - S = Q K^T runs on mma.sync m16n8k16 (bf16 in, fp32 accumulate), K's
 //   B-fragments come from shared memory through ldmatrix, and the scores
 //   stay in the accumulator fragments: each thread holds 2 rows x 2
@@ -57,8 +60,9 @@
 // the unrolled products, cost more than the products it saved.  The next
 // design for prompts bound by the tensor cores is wgmma with TMA.
 //
-// Layout: q [BH, Sq, HD], k/v [BH/group, Skv, HD], o [BH, Sq, HD], all
-// contiguous bf16.  C interface (ctypes): returns cudaGetLastError().
+// Layout: q [BH, Sq, HDQK], k [BH/group, Skv, HDQK], v [BH/group, Skv, HDV],
+// o [BH, Sq, HDV], all contiguous bf16.  C interface (ctypes): returns
+// cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,22 +81,30 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kNeg = -1e30f;        // masked score, as in the reference
 constexpr float kNegL2 = kNeg * kLog2e;  // the same in the kernel's log2 units
 
-// the tiling of head dim HD (the row length in device memory)
+// a shared-memory row of head dim HD (the row length in device memory)
 template <int HD>
-struct Tile {
-  // the head dim padded to mma's k-step (120 -> 128): the pad columns are
-  // zeros in shared memory and are never written out
-  static constexpr int HDP = (HD + 15) / 16 * 16;
-  static constexpr int BK = HDP > 128 ? 32 : 64;  // kv rows per tile
-  static constexpr bool kHoldQ = HDP <= 128;      // Q's fragments kept in registers
+struct Row {
+  // the head dim padded to mma's k-step (120 -> 128, 24 -> 32): the pad
+  // columns are zeros in shared memory and are never written out
+  static constexpr int P = (HD + 15) / 16 * 16;
   // row stride in bf16: 16 bytes of pad put the 8 rows of an ldmatrix
   // phase on 8 distinct groups of 4 banks
-  static constexpr int LD = HDP + 8;
-  static constexpr int stage = sizeof(bf16) * BK * LD;  // bytes of one K or V tile
+  static constexpr int LD = P + 8;
+};
+
+// the tiling of q/k head dim HDQK and v head dim HDV
+template <int HDQK, int HDV>
+struct Tile {
+  static constexpr int HDPQ = Row<HDQK>::P, LDQ = Row<HDQK>::LD;
+  static constexpr int HDPV = Row<HDV>::P, LDV = Row<HDV>::LD;
+  static constexpr int BK = (HDPQ > HDPV ? HDPQ : HDPV) > 128 ? 32 : 64;  // kv rows per tile
+  static constexpr bool kHoldQ = HDPQ <= 128;  // Q's fragments kept in registers
+  static constexpr int k_stage = sizeof(bf16) * BK * LDQ;  // bytes of one K tile
+  static constexpr int v_stage = sizeof(bf16) * BK * LDV;  // ... and of one V tile
   static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + sizeof(bf16) * BQ * LD;
-  static constexpr int v_off = k_off + STAGES * stage;
-  static constexpr int bytes = v_off + STAGES * stage;
+  static constexpr int k_off = q_off + sizeof(bf16) * BQ * LDQ;
+  static constexpr int v_off = k_off + STAGES * k_stage;
+  static constexpr int bytes = v_off + STAGES * v_stage;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -141,12 +153,13 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 }
 
 // ROWS rows of a [n, HD] matrix from row r0 into shared memory at dst
-// (stride LD, HDP columns), by cp.async; rows past n are zero-filled, their
-// source clamped to a valid row, and so are the pad vectors past HD
+// (stride Row<HD>::LD, Row<HD>::P columns), by cp.async; rows past n are
+// zero-filled, their source clamped to a valid row, and so are the pad
+// vectors past HD
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, int r0, int n,
                                           int tid) {
-  constexpr int VPR = Tile<HD>::HDP / 8;  // 16-byte vectors per shared row
+  constexpr int VPR = Row<HD>::P / 8;  // 16-byte vectors per shared row
   constexpr int CHUNKS = ROWS * VPR;
 #pragma unroll
   for (int j = 0; j < (CHUNKS + NTHREADS - 1) / NTHREADS; ++j) {
@@ -155,23 +168,23 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, int r0,
       const int r = i / VPR, c = (i % VPR) * 8;
       const int gr = r0 + r;
       const int bytes = gr < n && c < HD ? 16 : 0;  // zeros past the end and in the pad
-      cp_async16(dst + (r * Tile<HD>::LD + c) * (int)sizeof(bf16),
+      cp_async16(dst + (r * Row<HD>::LD + c) * (int)sizeof(bf16),
                  src + (size_t)min(gr, n - 1) * HD + c, bytes);
     }
   }
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
                  int group, int causal, int window, float scale_log2) {
-  using L = Tile<HD>;
-  constexpr int LD = L::LD;
+  using L = Tile<HDQK, HDV>;
+  constexpr int LDQ = L::LDQ, LDV = L::LDV;
   constexpr int BK = L::BK;
-  constexpr int NS = BK / 8;       // 16x8 score blocks per warp and tile
-  constexpr int NO = L::HDP / 8;   // 16x8 output blocks per warp
-  constexpr int KQ = L::HDP / 16;  // k-steps of Q K^T
+  constexpr int NS = BK / 8;        // 16x8 score blocks per warp and tile
+  constexpr int NO = L::HDPV / 8;   // 16x8 output blocks per warp
+  constexpr int KQ = L::HDPQ / 16;  // k-steps of Q K^T
 
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sq = smem_addr(smem + L::q_off);
@@ -180,9 +193,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
-  const bf16* qb = q + (size_t)bh * Sq * HD;
-  const bf16* kb = k + (size_t)(bh / group) * Skv * HD;
-  const bf16* vb = v + (size_t)(bh / group) * Skv * HD;
+  const bf16* qb = q + (size_t)bh * Sq * HDQK;
+  const bf16* kb = k + (size_t)(bh / group) * Skv * HDQK;
+  const bf16* vb = v + (size_t)(bh / group) * Skv * HDV;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;  // fragment row and column pair
   const int wr = warp * 16;               // this warp's first row in the tile
@@ -199,18 +212,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // groups in commit order: Q + K(0), V(0), then K(j+1), V(j+1) per tile j
   if (ntiles > 0) {
-    load_rows<HD, BQ>(sq, qb, q0, Sq, tid);
-    load_rows<HD, BK>(sk, kb, kt_lo * BK, Skv, tid);
+    load_rows<HDQK, BQ>(sq, qb, q0, Sq, tid);
+    load_rows<HDQK, BK>(sk, kb, kt_lo * BK, Skv, tid);
     cp_async_commit();
-    load_rows<HD, BK>(sv, vb, kt_lo * BK, Skv, tid);
+    load_rows<HDV, BK>(sv, vb, kt_lo * BK, Skv, tid);
     cp_async_commit();
   }
 
   // each lane's ldmatrix row address, in bytes from its tile's start
-  const uint32_t q_lane = ((wr + (lane & 15)) * LD + (lane >> 4) * 8) * sizeof(bf16);
-  const uint32_t k_lane = (((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8) *
+  const uint32_t q_lane = ((wr + (lane & 15)) * LDQ + (lane >> 4) * 8) * sizeof(bf16);
+  const uint32_t k_lane = (((lane & 7) + ((lane >> 4) << 3)) * LDQ + ((lane >> 3) & 1) * 8) *
                           sizeof(bf16);
-  const uint32_t v_lane = (((lane & 7) + ((lane >> 3) & 1) * 8) * LD + (lane >> 4) * 8) *
+  const uint32_t v_lane = (((lane & 7) + ((lane >> 3) & 1) * 8) * LDV + (lane >> 4) * 8) *
                           sizeof(bf16);
 
   uint32_t qf[L::kHoldQ ? KQ : 1][4];  // Q's A-fragments, where they are held
@@ -222,8 +235,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int it = 0; it < ntiles; ++it) {
     const int k0 = (kt_lo + it) * BK;
-    const uint32_t cur = (it % STAGES) * L::stage;
-    const uint32_t nxt = ((it + 1) % STAGES) * L::stage;
+    const uint32_t cur = (it % STAGES) * L::k_stage, cur_v = (it % STAGES) * L::v_stage;
+    const uint32_t nxt = ((it + 1) % STAGES) * L::k_stage,
+                   nxt_v = ((it + 1) % STAGES) * L::v_stage;
 
     cp_async_wait<1>();  // K tile it has landed (and Q, at it = 0)
     __syncthreads();     // ... for every thread; every warp is done with tile it - 1
@@ -250,14 +264,14 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int p = 0; p < NS / 2; ++p) {
         uint32_t b[4];
-        ldsm_x4(b, sk + cur + k_lane + (p * 16 * LD) * sizeof(bf16) + kk * 32);
+        ldsm_x4(b, sk + cur + k_lane + (p * 16 * LDQ) * sizeof(bf16) + kk * 32);
         mma16816(s[2 * p], a, b[0], b[1]);
         mma16816(s[2 * p + 1], a, b[2], b[3]);
       }
     }
 
     // the next K tile, into the stage every warp finished before the barrier
-    if (it + 1 < ntiles) load_rows<HD, BK>(sk + nxt, kb, k0 + BK, Skv, tid);
+    if (it + 1 < ntiles) load_rows<HDQK, BK>(sk + nxt, kb, k0 + BK, Skv, tid);
     cp_async_commit();
 
 #pragma unroll
@@ -311,7 +325,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();  // V tile it has landed (K tile it + 1 may be in flight)
     __syncthreads();
 
-    // O[16 x HD] += P[16 x BK] V[BK x HD], P packed from the score fragments
+    // O[16 x HDV] += P[16 x BK] V[BK x HDV], P packed from the score fragments
 #pragma unroll
     for (int j = 0; j < BK / 16; ++j) {
       const uint32_t pa[4] = {
@@ -321,19 +335,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int p = 0; p < NO / 2; ++p) {
         uint32_t b[4];
-        ldsm_x4_trans(b, sv + cur + v_lane + (j * 16 * LD + p * 16) * sizeof(bf16));
+        ldsm_x4_trans(b, sv + cur_v + v_lane + (j * 16 * LDV + p * 16) * sizeof(bf16));
         mma16816(acc[2 * p], pa, b[0], b[1]);
         mma16816(acc[2 * p + 1], pa, b[2], b[3]);
       }
     }
 
     // the next V tile, into the stage every warp finished before the last barrier
-    if (it + 1 < ntiles) load_rows<HD, BK>(sv + nxt, vb, k0 + BK, Skv, tid);
+    if (it + 1 < ntiles) load_rows<HDV, BK>(sv + nxt_v, vb, k0 + BK, Skv, tid);
     cp_async_commit();
   }
 
   // epilogue: the quad's shares of l summed, O / max(l, 1e-30) written as
-  // bf16x2 straight from the fragments, the HD real columns only
+  // bf16x2 straight from the fragments, the HDV real columns only
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float li = l[i];
@@ -342,23 +356,23 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qp = qr + 8 * i;
     if (qp >= Sq) continue;
     li = fmaxf(li, 1e-30f);
-    bf16* orow = o + ((size_t)bh * Sq + qp) * HD + 2 * t;
+    bf16* orow = o + ((size_t)bh * Sq + qp) * HDV + 2 * t;
 #pragma unroll
-    for (int nb = 0; nb < HD / 8; ++nb)
+    for (int nb = 0; nb < HDV / 8; ++nb)
       *reinterpret_cast<__nv_bfloat162*>(orow + nb * 8) =
           __floats2bfloat162_rn(acc[nb][2 * i] / li, acc[nb][2 * i + 1] / li);
   }
 }
 
-template <int HD>
+template <int HDQK, int HDV>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
            int group, int causal, int window, float scale, cudaStream_t stream) {
-  const int bytes = Tile<HD>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HD>,
+  const int bytes = Tile<HDQK, HDV>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HDQK, HDV>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<HD><<<grid, NTHREADS, bytes, stream>>>(
+  flash_fwd_kernel<HDQK, HDV><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), Sq, Skv, group, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -366,22 +380,28 @@ int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq,
 
 }  // namespace
 
-// window <= 0 means no sliding window.
+// head_dim is q's and k's, head_dim_v v's and o's; window <= 0 means no
+// sliding window.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int BH, int Sq, int Skv, int head_dim, int group,
-                                      int causal, int window, float scale, void* stream) {
+                                      int BH, int Sq, int Skv, int head_dim, int head_dim_v,
+                                      int group, int causal, int window, float scale,
+                                      void* stream) {
   if (BH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0 || BH % group != 0 || BH > 65535 ||
       (Sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16: return launch<16>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
-    case 120: return launch<120>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
-    case 256: return launch<256>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define FLASH_CASE(QK, V)                                                                \
+  if (head_dim == QK && head_dim_v == V)                                                 \
+    return launch<QK, V>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
+  FLASH_CASE(16, 16)
+  FLASH_CASE(64, 64)
+  FLASH_CASE(120, 120)
+  FLASH_CASE(128, 128)
+  FLASH_CASE(256, 256)
+  FLASH_CASE(24, 16)  // MiniCPM3 smoke's MLA: q/k 16 + 8 (padded to 32), v 16
+  FLASH_CASE(96, 64)  // MiniCPM3's MLA: q/k 64 + 32, v 64
+#undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -15,9 +15,11 @@ accumulation), and K/V tiles of 64 rows (32 at head_dim 256, where Q is
 re-read from shared memory at every k-step rather than held in registers)
 arrive by ``cp.async`` into a two-stage ring in shared memory while the
 previous tile is computed.  A head dim that is no multiple of 16 is padded
-inside the kernel, in its shared-memory tiles (no copy here).  Unlike the
-Pallas kernel it masks the ragged edge, so Sq and Skv need not be multiples
-of its tiles.
+inside the kernel, in its shared-memory tiles (no copy here).  The value
+head dim may differ from the query/key one (MLA's 64 beside 96): the kernel
+takes both as template parameters, so V and the output move only their own
+columns.  Unlike the Pallas kernel it masks the ragged edge, so Sq and Skv
+need not be multiples of its tiles.
 
 The wrapper checks shapes, dtypes, device, contiguity and alignment, and
 raises on anything the kernel does not take; it allocates the output and
@@ -37,16 +39,18 @@ from repro_torch.kernels import build
 
 __all__ = ["HEAD_DIMS", "flash_attention_cuda"]
 
-#: head dims the kernel is instantiated for: the smoke configs' 16, and the
-#: published configs' 64 (MusicGen), 120 (H2O-Danube3, run padded to 128
-#: inside the kernel), 128 (Yi) and 256 (Gemma)
-HEAD_DIMS = (16, 64, 120, 128, 256)
+#: (q/k head dim, v head dim) pairs the kernel is instantiated for: the smoke
+#: configs' (16, 16) and MiniCPM3 smoke's (24, 16), and the published
+#: configs' 64 (MusicGen), 120 (H2O-Danube3, run padded to 128 inside the
+#: kernel), 128 (Yi, Qwen2-VL), 256 (Gemma) and MiniCPM3's MLA (96, 64); 24
+#: runs padded to 32
+HEAD_DIMS = ((16, 16), (64, 64), (120, 120), (128, 128), (256, 256), (24, 16), (96, 64))
 _MAX_BH = 65535  # the C interface's limit
 _SIGNATURES = {
     "flash_attention_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]),
     "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -55,27 +59,29 @@ _SIGNATURES = {
 def flash_attention_cuda(
     q: torch.Tensor,  # [BH, Sq, hd]
     k: torch.Tensor,  # [BH // group_size, Skv, hd]
-    v: torch.Tensor,
+    v: torch.Tensor,  # [BH // group_size, Skv, hd_v]
     *,
     group_size: int,
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """bfloat16 ``q``/``k``/``v``, contiguous on one CUDA device, head dim
-    in :data:`HEAD_DIMS`.  Returns ``softmax(q k^T * scale + mask) v`` as
-    ``[BH, Sq, hd]`` bfloat16."""
-    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: want q [BH, Sq, hd] and k/v "
-                         f"[BHkv, Skv, hd], got {tuple(q.shape)}, "
+    """bfloat16 ``q``/``k``/``v``, contiguous on one CUDA device, head dims
+    ``(hd, hd_v)`` in :data:`HEAD_DIMS`.  Returns ``softmax(q k^T * scale +
+    mask) v`` as ``[BH, Sq, hd_v]`` bfloat16; ``scale`` defaults to
+    1/sqrt(hd)."""
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or v.shape[:2] != k.shape[:2]:
+        raise ValueError(f"flash_attention: want q [BH, Sq, hd], k [BHkv, Skv, hd] "
+                         f"and v [BHkv, Skv, hd_v], got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     BH, Sq, hd = q.shape
     BHkv, Skv, hdk = k.shape
+    hdv = v.shape[2]
     if group_size < 1 or BH != BHkv * group_size or hdk != hd:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
                          f"{tuple(k.shape)} do not match group_size={group_size}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if (hd, hdv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims ({hd}, {hdv}) not in {HEAD_DIMS}")
     if Sq == 0 or Skv == 0 or BH == 0 or BH > _MAX_BH:
         raise ValueError(f"flash_attention: want 0 < BH <= {_MAX_BH} and "
                          f"nonempty sequences, got BH={BH}, Sq={Sq}, Skv={Skv}")
@@ -93,11 +99,11 @@ def flash_attention_cuda(
         raise ValueError("flash_attention: q/k/v must be 16-byte aligned")
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     lib = build.library("flash_attention", _SIGNATURES)
-    out = torch.empty_like(q)
+    out = q.new_empty(BH, Sq, hdv)
     with torch.cuda.device(q.device):
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BH, Sq, Skv, hd, group_size, int(causal),
+            BH, Sq, Skv, hd, hdv, group_size, int(causal),
             0 if window is None else int(window), float(scale),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -48,7 +48,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
 
 
 def flash_attention(q, k, v, *, group_size=1, causal=True, window=None, scale=None):
-    """q [BH, Sq, hd]; k/v [BH // group_size, Skv, hd]."""
+    """q [BH, Sq, hd]; k [BH // group_size, Skv, hd]; v [BH // group_size,
+    Skv, hd_v]; returns [BH, Sq, hd_v]."""
     if q.is_cuda:
         out = flash_attention_cuda(q, k, v, group_size=group_size, causal=causal,
                                    window=window, scale=scale)

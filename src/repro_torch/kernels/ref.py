@@ -22,13 +22,16 @@ _SCORES_AT_ONCE = 2**28
 def flash_attention_ref(
     q: torch.Tensor,  # [BH, Sq, hd]
     k: torch.Tensor,  # [BHkv, Skv, hd]
-    v: torch.Tensor,
+    v: torch.Tensor,  # [BHkv, Skv, hd_v]
     *,
     group_size: int,
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
+    """Softmax attention of ``q`` over ``k`` (GQA: q row ``bh`` reads kv row
+    ``bh // group_size``), causal and/or windowed by index, in float32;
+    returns [BH, Sq, hd_v] in ``q``'s dtype."""
     BH, Sq, hd = q.shape
     Skv = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)

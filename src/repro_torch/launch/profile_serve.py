@@ -4,6 +4,8 @@ a few decode steps of the slot engine, on the GPU.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi_6b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch falcon_mamba_7b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch h2o_danube_3_4b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch minicpm3_4b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2_vl_7b
 
 The run has the shapes of ``chip_smoke.py``'s serving phase: 4 slots,
 prompts of 512 tokens (of 512 x 4 codebooks for MusicGen), a cache of 1024;
@@ -25,6 +27,12 @@ the device memory segments the allocator had to create for it
 (``cudaMalloc`` calls: the allocator's cache did not hold the memory).
 Last, a graph and an eager engine are built together and admitted one
 after the other, in both orders, twice.
+
+Qwen2-VL takes embeddings, which no engine drives: its run profiles
+``lm.prefill`` over seeded embeds [4, 512, D] and the decode step on seeded
+embeds, eager (``lm.decode_step``) and as the captured step
+(``DecodeGraph``), in the same turns, each turn with its own prefill and
+cache; the admissions' part does not apply.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import lm
+from repro_torch.models.params import torch_dtype
+from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.engine import Request, ServeEngine
 
 SLOTS, STEPS, TOP = 4, 4, 10
@@ -85,6 +95,8 @@ def main(argv=None):
     k = cfg.num_codebooks
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)
+    if not cfg.embed_inputs:
+        return _profile_embeds(cfg, params, prompt_len, capacity, device)
     rng = np.random.RandomState(0)
 
     def requests(length=prompt_len, max_new=10**9):
@@ -148,6 +160,68 @@ def main(argv=None):
         print("[profile] both engines built, admitted " + ", then ".join(
             f"{m} {ms[m][0]:.3f} ms ({ms[m][1]} new segments)" for m in order))
         del engines
+
+
+def _profile_embeds(cfg, params, prompt_len: int, capacity: int, device) -> None:
+    """The prefill and the decode step of a model that takes embeddings,
+    driven through ``lm.prefill``, ``lm.decode_step`` and ``DecodeGraph``."""
+    gen = torch.Generator(device=device).manual_seed(1)
+    embeds = torch.randn(SLOTS, prompt_len + 4 * STEPS, cfg.d_model, generator=gen,
+                         device=device).to(torch_dtype(cfg.dtype))
+    batch = {"embeds": embeds[:, :prompt_len]}
+
+    def prefill():
+        lg, cache = lm.prefill(cfg, params, batch, capacity=capacity)
+        lg.cpu()  # synchronised, as an admission's sampling is
+        return cache
+
+    cache = prefill()  # warm-up
+    for i in range(3):
+        lm.decode_step(cfg, params, embeds[:, prompt_len + i:prompt_len + i + 1], cache,
+                       prompt_len + i)
+    del cache
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    t0 = time.perf_counter()
+    prefill()
+    wall = time.perf_counter() - t0
+    with profile(activities=acts) as prof:
+        prefill()
+    _report(f"prefill {SLOTS}x{prompt_len} embeds", prof, wall, 1)
+
+    for mode in TURNS:
+        t0 = time.perf_counter()
+        cache = lm.init_cache(cfg, SLOTS, capacity, device=device,
+                              dtype=torch_dtype(cfg.dtype))
+        graph = DecodeGraph(cfg, params, cache) if mode == "graph" else None
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        filled = prefill()
+        if graph is None:
+            cache = filled
+        else:
+            graph.load(filled)
+        del filled
+        pos = prompt_len
+
+        def step():
+            nonlocal pos
+            e = embeds[:, pos:pos + 1]
+            lg = (graph.replay(e, pos) if graph is not None
+                  else lm.decode_step(cfg, params, e, cache, pos)[0])
+            lg.argmax(-1).cpu()  # the host round trip of greedy sampling
+            pos += 1
+
+        step()
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            step()
+        wall = time.perf_counter() - t0
+        with profile(activities=acts) as prof:
+            for _ in range(STEPS):
+                step()
+        _report(f"decode step of {SLOTS} embeds, {mode}", prof, wall, STEPS)
+        print(f"[profile] {mode} step: cache and capture built in {build_ms:.3f} ms")
+        del graph, cache
 
 
 def _admission(eng: ServeEngine, reqs: list) -> tuple[float, int]:

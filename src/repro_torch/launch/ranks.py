@@ -175,9 +175,18 @@ def main(argv=None) -> None:
 
     torch.set_num_threads(1)
     tmp = Path(args.dir)
-    dist.init_process_group(args.backend, store=dist.FileStore(str(tmp / "store"), args.world),
-                            rank=args.rank, world_size=args.world,
-                            timeout=datetime.timedelta(seconds=args.timeout_s))
+    try:
+        dist.init_process_group(args.backend,
+                                store=dist.FileStore(str(tmp / "store"), args.world),
+                                rank=args.rank, world_size=args.world,
+                                timeout=datetime.timedelta(seconds=args.timeout_s))
+    except BaseException as e:
+        # a peer that fails right after its own connections are up tears
+        # them down while this rank may still be connecting: recorded, this
+        # failure comes after the peer's record, not before it as a rank
+        # without a record would
+        _record(tmp / f"rank{args.rank}.exc", e, time.time())
+        raise
     try:
         module, fn = args.job.split(":")
         result = getattr(importlib.import_module(module), fn)(

@@ -1,5 +1,6 @@
 """Building blocks: RMSNorm, MLP, token embedding, LM head and rotary
-embeddings (the counterpart of the reference's ``repro/models/layers.py``).
+embeddings, M-RoPE's included (the counterpart of the reference's
+``repro/models/layers.py``).
 
 Each block has a ``*_meta`` builder (see :mod:`repro_torch.models.params`)
 and a forward function on tensors.  ``rms_norm`` runs on the RMSNorm kernel
@@ -25,6 +26,7 @@ __all__ = [
     "head_meta",
     "logits",
     "rope",
+    "mrope_positions",
 ]
 
 
@@ -61,16 +63,11 @@ def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
     return _gelu(x @ p["w_up"]) @ p["w_down"]
 
 
-def _check_embed_inputs(cfg: ModelConfig) -> None:
-    if not cfg.embed_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: embedding-input models come with the qwen2-vl config "
-            "(ROADMAP queue 1 item 5)")
-
-
 def embed_meta(cfg: ModelConfig) -> dict:
-    """One ``[V, D]`` table, or ``[K, V, D]`` for K codebooks."""
-    _check_embed_inputs(cfg)
+    """One ``[V, D]`` table, or ``[K, V, D]`` for K codebooks; none for a
+    model that takes embeddings (``embed_inputs=False``)."""
+    if not cfg.embed_inputs:
+        return {}
     v, d, k = cfg.padded_vocab, cfg.d_model, cfg.num_codebooks
     if k > 1:
         return {"embedding": ParamMeta((k, v, d), ("layers", "vocab", "d_model"), scale=0.02)}
@@ -95,13 +92,12 @@ def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _tied(cfg: ModelConfig) -> bool:
-    return cfg.tie_embeddings and cfg.num_codebooks == 1
+    return cfg.tie_embeddings and cfg.embed_inputs and cfg.num_codebooks == 1
 
 
 def head_meta(cfg: ModelConfig) -> dict:
-    """None when tied to a one-codebook embedding; else ``[D, V]``, or
+    """None when tied to a one-codebook embedding table; else ``[D, V]``, or
     ``[D, K * V]`` for K codebooks."""
-    _check_embed_inputs(cfg)
     if _tied(cfg):
         return {}
     return {"lm_head": ParamMeta((cfg.d_model, cfg.num_codebooks * cfg.padded_vocab),
@@ -118,14 +114,27 @@ def logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def mrope_positions(positions: torch.Tensor, sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: ``positions`` [B, S, 3] (t, h, w) ->
+    per-frequency positions [B, S, hd/2], the first ``sections[0]``
+    frequencies at t, the next ``sections[1]`` at h, the rest at w."""
+    return torch.cat([positions[..., i:i + 1].expand(*positions.shape[:-1], sec)
+                      for i, sec in enumerate(sections)], dim=-1)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
+         sections: tuple[int, ...] | None = None) -> torch.Tensor:
     """Rotary embedding, llama "rotate-half" layout.  x [B, S, H, hd];
-    positions [B, S].  cos and sin are cast to ``x.dtype`` before the
-    multiply, as in the reference."""
+    positions [B, S], or [B, S, 3] with M-RoPE's ``sections``.  cos and sin
+    are cast to ``x.dtype`` before the multiply, as in the reference."""
     head_dim = x.shape[-1]
     freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                           device=x.device) / head_dim))
-    angles = positions.to(torch.float32)[..., None] * freqs  # [B, S, hd/2]
+    if sections is not None:
+        pos = mrope_positions(positions, sections).to(torch.float32)  # [B, S, hd/2]
+    else:
+        pos = positions.to(torch.float32)[..., None]
+    angles = pos * freqs  # [B, S, hd/2]
     cos = torch.cos(angles)[..., None, :].to(x.dtype)  # [B, S, 1, hd/2]
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)

@@ -8,15 +8,17 @@ one to one onto the reference's.  A Python loop over the periods replaces
 
 Entry points:
 
-* ``prefill``      — forward over a prompt; last-position logits and the
-  filled cache;
-* ``decode_step``  — one token against the cache, updated in place.
+* ``prefill``      — forward over a prompt (``{"tokens"}``, or
+  ``{"embeds"}`` for a model that takes embeddings, either with optional
+  ``"positions"``); last-position logits and the filled cache;
+* ``decode_step``  — one token (or one embedding) against the cache,
+  updated in place.
 
-Each slot of the pattern has a mixer (GQA attention or Mamba) and, unless
+Each slot of the pattern has a mixer (GQA or MLA attention, or Mamba) and, unless
 its ``ffn`` is ``"none"`` (Falcon-Mamba), a second norm and a dense MLP; a
 slot's cache is that of its mixer.  Training (``loss_fn``) comes with the
 train slice, MoE FFNs and the unrolled dense prelude (``first_k_dense``)
-with the MoE slice (ROADMAP queue 1 items 5 and 7 name the configs still to
+with the MoE slice (ROADMAP queue 1 item 7 names the configs still to
 run).
 """
 
@@ -89,8 +91,9 @@ def _slot_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda",
                dtype=torch.bfloat16) -> dict:
-    """Zero caches (KV for attention, conv window and state for Mamba),
-    stacked over periods like the parameters.  KV and conv window in
+    """Zero caches (KV, or MLA's latent ``ckv`` and ``krope``, for
+    attention; conv window and state for Mamba), stacked over periods like
+    the parameters.  KV and conv window in
     ``dtype`` (bf16, as the reference's; ``prefill``'s filled cache takes
     the model dtype), the Mamba state in float32."""
     device = resolve_device(device)
@@ -123,21 +126,50 @@ def _period(tree: dict, i: int) -> dict:
     return map_tree(lambda _, t: t[i], tree)
 
 
+def _default_positions(cfg: ModelConfig, B: int, S: int, pos: torch.Tensor) -> torch.Tensor:
+    """``pos`` ([S] or 0-d) for every row: [B, S], or [B, S, 3] under M-RoPE,
+    where t, h and w all equal the position (a text token's)."""
+    if cfg.attn is not None and cfg.attn.mrope_sections is not None:
+        return pos.reshape(1, -1, 1).expand(B, S, 3)
+    return pos.reshape(1, -1).expand(B, S)
+
+
+def _inputs(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first layer's input [B, S, D] and the positions of a prefill
+    batch: ``{"tokens"}`` for a token model, ``{"embeds"}`` (cast to the
+    model dtype) for one that takes embeddings, either with ``"positions"``
+    ([B, S], or [B, S, 3] under M-RoPE; default ``arange(S)``)."""
+    key = "tokens" if cfg.embed_inputs else "embeds"
+    if set(batch) - {"positions"} != {key}:
+        raise ValueError(f"{cfg.name}: prefill takes {{{key!r}}} with optional "
+                         f"'positions', got {sorted(batch)}")
+    if cfg.embed_inputs:
+        x = L.embed(cfg, params["embed"], batch["tokens"])
+    else:
+        x = batch["embeds"].to(torch_dtype(cfg.dtype)).contiguous()  # the kernels' rows
+    B, S = x.shape[:2]
+    default = _default_positions(cfg, B, S, torch.arange(S, device=x.device))
+    positions = batch.get("positions", default)
+    if positions.shape != default.shape:
+        raise ValueError(f"{cfg.name}: positions {tuple(positions.shape)}, want "
+                         f"{list(default.shape)}")
+    return x, positions.to(x.device)
+
+
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None):
     """Process a prompt batch ``{"tokens": [B, S]}`` (``[B, S, K]`` for K
-    codebooks); returns (last-position logits [B, V] or [B, K, V], filled
-    cache).  An attention slot's cache holds
-    ``capacity`` (default S) entries, a Mamba slot's the last conv inputs and
-    the float32 state.  The filled KV cache and conv window take the model
-    dtype, as the reference's do."""
+    codebooks), or ``{"embeds": [B, S, D]}`` for a model that takes
+    embeddings, either with optional ``"positions"``; returns
+    (last-position logits [B, V] or [B, K, V], filled cache).  An attention
+    slot's cache holds ``capacity`` (default S) entries, a Mamba slot's the
+    last conv inputs and the float32 state.  The filled KV cache and conv
+    window take the model dtype, as the reference's do.
+
+    The flash kernel masks by index, so attention follows the positions'
+    order only where their first (t) component is ``arange(S)``; the
+    reference masks by that component (ROADMAP, reference caveats)."""
     _check_supported(cfg)
-    if set(batch) != {"tokens"}:
-        raise NotImplementedError(
-            f"prefill takes {{'tokens'}} only (positions are arange(S)); got {sorted(batch)}")
-    tokens = batch["tokens"]
-    B, S = tokens.shape[:2]
-    x = L.embed(cfg, params["embed"], tokens)
-    positions = torch.arange(S, device=x.device).expand(B, S)
+    x, positions = _inputs(cfg, params, batch)
     filled = {}
     for i in range(cfg.num_periods):
         for j, spec in enumerate(cfg.layer_pattern):
@@ -155,37 +187,43 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
 
 def check_position(cfg: ModelConfig, cache: dict, cache_pos: int) -> None:
     """Raise if a decode step at ``cache_pos`` would write outside ``cache``:
-    a full-attention cache holds ``capacity`` positions; a sliding-window
-    ring and a Mamba state hold any."""
+    a full-attention cache (KV, or MLA's latent) holds ``capacity``
+    positions; a sliding-window ring and a Mamba state hold any."""
     if cache_pos < 0:
         raise ValueError(f"cache_pos {cache_pos} is negative")
     if cfg.attn is None or cfg.attn.sliding_window is not None:
         return
     for j, spec in enumerate(cfg.layer_pattern):
-        C = cache["blocks"][f"slot{j}"]["k"].shape[2]  # [periods, B, C, Hkv, hd]
-        if spec.mixer == "attn" and cache_pos >= C:
+        if spec.mixer != "attn":
+            continue
+        slot = cache["blocks"][f"slot{j}"]
+        C = slot["ckv" if cfg.attn.kind == "mla" else "k"].shape[2]  # [periods, B, C, ...]
+        if cache_pos >= C:
             raise ValueError(f"cache_pos {cache_pos} outside a cache of {C}")
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
                 cache_pos: int | torch.Tensor):
-    """One decode step.  ``tokens`` [B, 1]; ``cache_pos`` the number of
-    tokens already in the cache, a Python int (checked by
+    """One decode step.  ``tokens`` [B, 1], or embeddings [B, 1, D] for a
+    model that takes embeddings (cast to the model dtype); ``cache_pos`` the
+    number of tokens already in the cache, a Python int (checked by
     ``check_position``) or a 0-d int64 tensor on the cache's device (not
-    checked: the caller keeps it in range).  Returns (logits [B, V], cache),
-    the cache updated in place; K codebooks take tokens [B, 1, K] and give
-    logits [B, K, V].
+    checked: the caller keeps it in range), which is also the new token's
+    position (t, h and w alike under M-RoPE).  Returns (logits [B, V],
+    cache), the cache updated in place; K codebooks take tokens [B, 1, K]
+    and give logits [B, K, V].
 
     The step reads its inputs, writes the cache in place and reads nothing
     back to the host, so one capture of it with a tensor position serves
     every position (``serving/decode_graph.py``)."""
     _check_supported(cfg)
-    x = L.embed(cfg, params["embed"], tokens)
+    x = (L.embed(cfg, params["embed"], tokens) if cfg.embed_inputs
+         else tokens.to(torch_dtype(cfg.dtype)).contiguous())
     B = x.shape[0]
     if not isinstance(cache_pos, torch.Tensor):
         check_position(cfg, cache, cache_pos)
         cache_pos = torch.full((), cache_pos, dtype=torch.int64, device=x.device)
-    positions = cache_pos.expand(B, 1)
+    positions = _default_positions(cfg, B, 1, cache_pos)
     for i in range(cfg.num_periods):
         for j, spec in enumerate(cfg.layer_pattern):
             slot = f"slot{j}"

@@ -7,9 +7,10 @@ Run from Python, one decode step at serving batch launches some 2,000 to
 time.  ``DecodeGraph`` records the step's launches once and replays them
 with one call.  It owns static buffers that every replay reads and writes:
 
-* ``tokens`` [B, 1] int64 ([B, 1, K] for K codebooks) and ``pos`` (0-d
-  int64), the step's inputs, which
-  ``replay`` overwrites on the device;
+* ``inputs``, tokens [B, 1] int64 ([B, 1, K] for K codebooks) or, for a
+  model that takes embeddings, embeds [B, 1, D] in the model dtype, and
+  ``pos`` (0-d int64), the step's inputs, which ``replay`` overwrites on
+  the device;
 * ``cache``, the cache it was given, written in place by every replay (the
   caller loads a new prefill's cache into it with ``load``);
 * the logits the captured step writes, of which ``replay`` returns a copy.
@@ -34,7 +35,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import lm
-from repro_torch.models.params import map_tree
+from repro_torch.models.params import map_tree, torch_dtype
 
 __all__ = ["DecodeGraph"]
 
@@ -59,9 +60,13 @@ class DecodeGraph:
             raise ValueError(f"a CUDA graph needs the cache on a CUDA device, not {device}: "
                              "the CPU runs the eager step")
         self.cfg, self.params, self.cache = cfg, params, cache
-        codebooks = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
-        self.tokens = torch.zeros(leaves[0].shape[1], 1, *codebooks, dtype=torch.int64,
-                                  device=device)
+        batch = leaves[0].shape[1]
+        if not cfg.embed_inputs:
+            self.inputs = torch.zeros(batch, 1, cfg.d_model, dtype=torch_dtype(cfg.dtype),
+                                      device=device)
+        else:
+            codebooks = (cfg.num_codebooks,) if cfg.num_codebooks > 1 else ()
+            self.inputs = torch.zeros(batch, 1, *codebooks, dtype=torch.int64, device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.graph = torch.cuda.CUDAGraph()
         self.launches = self._capture()
@@ -72,7 +77,7 @@ class DecodeGraph:
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(self.WARMUP_STEPS):
-                lm.decode_step(self.cfg, self.params, self.tokens, cache, self.pos)
+                lm.decode_step(self.cfg, self.params, self.inputs, cache, self.pos)
         torch.cuda.current_stream().wait_stream(side)
 
     def _capture(self) -> dict[str, int]:
@@ -86,7 +91,7 @@ class DecodeGraph:
             with torch.cuda.stream(torch.cuda.Stream(device=self.pos.device)):
                 self.graph.capture_begin()
                 try:
-                    self._logits, _ = lm.decode_step(self.cfg, self.params, self.tokens,
+                    self._logits, _ = lm.decode_step(self.cfg, self.params, self.inputs,
                                                      self.cache, self.pos)
                 finally:
                     self.graph.capture_end()
@@ -109,12 +114,12 @@ class DecodeGraph:
         map_tree(check, self.cache, cache)
         map_tree(lambda _, have, new: have.copy_(new), self.cache, cache)
 
-    def replay(self, tokens: torch.Tensor, pos: int) -> torch.Tensor:
-        """One decode step: ``tokens`` [B, 1] (or [B, 1, K]) at position
-        ``pos`` (the tokens already in the cache).  Returns the logits [B, V]
-        (or [B, K, V]); the cache is updated in place."""
+    def replay(self, inputs: torch.Tensor, pos: int) -> torch.Tensor:
+        """One decode step: tokens [B, 1] (or [B, 1, K]), or embeds [B, 1, D],
+        at position ``pos`` (the tokens already in the cache).  Returns the
+        logits [B, V] (or [B, K, V]); the cache is updated in place."""
         lm.check_position(self.cfg, self.cache, pos)
-        self.tokens.copy_(tokens)
+        self.inputs.copy_(inputs)
         self.pos.fill_(pos)
         self.graph.replay()
         ops.add_launches(self.launches)

@@ -87,7 +87,8 @@ class ServeEngine:
             raise NotImplementedError(
                 "plan_mesh: the decode-collective planner comes with the "
                 "planner slice (ROADMAP queue 1 item 14)")
-        if not cfg.embed_inputs:
+        if not cfg.embed_inputs:  # as the reference's: embeds go through lm.prefill,
+            # lm.decode_step and the captured step (DecodeGraph) themselves
             raise ValueError("serving engine drives token models")
         emb = params["embed"]["embedding"]
         if emb.device.type != self.device.type:

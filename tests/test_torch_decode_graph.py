@@ -2,8 +2,10 @@
 (``repro_torch.serving.decode_graph``) against the eager step, on the card.
 
 Both run the same kernels on the same inputs, so their logits must be equal
-bit for bit.  On the yi, falcon-mamba, h2o-danube (a sliding window) and
-musicgen (2 codebooks: a [B, 1, K] token buffer) smoke configs (bf16):
+bit for bit.  On the yi, falcon-mamba, h2o-danube (a sliding window),
+musicgen (2 codebooks: a [B, 1, K] token buffer) and minicpm3 (MLA: a latent
+cache) smoke configs (bf16), and on qwen2-vl's (embeds: a [B, 1, D] input
+buffer; no engine drives it):
 
 * the serving engine with the graph (the default on the card) and without
   it give the same tokens and per-step logits over 16 steps, for a first
@@ -30,7 +32,9 @@ from repro_torch.models.params import map_tree
 from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.engine import Request, ServeEngine, greedy_sample
 
-ARCHS = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "musicgen_large"]
+ARCHS = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "musicgen_large", "minicpm3_4b"]
+#: the captured step alone also takes a model that takes embeddings
+REPLAY_ARCHS = ARCHS + ["qwen2_vl_7b"]
 SLOTS, CAP, PROMPT, STEPS = 4, 64, 8, 16
 
 
@@ -54,7 +58,10 @@ def _tokens(cfg, rng, shape):
 
 
 def _norms_per_forward(cfg) -> int:
-    per_period = sum(1 + (s.ffn != "none") for s in cfg.layer_pattern)
+    """norm1, norm2 unless the FFN is "none", and MLA's q_norm and kv_norm."""
+    mla = cfg.attn is not None and cfg.attn.kind == "mla"
+    per_period = sum(1 + (s.ffn != "none") + 2 * (mla and s.mixer == "attn")
+                     for s in cfg.layer_pattern)
     return per_period * cfg.num_periods + 1
 
 
@@ -106,10 +113,15 @@ def test_graph_engine_equals_the_eager_engine(cuda, arch):
 
 def _replay_against_eager(cfg, params) -> None:
     """A graph captured over a prefill's cache, against eager steps from a
-    copy of that cache, on the same (teacher-forced) tokens."""
-    toks = torch.from_numpy(_tokens(cfg, np.random.RandomState(1),
-                                    (SLOTS, PROMPT + STEPS))).cuda()
-    _, cache = lm.prefill(cfg, params, {"tokens": toks[:, :PROMPT]}, capacity=CAP)
+    copy of that cache, on the same (teacher-forced) tokens or embeds."""
+    rng = np.random.RandomState(1)
+    if cfg.embed_inputs:
+        toks = torch.from_numpy(_tokens(cfg, rng, (SLOTS, PROMPT + STEPS))).cuda()
+        key = "tokens"
+    else:
+        toks = torch.from_numpy(rng.randn(SLOTS, PROMPT + STEPS, cfg.d_model)).cuda()
+        key = "embeds"
+    _, cache = lm.prefill(cfg, params, {key: toks[:, :PROMPT]}, capacity=CAP)
     graph = DecodeGraph(cfg, params, map_tree(lambda _, t: t.clone(), cache))
     for t in range(STEPS):
         step = toks[:, PROMPT + t:PROMPT + t + 1]
@@ -119,7 +131,7 @@ def _replay_against_eager(cfg, params) -> None:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", REPLAY_ARCHS)
 def test_capture_leaves_a_live_cache_as_it_was(cuda, arch, monkeypatch):
     cfg, params = _model(arch)
     _replay_against_eager(cfg, params)

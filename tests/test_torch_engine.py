@@ -2,7 +2,8 @@
 package's (``repro.serving.engine``), on the same parameters, prompts,
 slots and capacity, and the port's serve CLI.
 
-Float32 copies of the yi, falcon-mamba and musicgen smoke configs, so the
+Float32 copies of the yi, falcon-mamba, musicgen and minicpm3 (MLA) smoke
+configs, so the
 logits agree to 1e-5 of their scale.  The port's engine is fed the reference's
 tokens (teacher forcing), so every step's logits are comparable even where
 a near-tie could flip a greedy choice; its own greedy choice must equal
@@ -64,6 +65,24 @@ def test_musicgen_engine_matches_reference():
     """Two codebooks: prompts [S, K], logits [B, K, V], a token list of K
     ids per request and step, as in the reference."""
     _engine_matches_reference("musicgen_large")
+
+
+def test_minicpm3_engine_matches_reference():
+    """MLA: the expanded prefill fills the latent cache that the absorbed
+    decode steps read."""
+    _engine_matches_reference("minicpm3_4b")
+
+
+def test_engine_refuses_a_model_that_takes_embeddings():
+    """As the reference's engine: Qwen2-VL takes embeddings, which go
+    through ``lm.prefill`` / ``lm.decode_step`` (or the captured step), not
+    the token engine."""
+    cfg = get_smoke_config("qwen2_vl_7b")
+    params = TLM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="serving engine drives token models"):
+        TE.ServeEngine(cfg, params, device="cpu")
+    with pytest.raises(ValueError, match="serving engine drives token models"):
+        JE.ServeEngine(jax_smoke_config("qwen2_vl_7b"), {})
 
 
 def _engine_matches_reference(arch):
@@ -152,6 +171,10 @@ def test_serve_cli_runs_falcon_mamba_smoke_on_cpu():
 
 def test_serve_cli_runs_musicgen_smoke_on_cpu():
     _serve_cli_runs_smoke_on_cpu("musicgen_large")
+
+
+def test_serve_cli_runs_minicpm3_smoke_on_cpu():
+    _serve_cli_runs_smoke_on_cpu("minicpm3_4b")
 
 
 def _serve_cli_runs_smoke_on_cpu(arch):

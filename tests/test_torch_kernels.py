@@ -172,7 +172,13 @@ def _scan_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
     (lambda: flash_attention_cuda(*(torch.randn(2, 8, 16, dtype=torch.bfloat16),) * 3,
                                   group_size=1), "CUDA device"),
     (lambda: flash_attention_cuda(*(torch.randn(2, 8, 32, dtype=torch.bfloat16),) * 3,
-                                  group_size=1), "head_dim 32"),
+                                  group_size=1), r"head dims \(32, 32\)"),
+    (lambda: flash_attention_cuda(*(torch.randn(2, 8, 96, dtype=torch.bfloat16),) * 2,
+                                  torch.randn(2, 8, 32, dtype=torch.bfloat16),
+                                  group_size=1), r"head dims \(96, 32\)"),
+    (lambda: flash_attention_cuda(*(torch.randn(2, 8, 96, dtype=torch.bfloat16),) * 2,
+                                  torch.randn(2, 9, 64, dtype=torch.bfloat16),
+                                  group_size=1), r"v \[BHkv, Skv, hd_v\]"),
     (lambda: flash_attention_cuda(*(torch.randn(2, 8, 16),) * 3, group_size=1),
      "bfloat16"),
     (lambda: flash_attention_cuda(torch.randn(4, 8, 16, dtype=torch.bfloat16),
@@ -216,6 +222,8 @@ def _card(a: np.ndarray, dev, dt=torch.bfloat16):
     (8, 33, 77, 256, 2, None, False),       # Sq != Skv, non-causal
     (4, 1, 1, 120, 1, None, True),          # one token
     (8, 200, 200, 256, 1, 40, False),       # non-causal with a window
+    (112, 512, 512, 128, 7, None, True),    # qwen2-vl prefill: 4 x 28 heads over 4 x 4, group 7
+    (14, 300, 300, 128, 7, None, True),     # ... ragged
 ])
 def test_flash_attention_kernel_on_card(cuda, BH, Sq, Skv, hd, g, win, causal):
     q = _card(RNG.randn(BH, Sq, hd).astype(np.float32), cuda)
@@ -230,11 +238,36 @@ def test_flash_attention_kernel_on_card(cuda, BH, Sq, Skv, hd, g, win, causal):
     assert ref.scaled_err(out, want) <= TOL["bfloat16"]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,Sq,Skv,hd,hdv,g,win,causal", [
+    (160, 512, 512, 96, 64, 1, None, True),  # minicpm3's MLA prefill, 4 x 40 heads
+    (40, 300, 300, 96, 64, 1, None, True),   # ragged
+    (8, 33, 77, 96, 64, 2, None, False),     # Sq != Skv, GQA, non-causal
+    (16, 200, 200, 96, 64, 1, 50, True),     # a window edge inside a 64-key tile
+    (16, 64, 64, 24, 16, 1, None, True),     # minicpm3 smoke: q/k 24 (padded to 32), v 16
+    (8, 100, 100, 24, 16, 2, 30, True),      # ... ragged, GQA, windowed
+    (4, 1, 1, 96, 64, 1, None, True),        # one token
+])
+def test_flash_attention_unequal_head_dims_on_card(cuda, BH, Sq, Skv, hd, hdv, g, win, causal):
+    """v's head dim differs from q's and k's (MLA's expanded prefill): the
+    output is [BH, Sq, hd_v], held to the plain version."""
+    q = _card(RNG.randn(BH, Sq, hd).astype(np.float32), cuda)
+    k = _card(RNG.randn(BH // g, Skv, hd).astype(np.float32), cuda)
+    v = _card(RNG.randn(BH // g, Skv, hdv).astype(np.float32), cuda)
+    kw = dict(group_size=g, causal=causal, window=win, scale=hd ** -0.5)
+    n0 = ops.flash_attention.launches
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1 and out.shape == (BH, Sq, hdv)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    assert ref.scaled_err(out, want) <= TOL["bfloat16"]
+
+
 # every width the repo's configs give RMSNorm (and 4104, whose 513 vectors
 # fill no warp evenly), the smoke widths 8 and 96, at the decode step's and the
 # prefill's T and one row more than the latter; then the widths past the
 # register path's 16 warps x 4 vectors, which take the general kernel
-RMSNORM_WIDTHS = (8, 96, 256, 512, 1536, 2560, 3072, 3584, 3840, 4096, 4104, 5120, 8192)
+RMSNORM_WIDTHS = (8, 96, 256, 512, 768, 1536, 2560, 3072, 3584, 3840, 4096, 4104, 5120, 8192)
 RMSNORM_CASES = [(100, 96, torch.float32), (3, 64, torch.float32), (5, 8, torch.bfloat16)] + [
     (T, d, dt) for dt in (torch.bfloat16, torch.float32) for T in (1, 4, 2048, 2049)
     for d in RMSNORM_WIDTHS] + [
@@ -358,8 +391,11 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "const int bytes = gr < n && c < HD ? 16 : 0;  // zeros past the end and in the pad",
         "const int bytes = gr < n ? 16 : 0;"),
     "flash_hd256_second_half_of_the_columns_unwritten": (
-        "flash_attention", "for (int nb = 0; nb < HD / 8; ++nb)",
-        "for (int nb = 0; nb < (HD == 256 ? HD / 16 : HD / 8); ++nb)"),
+        "flash_attention", "for (int nb = 0; nb < HDV / 8; ++nb)",
+        "for (int nb = 0; nb < (HDV == 256 ? HDV / 16 : HDV / 8); ++nb)"),
+    "flash_mla_last_v_column_block_unwritten": (
+        "flash_attention", "for (int nb = 0; nb < HDV / 8; ++nb)",
+        "for (int nb = 0; nb < (HDQK != HDV ? HDV / 8 - 2 : HDV / 8); ++nb)"),
     "rmsnorm_last_row_not_prefetched": (
         "rmsnorm", "if (next < T_rows) load(nxt, (int)next);  // in flight while this row reduces",
         "if (next < T_rows - 1) load(nxt, (int)next);"),
@@ -457,11 +493,12 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         call = lambda: mamba_scan_cuda(a, b, c)[0]  # noqa: E731
         want = ref.mamba_scan_ref(a, b, c)[0]
         tol = TOL["float32"]
-    else:  # yi's prefill; the hd faults at h2o-danube's and gemma's
-        n, g, hd = ((128, 4, 120) if "hd120" in fault else (64, 1, 256) if "hd256" in fault
-                    else (128, 8, 128))
-        q, k, v = (_with_slack(torch.randn(m * 512 * hd, generator=gen, device=cuda))
-                   .view(m, 512, hd) for m in (n, n // g, n // g))
+    else:  # yi's prefill; the hd faults at h2o-danube's, gemma's and minicpm3's
+        n, g, hd, hdv = ((128, 4, 120, 120) if "hd120" in fault else
+                         (64, 1, 256, 256) if "hd256" in fault else
+                         (160, 1, 96, 64) if "mla" in fault else (128, 8, 128, 128))
+        q, k, v = (_with_slack(torch.randn(m * 512 * d, generator=gen, device=cuda))
+                   .view(m, 512, d) for m, d in ((n, hd), (n // g, hd), (n // g, hdv)))
         kw = dict(group_size=g, causal=True,
                   window=128 if "window" in fault else None)
         call = lambda: flash_attention_cuda(q, k, v, **kw)  # noqa: E731

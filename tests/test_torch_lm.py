@@ -256,10 +256,26 @@ def test_bf16_params_carry_across_exactly():
     np.testing.assert_array_equal(got.float().numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_vl_7b", "minicpm3_4b", "dbrx_132b",
-                                  "jamba_1_5_large_398b", "deepseek_v2_236b"])
+@pytest.mark.parametrize("arch", ["dbrx_132b", "jamba_1_5_large_398b", "deepseek_v2_236b"])
 def test_registry_names_what_is_not_ported(arch):
     from repro_torch.configs import get_config
 
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         get_config(arch)
+
+
+PORTED = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "gemma_7b", "musicgen_large",
+          "qwen2_vl_7b", "minicpm3_4b"]
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_registry_loads_the_ported_configs_as_the_reference_has_them(arch):
+    """Each ported config, published and smoke, is the reference's field for
+    field, and its parameter count is the reference's."""
+    from repro.configs import get_config as jax_config
+    from repro_torch.configs import get_config
+
+    for port, ref in ((get_config(arch), jax_config(arch)),
+                      (get_smoke_config(arch), jax_smoke_config(arch))):
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        assert port.param_count() == ref.param_count()
