@@ -67,7 +67,31 @@ Phases, each reported on its own lines:
    k = 2) a 25 MiB payload, exactly.  Its times are host-clock times of
    host-staged gloo, not interconnect numbers.  The same job then runs
    in this process as one NCCL rank (a world of one: no peer, but the
-   transport's NCCL branch, which must stage nothing).
+   transport's NCCL branch, which must stage nothing);
+8. training.  (a) The training forward's lse and the flash backward
+   kernel against their plain versions at Yi's training shape (q [32,
+   2048, 128], kv [4, 2048, 128], g = 8, causal), a ragged S = 300, a
+   window of 100 and the smoke head dim 16 (dq, dk, dv at 2e-2 in
+   ``ref.scaled_err``, dq's first row in ``ref.dq_scaled_err``; lse and
+   delta at 1e-5), faults planted in copies of the backward's source (delta
+   dropped, dK/dV summed over one head of the group, the diagonal tile
+   unmasked) must each fail that check; the RMSNorm backward at x [2048,
+   4096], a ragged T = 2049 and the smoke width 64; each timed as in phase
+   3, beside its plain version and SDPA's (or ``F.rms_norm``'s) backward
+   through autograd (the forward and backward less the forward).  (b) One
+   train step of Yi-6B at full width and 2 layers through the kernels and
+   the same step through their plain versions, from the same parameters and
+   batch (8 microbatches of 1 x 2048): loss, ``grad_norm``, every gradient
+   and every updated parameter must agree.  (c) ``launch/train.py``'s loop
+   on Yi-6B at full width and 16 of its 32 layers, batch 8 x 2048 in 8
+   microbatches with remat, one repeated batch, 6 steps at learning rate
+   3e-4 after 1 warmup step: the loss must fall, and each step must launch
+   the kernels as the code implies (flash forward 2LM, backward LM, RMSNorm
+   forward (4L+1)M, backward (2L+1)M); step time, tokens/s, model FLOPs per
+   second over the card's peak and peak memory are printed.  (d) At the
+   smoke config's size: a run stopped at its checkpoint and resumed takes
+   its next step to the loss, parameters and optimizer state of a run that
+   never stopped, bit for bit.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -146,8 +170,41 @@ FLASH_FAULTS = {
         "for (int nb = 0; nb < (HDQK != HDV ? HDV / 8 - 2 : HDV / 8); ++nb)",
         "minicpm3 prefill"),
 }
+#: faults planted in copies of ``csrc/flash_attention_bwd.cu`` (name: sound
+#: line, faulty line, label of the phase-8 case it is checked at): each must
+#: fail that case's check.  ``tests/test_torch_kernels.py`` plants the same.
+FLASH_BWD_FAULTS = {
+    "delta_dropped": (
+        "if (row < rows && lane % LPR == 0) delta[row] = s;  // rowsum(dO * O)",
+        "if (row < rows && lane % LPR == 0) delta[row] = 0.f;", "yi train"),
+    "dkdv_over_one_head_of_the_group": (
+        "const int n_it = group * nqt;  // every head of the group, every q tile",
+        "const int n_it = nqt;", "yi train"),
+    "diagonal_tile_unmasked": (
+        "const bool edge = q0 + BN > S || (causal && q0 < k0 + BM) ||",
+        "const bool edge = q0 + BN > S ||", "yi train"),
+}
 #: every planted fault, by the kernel whose source it is planted in
-PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS}
+PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS,
+           "flash_attention_bwd": FLASH_BWD_FAULTS}
+#: phase 8's attention cases: (label, BH, g, S, hd, window): one 2048-token
+#: sequence of Yi's 32 heads over 4 (a microbatch of the train step), a
+#: ragged S, a window edge inside a 64-row tile, the smoke configs' head dim
+TRAIN_FLASH_SPECS = [
+    ("yi train", 32, 8, 2048, 128, None),
+    ("ragged", 32, 8, 300, 128, None),
+    ("window 100", 32, 8, 512, 128, 100),
+    ("hd 16 (smoke)", 16, 4, 128, 16, None),
+]
+#: phase 8's RMSNorm backward shapes: Yi's microbatch, ragged, the smoke width
+TRAIN_RMSNORM_SPECS = [(2048, 4096), (2049, 4096), (2048, 64)]
+#: phase 8's full-width run: Yi-6B at 16 of its 32 layers (the state of all
+#: 32 would not fit one card), the config's own batch, microbatches and remat
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 8, 2048, 6
+#: the loss averages 16,384 per-token terms: the kernels' bf16 rounding,
+#: which differs from the plain versions' float32 element by element,
+#: averages out in it
+LOSS_TOL = 1e-3
 #: phase 7's mesh and sizes: DeepSeek-V2's width, 1024 tokens x top-6 per
 #: rank (768 rows per destination); PyTorch DDP's default 25 MiB bucket
 COLLECTIVES = {"pods": 2, "lanes": 4, "tokens": 1024, "top_k": 6, "d_model": 5120,
@@ -525,14 +582,15 @@ def plain_kernels():
     reference forward; the port itself never does this)."""
     from repro_torch.kernels import ops, ref
 
-    saved = ops.rmsnorm, ops.flash_attention, ops.mamba_scan
-    ops.rmsnorm = ref.rmsnorm_ref
-    ops.flash_attention = ref.flash_attention_ref
-    ops.mamba_scan = ref.mamba_scan_ref
+    names = ("rmsnorm", "flash_attention", "mamba_scan", "flash_attention_bwd", "rmsnorm_bwd")
+    saved = {n: getattr(ops, n) for n in names}
+    for n in names:
+        setattr(ops, n, getattr(ref, f"{n}_ref"))
     try:
         yield
     finally:
-        ops.rmsnorm, ops.flash_attention, ops.mamba_scan = saved
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
 
 
 def pack_cases(gen, fault_libs) -> list:
@@ -1015,8 +1073,7 @@ def serve(arch: str, seed: int = 0) -> dict:
         raise AssertionError(f"not every request got {max_new} tokens: "
                              f"{[len(r.out_tokens) for r in done]}")
     per_forward = want["norms_per_layer"] * cfg.num_layers + 1
-    if main["per_replay"] != {"rmsnorm": per_forward, "flash_attention": 0,
-                              "mamba_scan": 0, "a2a_pack": 0}:
+    if main["per_replay"] != {**dict.fromkeys(main["per_replay"], 0), "rmsnorm": per_forward}:
         raise AssertionError(f"launches per replay {main['per_replay']}: want "
                              f"{per_forward} rmsnorm and nothing else")
     want_launches = {"rmsnorm": per_forward * (1 + decode_steps), "flash_attention": 0,
@@ -1256,8 +1313,7 @@ def drive_embeds(arch: str, seed: int = 0) -> dict:
           f"replay of the captured step: {graph.launches}")
 
     per_forward = want["norms_per_layer"] * cfg.num_layers + 1
-    if graph.launches != {"rmsnorm": per_forward, "flash_attention": 0, "mamba_scan": 0,
-                          "a2a_pack": 0}:
+    if graph.launches != {**dict.fromkeys(graph.launches, 0), "rmsnorm": per_forward}:
         raise AssertionError(f"launches per replay {graph.launches}: want {per_forward} "
                              "rmsnorm and nothing else")
     want_launches = {"rmsnorm": per_forward * (1 + steps), "flash_attention": 0,
@@ -1285,6 +1341,380 @@ def drive_embeds(arch: str, seed: int = 0) -> dict:
     res.update(_prefill_against_float32(cfg, params, prompt(), runs["graph"]["logits"][0],
                                         capacity))
     return res
+
+
+def _autograd_library(fwd, n: int):
+    """One PyTorch forward of ``n`` inputs and its backward through autograd,
+    as a call on the kernel's arguments: ``(*args, grad_out) -> gradients of
+    args[:n]``."""
+    import torch
+
+    def lib(*args):
+        xs = [x.detach().requires_grad_() for x in args[:n]]
+        return torch.autograd.grad(fwd(*xs), xs, args[-1])
+
+    return lib
+
+
+def _less_forward(case: dict, fwd: dict) -> None:
+    """A backward case's ``library_ms`` (and warm) as the library's forward
+    and backward less its forward, both timed in this run (cold where the
+    case's times are)."""
+    cold = fwd["cold"] if case["inputs"] == "cold" else fwd["warm"]
+    for key, t in (("library_ms", cold), ("library_ms_warm", fwd["warm"])):
+        case[f"{key}_forward_and_backward"] = case[key]
+        case[key] = case[key] - t
+
+
+def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
+    """Phase 8 (a): the training forward (with lse) and the flash backward
+    against their plain versions at ``TRAIN_FLASH_SPECS``, with every
+    planted fault of ``FLASH_BWD_FAULTS``; returns (forward cases, backward
+    cases)."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention_bwd as fb_mod
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
+    from repro_torch.kernels.ref import (dq_scaled_err, flash_attention_bwd_ref,
+                                         flash_attention_ref, scaled_err)
+
+    def bwd_err(got, want) -> float:
+        return max(dq_scaled_err(got[0], want[0]),
+                   *(scaled_err(a, b) for a, b in zip(got[1:], want[1:])))
+
+    faults = {}
+    for name, (_, _, label) in FLASH_BWD_FAULTS.items():
+        faults.setdefault(label, []).append(name)
+    fwd_cases, bwd_cases = [], []
+    for label, BH, g, S, hd, window in TRAIN_FLASH_SPECS:
+        q, k, v = flash_inputs(gen, BH, g, S, S, hd)
+        do = torch.randn(BH, S, hd, generator=gen, device="cuda").to(torch.bfloat16)
+        kw = dict(group_size=g, causal=True, window=window)
+        o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        want_o, want_lse = flash_attention_ref(q.float(), k.float(), v.float(), return_lse=True,
+                                               **kw)
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                                       do.float(), **kw)
+        errs = {"out": scaled_err(o, want_o), "lse": scaled_err(lse, want_lse),
+                "dq": dq_scaled_err(got[0], want[0]), "dk": scaled_err(got[1], want[1]),
+                "dv": scaled_err(got[2], want[2]),
+                "delta": scaled_err(got[3], (do.float() * o.float()).sum(-1))}
+        for name, err in errs.items():
+            tol = TOL_F32 if name in ("lse", "delta") else TOL_BF16
+            if not err <= tol:
+                raise AssertionError(f"flash training {label}: {name} scaled err {err} > {tol}")
+        planted = {}
+        for name in faults.get(label, []):
+            saved = build._LIBS["flash_attention_bwd"]
+            try:
+                build._LIBS["flash_attention_bwd"] = build.load(fault_libs[name],
+                                                                fb_mod._SIGNATURES)
+                faulty = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)[:3]
+                torch.cuda.synchronize()
+            finally:
+                build._LIBS["flash_attention_bwd"] = saved
+            f_err = bwd_err(faulty, want)
+            print(f"[kernel] flash_attention_bwd planted fault {name} at {label}: scaled err "
+                  f"{f_err:.6g} (sound {bwd_err(got[:3], want):.6g}, tol {TOL_BF16})")
+            if f_err <= TOL_BF16:
+                raise AssertionError(f"planted fault {name} passed the check: {f_err}")
+            planted[name] = f_err if math.isfinite(f_err) else str(f_err)
+            del faulty
+        shape = (f"{label}: q[{BH},{S},{hd}] kv[{BH // g},{S},{hd}] g={g} causal"
+                 f"{f' window={window}' if window else ''} bf16")
+        lib = flash_library(S, S, True, window)
+        fwd = {"shape": f"{shape}, with lse", "scaled_err": max(errs["out"], errs["lse"]),
+               "scaled_err_lse": errs["lse"],
+               "max_abs_err": (o.float() - want_o).abs().max().item(),
+               **_times(lambda q, k, v: flash_attention_cuda(q, k, v, return_lse=True, **kw),
+                        lambda q, k, v: flash_attention_ref(q, k, v, return_lse=True, **kw),
+                        lib, (q, k, v), iters=10),
+               **flash_bounds(BH, g, S, S, hd, True, window)}
+        pairs = _attn_pairs(S, S, True, window)
+        nbytes = (4 * BH + 4 * (BH // g)) * S * hd * 2 + BH * S * 4  # q o do dq, k v dk dv, lse
+        bwd = {"shape": shape, "scaled_err": max(errs[n] for n in ("dq", "dk", "dv")),
+               "scaled_err_delta": errs["delta"],
+               "max_abs_err": max((a.float() - b).abs().max().item()
+                                  for a, b in zip(got[:3], want)),
+               **_times(lambda *a: flash_attention_bwd_cuda(*a, **kw)[:3],
+                        lambda *a: flash_attention_bwd_ref(*a, **kw),
+                        _autograd_library(lib, 3), (q, k, v, o, lse, do), iters=10),
+               "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+               # P, dV, dP, dQ, dK over the unmasked pairs (P and dP computed
+               # twice by the kernels, counted once)
+               "bound_ops_ms": 2 * 5 * hd * BH * pairs / PEAK_BF16_TC_FLOPS * 1e3}
+        if planted:
+            bwd["planted_fault_scaled_err"] = planted
+        _less_forward(bwd, {"cold": fwd["library_ms"] if fwd["inputs"] == "cold" else None,
+                            "warm": fwd["library_ms_warm"]})
+        fwd_cases.append(fwd)
+        bwd_cases.append(bwd)
+        del q, k, v, o, lse, do, got, want, want_o
+    return fwd_cases, bwd_cases
+
+
+def rmsnorm_train_cases(gen) -> list:
+    """Phase 8 (a): the RMSNorm backward against its plain version at
+    ``TRAIN_RMSNORM_SPECS``, bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import rmsnorm_bwd_ref, scaled_err
+    from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
+
+    cases = []
+    for T, d in TRAIN_RMSNORM_SPECS:
+        x, dy = (torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
+        dx, dw = rmsnorm_bwd_cuda(x, w, dy)
+        torch.cuda.synchronize()
+        want_dx, want_dw = rmsnorm_bwd_ref(x.float(), w.float(), dy.float())
+        err = max(scaled_err(dx, want_dx), scaled_err(dw, want_dw))
+        if not err <= TOL_BF16:
+            raise AssertionError(f"rmsnorm_bwd [{T},{d}]: scaled err {err} > {TOL_BF16}")
+
+        def lib_fwd(x, w, d=d):
+            return F.rms_norm(x, (d,), w, 1e-6)
+
+        case = {
+            "shape": f"x, dy[{T},{d}] bf16", "scaled_err": err,
+            "max_abs_err": max((dx.float() - want_dx).abs().max().item(),
+                               (dw.float() - want_dw).abs().max().item()),
+            **_times(lambda x, w, dy: rmsnorm_bwd_cuda(x, w, dy),
+                     lambda x, w, dy: rmsnorm_bwd_ref(x, w, dy), _autograd_library(lib_fwd, 2),
+                     (x, w, dy), iters=100),
+            "bound_bytes_ms": (3 * T * d + 2 * d) * 2 / PEAK_BYTES_PER_S * 1e3,
+            "bound_ops_ms": 10 * T * d / PEAK_FP32_FLOPS * 1e3,
+        }
+        _less_forward(case, _ms(lib_fwd, (x, w), iters=100))
+        cases.append(case)
+        del x, dy, w, dx, dw
+    return cases
+
+
+def _yi(layers: int):
+    """Yi-6B at its published widths and ``layers`` of its 32 layers."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("yi_6b"), num_layers=layers)
+
+
+def _step_share(g, norm: float):
+    """A first AdamW step's share of ``lr`` per element, ``c g / (|c g| +
+    eps)`` (``c`` the clip factor of the gradients' global norm), float32."""
+    cg = g.float() * min(1.0, 1.0 / max(norm, 1e-9))
+    return cg / (cg.abs() + 1e-8)
+
+
+def train_path_against_plain(seed: int = 0) -> dict:
+    """Phase 8 (b): one train step of Yi-6B at full width and 2 layers
+    (batch 8 x 2048 in 8 microbatches, remat) through the kernels, and the
+    same step through their plain versions, from the same parameters and
+    batch.  The loss within ``LOSS_TOL`` (relative), ``grad_norm`` and every
+    gradient (rms over its leaf) within the bf16 tolerance, and every
+    updated parameter within what the two gradients imply for a first AdamW
+    step (``lr`` times the difference of the shares of ``_step_share``), one
+    bf16 unit in the last place of the larger result (each rounds once, by
+    at most half of one), and 8 float32 units at the scale of the update's
+    terms (``|p| + lr``)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state, leaves
+    from repro_torch.training.train_step import batch_to, grad_and_metrics
+
+    cfg = _yi(2)
+    L, M = cfg.num_layers, cfg.parallel.microbatches
+    opt_cfg = OptConfig(learning_rate=3e-4, warmup_steps=1)
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    batch = batch_to(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed), "cuda")
+    runs = {}
+    for mode in ("kernels", "plain"):
+        p = map_tree(lambda _, t: t.clone(), params)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with plain_kernels() if mode == "plain" else contextlib.nullcontext():
+            ops.reset_launches()
+            grads, metrics = grad_and_metrics(cfg, p, batch)
+            launches = ops.launch_counts()
+            p, _, info = adamw_update(grads, init_opt_state(p, opt_cfg), p, opt_cfg)
+        torch.cuda.synchronize()
+        runs[mode] = {"grads": leaves(grads), "params": leaves(p), "launches": launches,
+                      "seconds": time.perf_counter() - t0,
+                      **{k: float(v) for k, v in {**metrics, **info}.items()}}
+        del grads, p
+        gc.collect()
+    kern, plain = runs["kernels"], runs["plain"]
+    want = {**dict.fromkeys(kern["launches"], 0), "flash_attention": 2 * L * M,
+            "flash_attention_bwd": L * M, "rmsnorm": (4 * L + 1) * M,
+            "rmsnorm_bwd": (2 * L + 1) * M}
+    if kern["launches"] != want or any(plain["launches"].values()):
+        raise AssertionError(f"launches: kernels {kern['launches']} (want {want}), plain "
+                             f"{plain['launches']} (want none)")
+    loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
+    gnorm_rel = abs(kern["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
+    grad_rms = max(_rms_rel(a, b) for a, b in zip(kern["grads"], plain["grads"]))
+    norms = (kern["grad_norm"], plain["grad_norm"])
+    worst_step, worst_at = 0.0, None
+    for j, (pk, pp, gk, gp, pb) in enumerate(zip(kern["params"], plain["params"], kern["grads"],
+                                                 plain["grads"], leaves(params))):
+        # each result rounds to bf16 once: half a unit in the last place of each
+        big = torch.maximum(pk.float().abs(), pp.float().abs()).clamp_min(1e-30)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        # and the float32 rounding of the update's terms, |p| and lr: where they
+        # cancel (p near lr), that is the larger part of the difference
+        terms = pb.float().abs() + opt_cfg.learning_rate
+        bound = opt_cfg.learning_rate * (_step_share(gk, norms[0]) -
+                                         _step_share(gp, norms[1])).abs() + ulp + 2**-21 * terms
+        ratio = (pk.float() - pp.float()).abs() / bound
+        i = int(ratio.argmax())
+        if ratio.flatten()[i].item() > worst_step:
+            worst_step = ratio.flatten()[i].item()
+            worst_at = {"leaf": j, "shape": list(pk.shape), "index": i, **{
+                n: t.flatten()[i].item() for n, t in (("p_kernels", pk), ("p_plain", pp),
+                                                      ("p_before", pb),
+                                                      ("g_kernels", gk), ("g_plain", gp))}}
+    res = {"config": f"yi_6b, {L} layers, full width", "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "microbatches": M, "loss": {m: r["loss"] for m, r in runs.items()},
+           "grad_norm": {m: r["grad_norm"] for m, r in runs.items()},
+           "loss_rel_diff": loss_rel, "grad_norm_rel_diff": gnorm_rel,
+           "grads_worst_rms_rel": grad_rms, "params_worst_over_bound": worst_step,
+           "params_worst_element": worst_at,
+           "launches": kern["launches"], "seconds": {m: r["seconds"] for m, r in runs.items()}}
+    print(f"[train] kernel path against plain path, one step of Yi-6B at full width and {L} "
+          f"layers ({TRAIN_BATCH} x {TRAIN_SEQ}, {M} microbatches): loss {kern['loss']:.6f} "
+          f"against {plain['loss']:.6f} (rel {loss_rel:.3g}, tol {LOSS_TOL}); grad_norm "
+          f"{kern['grad_norm']:.6f} against {plain['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
+          f"{TOL_BF16}); worst gradient rms rel {grad_rms:.3g} (tol {TOL_BF16}); updated "
+          f"params: worst |diff| over its bound {worst_step:.3g} (tol 1); launches "
+          f"{kern['launches']}; host seconds kernels {kern['seconds']:.2f}, plain "
+          f"{plain['seconds']:.2f}")
+    if not (loss_rel <= LOSS_TOL and gnorm_rel <= TOL_BF16 and grad_rms <= TOL_BF16
+            and worst_step <= 1.0):
+        raise AssertionError(f"kernel path against plain path: {res}")
+    return res
+
+
+def train_full_width(seed: int = 0) -> dict:
+    """Phase 8 (c): ``launch/train.py``'s loop on Yi-6B at full width and
+    ``TRAIN_LAYERS`` layers; returns its numbers and the kernels' launches
+    over the run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import lm
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = _yi(TRAIN_LAYERS)
+    L, M, a = cfg.num_layers, cfg.parallel.microbatches, cfg.attn
+    if (cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.dtype, M, cfg.parallel.remat) != (4096, 32, 4, 128, 11008, 64000, "bfloat16",
+                                                  8, True):
+        raise AssertionError(f"not Yi-6B's published widths: {cfg}")
+    n_params = sum(math.prod(m.shape) for m in _leaves(lm.model_meta(cfg)))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # every weight is in a product but the embedding table (a lookup) and the norms'
+    gemm = n_params - cfg.padded_vocab * cfg.d_model - (2 * L + 1) * cfg.d_model
+    attn = 12 * _attn_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None) * a.head_dim * a.num_heads * L \
+        * TRAIN_BATCH  # QK^T and PV, forward and backward (3x)
+    model_flops = 6 * gemm * tokens + attn
+    want = {"flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
+            "rmsnorm": (4 * L + 1) * M, "rmsnorm_bwd": (2 * L + 1) * M}
+    per_step = []
+    last = {}
+
+    def on_step(step, metrics, seconds):
+        now = ops.launch_counts()
+        per_step.append({k: now[k] - last.get(k, 0) for k in now})
+        last.update(now)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()  # the main path's counts start here
+    out = train(cfg, OptConfig(learning_rate=3e-4, warmup_steps=1), steps=TRAIN_STEPS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, corpus_size=1, seed=seed, device="cuda",
+                log_every=1, arch="yi_6b", on_step=on_step)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del out["state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    hist = out["history"]
+    for i, counts in enumerate(per_step):
+        if counts != {**dict.fromkeys(counts, 0), **want}:
+            raise AssertionError(f"step {i}: launches {counts}, want {want}")
+    losses = [h["loss"] for h in hist]
+    if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    steady = statistics.median(h["seconds"] for h in hist[1:])
+    res = {"config": f"yi_6b, {L} of 32 layers, full width", "params": n_params,
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatches": M, "remat": True,
+           "steps": TRAIN_STEPS, "losses": losses,
+           "grad_norm": [h["grad_norm"] for h in hist], "lr": [h["lr"] for h in hist],
+           "step_s": [h["seconds"] for h in hist], "step_s_median_after_first": steady,
+           "tokens_per_s": tokens / steady, "model_flops_per_step": model_flops,
+           "mfu": model_flops / (steady * PEAK_BF16_TC_FLOPS), "peak_mem_gb": peak,
+           "launches_per_step": want, "launches": launches}
+    for h in hist:
+        print(f"[train] yi_6b x{L} step {h['step']}: loss {h['loss']:.6f}, grad_norm "
+              f"{h['grad_norm']:.4f}, lr {h['lr']:.3g}, {h['seconds']:.3f} s (host clock, "
+              f"synchronised)")
+    print(f"[train] yi_6b at full width, {L} of 32 layers ({n_params:,} parameters), "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {M} microbatches, remat: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {TRAIN_STEPS} steps; step {steady:.3f} s "
+          f"(median after the first), {tokens / steady:,.0f} tokens/s, model FLOPs "
+          f"{model_flops:.4g} a step = {res['mfu']:.3f} of 989 TFLOP/s; peak memory "
+          f"{peak:.2f} GB; launches per step {want}, as the code implies")
+    return res
+
+
+def train_checkpoint(seed: int = 0) -> dict:
+    """Phase 8 (d): at the smoke config's size on the card, a run stopped at
+    its checkpoint (saved after step 2) and resumed takes step 3 to the
+    loss, parameters and optimizer state of a run that never stopped, bit
+    for bit."""
+    import shutil
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import train
+    from repro_torch.models.params import map_tree
+    from repro_torch.training.optimizer import OptConfig
+
+    cfg = get_smoke_config("yi_6b")
+    kw = dict(batch=8, seq=128, seed=seed, device="cuda", log_every=100, arch="yi_6b")
+    opt_cfg = OptConfig(learning_rate=1e-3, warmup_steps=2)
+    d = OUT_DIR / "train_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    full = train(cfg, opt_cfg, steps=4, **kw)
+    first = train(cfg, opt_cfg, steps=3, ckpt_dir=str(d), ckpt_every=2, **kw)
+    rest = train(cfg, opt_cfg, steps=4, ckpt_dir=str(d), ckpt_every=2, **kw)
+    shutil.rmtree(d, ignore_errors=True)
+    unequal = []
+    map_tree(lambda path, a, b: unequal.append(path) if not torch.equal(a, b) else None,
+             full["state"], rest["state"])
+    losses = [h["loss"] for h in first["history"] + rest["history"]]
+    ok = ([h["step"] for h in rest["history"]] == [3] and not unequal
+          and losses == [h["loss"] for h in full["history"]])
+    print(f"[train] checkpoint at the smoke size: stopped after step 2, resumed at step 3: "
+          f"losses {losses} against {[h['loss'] for h in full['history']]}; parameters and "
+          f"optimizer state equal bit for bit: {not unequal}")
+    if not ok:
+        raise AssertionError(f"the resumed run differs: steps "
+                             f"{[h['step'] for h in rest['history']]}, unequal {unequal[:5]}")
+    return {"losses": losses, "resumed_at": 3, "state_equal": True}
 
 
 def _leaves(tree):
@@ -1352,12 +1782,32 @@ def main() -> int:
     ranks = collectives_phase()
     done("collectives")
 
-    by_model = lambda k: {a: r["launches"][k] for a, r in served.items()}  # noqa: E731
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd_train, bwd_train = flash_train_cases(gen, fault_libs)
+    rms_train = rmsnorm_train_cases(gen)
+    for name, cases in (("flash_attention (training forward)", fwd_train),
+                        ("flash_attention_bwd", bwd_train), ("rmsnorm_bwd", rms_train)):
+        _print_cases(name, cases, TOL_BF16)
+    done("train kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = {"path_against_plain": train_path_against_plain()}
+    done("train step against plain")
+    train["full_width"] = full = train_full_width()
+    done("train full width")
+    train["checkpoint"] = train_checkpoint()
+    done("train checkpoint")
+    run = f"train yi_6b x{TRAIN_LAYERS}"
+
+    def by_model(k):
+        return {**{a: r["launches"][k] for a, r in served.items()}, run: full["launches"][k]}
+
     kernels = [
         kernel_entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
                      "src/repro/kernels/rmsnorm.py:27", rms, by_model("rmsnorm")),
         kernel_entry("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     "src/repro/kernels/flash_attention.py:99", fla,
+                     "src/repro/kernels/flash_attention.py:99", fla + fwd_train,
                      by_model("flash_attention")),
         kernel_entry("mamba_scan", "src/repro_torch/kernels/csrc/mamba_scan.cu",
                      "src/repro/kernels/mamba_scan.py:60", mam, by_model("mamba_scan"),
@@ -1366,10 +1816,18 @@ def main() -> int:
                      "src/repro/kernels/a2a_pack.py:27", pack,
                      {f"ep_dispatch rank {r['rank']}": r["launches"]["a2a_pack"]
                       for r in ranks}, tolerance=0),
+        kernel_entry("flash_attention_bwd",
+                     "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                     "src/repro/models/flash.py:108", bwd_train,
+                     {run: full["launches"]["flash_attention_bwd"]}),
+        kernel_entry("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                     "src/repro/models/layers.py:40", rms_train,
+                     {run: full["launches"]["rmsnorm_bwd"]}),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "kernels": kernels, "serve": served, "collectives": ranks}, indent=1))
+        {"card": smi, "kernels": kernels, "serve": served, "collectives": ranks,
+         "train": train}, indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + ")")
     print(smi)

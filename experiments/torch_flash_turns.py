@@ -66,12 +66,13 @@ def _one_head_dim_call(lib, q, k, v, *, group_size, causal, window):
 
 def _ptxas(log: str) -> dict:
     """By (q/k, v) head dims: registers and (spill store, spill load) bytes,
-    from ``-Xptxas -v``; a kernel of one head dim has both equal."""
+    from ``-Xptxas -v``, of the serving instances; a kernel of one head dim
+    has both equal."""
     out, hd = {}, None
     for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*kernelILi(\d+)E(?:Li(\d+)E)?", ln)
-        if m:
-            hd = (int(m.group(1)), int(m.group(2) or m.group(1)))
+        m = re.search(r"Compiling entry function '.*kernelILi(\d+)E(?:Li(\d+)E)?(Lb1E)?", ln)
+        if m:  # the training instances (lse written, ``Lb1E``) are not timed here
+            hd = None if m.group(3) else (int(m.group(1)), int(m.group(2) or m.group(1)))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m and hd is not None:
             out.setdefault(hd, {})["spill"] = (int(m.group(1)), int(m.group(2)))
@@ -124,8 +125,10 @@ def main(argv=None) -> int:
 
     old_dims = set(_ptxas(build.BUILD_LOG["old"]))
     one_head_dim = "head_dim_v" not in args.old.read_text()
+    # the serving entry points only: an earlier build has no lse instance
+    serving = {f: sig for f, sig in fa._SIGNATURES.items() if f != "flash_attention_lse_launch"}
     libs = {n: build.load(jobs[n][1], _ONE_HEAD_DIM if n == "old" and one_head_dim
-                          else fa._SIGNATURES) for n in jobs}
+                          else serving) for n in jobs}
     gen = torch.Generator(device="cuda").manual_seed(0)
     order = ["old", "warps4", "warps8", "sdpa", "sdpa", "warps8", "warps4", "old"]
     for label, BH, g, Sq, Skv, hd, hdv, causal, window in cs.FLASH_SPECS:

@@ -8,6 +8,17 @@ scan on the serving paths; the full-lane alltoall's block regroup on the
 collectives' path) are CUDA C++ kernels under ``kernels/csrc``; everything
 else is plain PyTorch, and the collectives run on ``torch.distributed``.
 
+Two paths use them: serving (``launch/serve.py`` -> ``serving/engine.py``
+-> ``models/lm.prefill`` / ``decode_step``) and training
+(``launch/train.py`` -> ``training/train_step.py`` -> ``models/lm.loss_fn``,
+AdamW in ``training/optimizer.py``, checkpoints in
+``training/checkpoint.py``).  Training differentiates the flash attention
+(``models/flash.py``, the reference's custom VJP) and RMSNorm through two
+more CUDA kernels, their backwards (``csrc/flash_attention_bwd.cu``,
+``csrc/rmsnorm_bwd.cu``); on one card it syncs no gradients, in ranks
+(``launch/ranks.py``) the train step takes the reference's flat or
+full-lane (``hierarchical_psum``) data-parallel sync.
+
 Entry points take an explicit ``device`` that defaults to ``"cuda"``: they
 raise when CUDA is absent, unless the caller asked for ``"cpu"``.
 """

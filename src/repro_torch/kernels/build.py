@@ -22,7 +22,8 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "compile_sources", "jo
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "a2a_pack")
+KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "a2a_pack", "flash_attention_bwd",
+           "rmsnorm_bwd")
 # -Xptxas -v: registers, shared memory and spills of every kernel, kept in
 # BUILD_LOG for the record of a run
 NVCC_FLAGS = (

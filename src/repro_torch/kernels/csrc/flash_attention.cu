@@ -60,6 +60,12 @@
 // the unrolled products, cost more than the products it saved.  The next
 // design for prompts bound by the tensor cores is wgmma with TMA.
 //
+// Training (models/flash.py's forward, `_fwd_impl`) also needs each row's
+// logsumexp: the instance with kLse = true writes lse [BH, Sq] fp32 in
+// natural-log units (m + log l, the reference's) from the epilogue, where m
+// is held in log2 units.  The serving instance (kLse = false) compiles to
+// the code it had before, and its C entry point is unchanged.
+//
 // Layout: q [BH, Sq, HDQK], k [BH/group, Skv, HDQK], v [BH/group, Skv, HDV],
 // o [BH, Sq, HDV], all contiguous bf16.  C interface (ctypes): returns
 // cudaGetLastError().
@@ -78,6 +84,7 @@ constexpr int BQ = 16 * kWarps;       // q rows per CTA
 constexpr int NTHREADS = 32 * kWarps;
 constexpr int STAGES = 2;             // depth of the K/V ring
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNeg = -1e30f;        // masked score, as in the reference
 constexpr float kNegL2 = kNeg * kLog2e;  // the same in the kernel's log2 units
 
@@ -174,11 +181,11 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const bf16* src, int r0,
   }
 }
 
-template <int HDQK, int HDV>
+template <int HDQK, int HDV, bool kLse>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int Sq, int Skv,
-                 int group, int causal, int window, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int group, int causal, int window, float scale_log2) {
   using L = Tile<HDQK, HDV>;
   constexpr int LDQ = L::LDQ, LDV = L::LDV;
   constexpr int BK = L::BK;
@@ -356,6 +363,9 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qp = qr + 8 * i;
     if (qp >= Sq) continue;
     li = fmaxf(li, 1e-30f);
+    if constexpr (kLse) {  // m is quad-uniform: one thread of the quad writes the row's lse
+      if (t == 0) lse[(size_t)bh * Sq + qp] = (m[i] + log2f(li)) * kLn2;
+    }
     bf16* orow = o + ((size_t)bh * Sq + qp) * HDV + 2 * t;
 #pragma unroll
     for (int nb = 0; nb < HDV / 8; ++nb)
@@ -364,18 +374,23 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int HDQK, int HDV>
-int launch(const void* q, const void* k, const void* v, void* o, int BH, int Sq, int Skv,
-           int group, int causal, int window, float scale, cudaStream_t stream) {
+template <int HDQK, int HDV, bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH, int Sq,
+           int Skv, int group, int causal, int window, float scale, cudaStream_t stream) {
   const int bytes = Tile<HDQK, HDV>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HDQK, HDV>,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<HDQK, HDV, kLse>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(BH, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<HDQK, HDV><<<grid, NTHREADS, bytes, stream>>>(
+  flash_fwd_kernel<HDQK, HDV, kLse><<<grid, NTHREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), Sq, Skv, group, causal, window, scale * kLog2e);
+      static_cast<bf16*>(o), lse, Sq, Skv, group, causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+bool bad_shape(int BH, int Sq, int Skv, int group) {
+  return BH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0 || BH % group != 0 || BH > 65535 ||
+         (Sq + BQ - 1) / BQ > 65535;
 }
 
 }  // namespace
@@ -386,13 +401,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int BH, int Sq, int Skv, int head_dim, int head_dim_v,
                                       int group, int causal, int window, float scale,
                                       void* stream) {
-  if (BH <= 0 || Sq <= 0 || Skv <= 0 || group <= 0 || BH % group != 0 || BH > 65535 ||
-      (Sq + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_shape(BH, Sq, Skv, group)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_CASE(QK, V)                                                                \
   if (head_dim == QK && head_dim_v == V)                                                 \
-    return launch<QK, V>(q, k, v, o, BH, Sq, Skv, group, causal, window, scale, s);
+    return launch<QK, V, false>(q, k, v, o, nullptr, BH, Sq, Skv, group, causal, window,  \
+                                scale, s);
   FLASH_CASE(16, 16)
   FLASH_CASE(64, 64)
   FLASH_CASE(120, 120)
@@ -401,6 +415,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   FLASH_CASE(24, 16)  // MiniCPM3 smoke's MLA: q/k 16 + 8 (padded to 32), v 16
   FLASH_CASE(96, 64)  // MiniCPM3's MLA: q/k 64 + 32, v 64
 #undef FLASH_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// The training forward: o as above and lse [BH, Sq] fp32, natural log, at
+// the head dims the backward kernel takes (flash_attention_bwd.cu).
+extern "C" int flash_attention_lse_launch(const void* q, const void* k, const void* v, void* o,
+                                          void* lse, int BH, int Sq, int Skv, int head_dim,
+                                          int group, int causal, int window, float scale,
+                                          void* stream) {
+  if (bad_shape(BH, Sq, Skv, group)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (head_dim == 16)
+    return launch<16, 16, true>(q, k, v, o, l, BH, Sq, Skv, group, causal, window, scale, s);
+  if (head_dim == 128)
+    return launch<128, 128, true>(q, k, v, o, l, BH, Sq, Skv, group, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

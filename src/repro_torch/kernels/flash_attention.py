@@ -19,7 +19,10 @@ inside the kernel, in its shared-memory tiles (no copy here).  The value
 head dim may differ from the query/key one (MLA's 64 beside 96): the kernel
 takes both as template parameters, so V and the output move only their own
 columns.  Unlike the Pallas kernel it masks the ragged edge, so Sq and Skv
-need not be multiples of its tiles.
+need not be multiples of its tiles.  For training (``models/flash.py``) it
+also returns each row's logsumexp (``return_lse=True``, at the head dims
+:data:`LSE_HEAD_DIMS` that the backward kernel takes), from an instance of
+its own: the serving instance and its C entry point are unchanged.
 
 The wrapper checks shapes, dtypes, device, contiguity and alignment, and
 raises on anything the kernel does not take; it allocates the output and
@@ -37,7 +40,7 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["HEAD_DIMS", "flash_attention_cuda"]
+__all__ = ["HEAD_DIMS", "LSE_HEAD_DIMS", "flash_attention_cuda"]
 
 #: (q/k head dim, v head dim) pairs the kernel is instantiated for: the smoke
 #: configs' (16, 16) and MiniCPM3 smoke's (24, 16), and the published
@@ -45,12 +48,20 @@ __all__ = ["HEAD_DIMS", "flash_attention_cuda"]
 #: kernel), 128 (Yi, Qwen2-VL), 256 (Gemma) and MiniCPM3's MLA (96, 64); 24
 #: runs padded to 32
 HEAD_DIMS = ((16, 16), (64, 64), (120, 120), (128, 128), (256, 256), (24, 16), (96, 64))
+#: head dims the lse instance (and the backward kernel) is built for: Yi's
+#: 128 and the smoke configs' 16; the others wait for ROADMAP queue 2 item 9
+LSE_HEAD_DIMS = (16, 128)
 _MAX_BH = 65535  # the C interface's limit
 _SIGNATURES = {
     "flash_attention_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]),
+    "flash_attention_lse_launch": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]),
     "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -65,11 +76,14 @@ def flash_attention_cuda(
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """bfloat16 ``q``/``k``/``v``, contiguous on one CUDA device, head dims
     ``(hd, hd_v)`` in :data:`HEAD_DIMS`.  Returns ``softmax(q k^T * scale +
     mask) v`` as ``[BH, Sq, hd_v]`` bfloat16; ``scale`` defaults to
-    1/sqrt(hd)."""
+    1/sqrt(hd).  ``return_lse``: returns ``(out, lse)``, lse [BH, Sq] float32
+    the natural-log logsumexp of each row's scaled, masked scores (hd in
+    :data:`LSE_HEAD_DIMS`, hd_v = hd)."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"flash_attention: want q [BH, Sq, hd], k [BHkv, Skv, hd] "
                          f"and v [BHkv, Skv, hd_v], got {tuple(q.shape)}, "
@@ -82,6 +96,10 @@ def flash_attention_cuda(
                          f"{tuple(k.shape)} do not match group_size={group_size}")
     if (hd, hdv) not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dims ({hd}, {hdv}) not in {HEAD_DIMS}")
+    if return_lse and (hd not in LSE_HEAD_DIMS or hdv != hd):
+        raise ValueError(f"flash_attention: lse at head dims ({hd}, {hdv}) is not built: "
+                         f"the training path takes {LSE_HEAD_DIMS} (other head dims: "
+                         f"ROADMAP queue 2 item 9)")
     if Sq == 0 or Skv == 0 or BH == 0 or BH > _MAX_BH:
         raise ValueError(f"flash_attention: want 0 < BH <= {_MAX_BH} and "
                          f"nonempty sequences, got BH={BH}, Sq={Sq}, Skv={Skv}")
@@ -100,15 +118,21 @@ def flash_attention_cuda(
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     lib = build.library("flash_attention", _SIGNATURES)
     out = q.new_empty(BH, Sq, hdv)
+    common = (BH, Sq, Skv)
+    tail = (group_size, int(causal), 0 if window is None else int(window), float(scale))
     with torch.cuda.device(q.device):
-        code = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            BH, Sq, Skv, hd, hdv, group_size, int(causal),
-            0 if window is None else int(window), float(scale),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if return_lse:
+            lse = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
+            code = lib.flash_attention_lse_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                *common, hd, *tail, stream)
+        else:
+            code = lib.flash_attention_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *common, hd, hdv, *tail, stream)
     if code:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {code} "
             f"({lib.flash_attention_error_string(code).decode()})")
-    return out
+    return (out, lse) if return_lse else out

@@ -18,17 +18,21 @@ import torch
 
 from repro_torch.kernels.a2a_pack import a2a_pack_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.ref import (
     a2a_pack_ref,
+    flash_attention_bwd_ref,
     flash_attention_ref,
     mamba_scan_ref,
+    rmsnorm_bwd_ref,
     rmsnorm_ref,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
-__all__ = ["a2a_pack", "flash_attention", "mamba_scan", "rmsnorm", "add_launches",
-           "launch_counts", "reset_launches"]
+__all__ = ["a2a_pack", "flash_attention", "flash_attention_bwd", "mamba_scan", "rmsnorm",
+           "rmsnorm_bwd", "add_launches", "launch_counts", "reset_launches"]
 
 
 def _no_path(name: str, t: torch.Tensor):
@@ -47,18 +51,49 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
     raise _no_path("rmsnorm", x)
 
 
-def flash_attention(q, k, v, *, group_size=1, causal=True, window=None, scale=None):
+def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients (dx like ``x``, dw like ``w``) of :func:`rmsnorm` for the
+    output's cotangent ``dy``."""
+    if x.is_cuda:
+        shape = x.shape
+        dx, dw = rmsnorm_bwd_cuda(x.reshape(-1, shape[-1]), w, dy.reshape(-1, shape[-1]), eps)
+        rmsnorm_bwd.launches += 1
+        return dx.reshape(shape), dw
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_ref(x, w, dy, eps=eps)
+    raise _no_path("rmsnorm_bwd", x)
+
+
+def flash_attention(q, k, v, *, group_size=1, causal=True, window=None, scale=None,
+                    return_lse=False):
     """q [BH, Sq, hd]; k [BH // group_size, Skv, hd]; v [BH // group_size,
-    Skv, hd_v]; returns [BH, Sq, hd_v]."""
+    Skv, hd_v]; returns [BH, Sq, hd_v], and with ``return_lse`` also each
+    row's logsumexp [BH, Sq] float32 (the training forward)."""
+    kw = dict(group_size=group_size, causal=causal, window=window, scale=scale,
+              return_lse=return_lse)
     if q.is_cuda:
-        out = flash_attention_cuda(q, k, v, group_size=group_size, causal=causal,
-                                   window=window, scale=scale)
+        out = flash_attention_cuda(q, k, v, **kw)
         flash_attention.launches += 1
         return out
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, group_size=group_size, causal=causal,
-                                   window=window, scale=scale)
+        return flash_attention_ref(q, k, v, **kw)
     raise _no_path("flash_attention", q)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, group_size=1, causal=True, window=None,
+                        scale=None):
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at queries and
+    keys of one length, from its output ``o``, its ``lse`` and the output's
+    cotangent ``do``."""
+    kw = dict(group_size=group_size, causal=causal, window=window, scale=scale)
+    if q.is_cuda:
+        dq, dk, dv, _ = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        flash_attention_bwd.launches += 1
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    raise _no_path("flash_attention_bwd", q)
 
 
 def mamba_scan(a, b, c, h0=None):
@@ -85,7 +120,8 @@ def a2a_pack(x: torch.Tensor) -> torch.Tensor:
     raise _no_path("a2a_pack", x)
 
 
-_DISPATCHERS = (rmsnorm, flash_attention, mamba_scan, a2a_pack)
+_DISPATCHERS = (rmsnorm, flash_attention, mamba_scan, a2a_pack, flash_attention_bwd,
+                rmsnorm_bwd)
 
 
 def reset_launches() -> None:

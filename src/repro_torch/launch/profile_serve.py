@@ -28,6 +28,15 @@ the device memory segments the allocator had to create for it
 Last, a graph and an eager engine are built together and admitted one
 after the other, in both orders, twice.
 
+``--train`` profiles a train step instead (``training/train_step.py``, the
+step ``launch/train.py`` runs): Yi-6B's published widths, batch 8 x 2048 in
+the config's 8 microbatches with remat, AdamW; ``--layers`` cuts the depth
+(the state of all 32 layers does not fit one card: ``--layers 16``, as
+``chip_smoke.py`` trains).  One step warms up, one is timed alone on the
+host clock (synchronised), one is profiled.
+
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi_6b --train --layers 16
+
 Qwen2-VL takes embeddings, which no engine drives: its run profiles
 ``lm.prefill`` over seeded embeds [4, 512, D] and the decode step on seeded
 embeds, eager (``lm.decode_step``) and as the captured step
@@ -38,6 +47,7 @@ cache; the admissions' part does not apply.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -64,7 +74,7 @@ def _device_us(evt) -> float:
     return evt.self_device_time_total
 
 
-def _report(name: str, prof, wall_s: float, n: int) -> None:
+def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
     # device time is read from the device's own records (kernels, copies,
     # memsets) only: an operator's entry repeats the time of its kernels
     events = prof.key_averages()
@@ -76,10 +86,10 @@ def _report(name: str, prof, wall_s: float, n: int) -> None:
           f"{busy_us / n / 1e3:.3f} ms per call ({n} calls, "
           f"{sum(e.count for e in on_device) // n} device records each); device "
           f"idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
-    for e in sorted(on_device, key=_device_us, reverse=True)[:TOP]:
+    for e in sorted(on_device, key=_device_us, reverse=True)[:top]:
         print(f"[profile]   device {_device_us(e) / n / 1e3:9.4f} ms/call  "
               f"x{e.count / n:<6g} {e.key[:90]}")
-    for e in sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:TOP]:
+    for e in sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]:
         print(f"[profile]   host   {e.self_cpu_time_total / n / 1e3:9.4f} ms/call  "
               f"x{e.count / n:<6g} {e.key[:90]}")
 
@@ -87,11 +97,18 @@ def _report(name: str, prof, wall_s: float, n: int) -> None:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
+    ap.add_argument("--train", action="store_true", help="profile a train step")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="--train: layers of the config to keep (default: all)")
     args = ap.parse_args(argv)
     prompt_len, capacity = SHAPES.get(args.arch, DEFAULT_SHAPE)
 
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.train:
+        if args.layers:
+            cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        return _profile_train(cfg, device)
     k = cfg.num_codebooks
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)
@@ -222,6 +239,34 @@ def _profile_embeds(cfg, params, prompt_len: int, capacity: int, device) -> None
         _report(f"decode step of {SLOTS} embeds, {mode}", prof, wall, STEPS)
         print(f"[profile] {mode} step: cache and capture built in {build_ms:.3f} ms")
         del graph, cache
+
+
+def _profile_train(cfg, device, batch: int = 8, seq: int = 2048) -> None:
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import batch_to, make_train_step
+
+    opt_cfg = OptConfig(learning_rate=3e-4, warmup_steps=1)
+    params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    state = init_opt_state(params, opt_cfg)
+    data = batch_to(make_batch(cfg, batch, seq, seed=0), device)
+    step = make_train_step(cfg, opt_cfg)
+
+    def one():
+        nonlocal params, state
+        params, state, metrics = step(params, state, data)
+        return float(metrics["loss"])  # synchronises
+
+    one()
+    t0 = time.perf_counter()
+    one()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        one()
+    print(f"[profile] {cfg.name} at {cfg.num_layers} layers, {batch} x {seq} tokens in "
+          f"{cfg.parallel.microbatches} microbatches, remat {cfg.parallel.remat}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    _report("train step", prof, wall, 1, top=25)
 
 
 def _admission(eng: ServeEngine, reqs: list) -> tuple[float, int]:

@@ -2,7 +2,7 @@
 (MiniCPM3's multi-head latent attention), the counterparts of the
 reference's ``repro/models/attention.py``.
 
-Two compute paths for each:
+Three compute paths (MLA has the last two):
 
 * prefill — attention over the prompt through ``ops.flash_attention``
   (the flash kernel on the card).  The reference's prefill path is
@@ -20,8 +20,12 @@ Two compute paths for each:
   form, whose scores and values are taken against the latent cache.  The
   new entries are written into the cache in place.
 
-The training path (the reference's custom-VJP flash attention,
-``models/flash.py``) comes in a later slice.
+* train — GQA over the whole sequence with no cache, through
+  ``models/flash.flash_attention_train`` (the flash kernel forward with its
+  logsumexp, and the flash backward kernel), as the reference's
+  ``_gqa_attention`` takes its custom-VJP flash attention when there is no
+  cache and none to fill.  MLA training raises: its backward kernel at q/k
+  head dim 96 and v head dim 64 is ROADMAP queue 2 item 9.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.flash import flash_attention_train, kernel_rows
 from repro_torch.models.layers import rms_norm, rope
 from repro_torch.models.params import ParamMeta
 
@@ -111,9 +116,11 @@ def attention(
     cache: dict | None = None,  # decode: this layer's cache, updated in place
     cache_pos: torch.Tensor | None = None,  # decode: tokens already in the cache, 0-d int64
     capacity: int | None = None,  # prefill: size of the filled cache (default S)
+    train: bool = False,  # training: no cache, differentiable flash attention
 ) -> AttnResult:
     """Prefill when ``cache`` is None (returns the filled cache), else one
-    decode step against ``cache``.
+    decode step against ``cache``; with ``train`` the training forward,
+    which returns no cache.
 
     ``cache_pos`` is a 0-d int64 tensor on the cache's device, which a
     captured decode step reads at every replay.  Nothing is read back to the
@@ -121,6 +128,11 @@ def attention(
     a full-attention cache, where the reference's ``dynamic_update_slice``
     would clamp it."""
     if cfg.attn.kind == "mla":
+        if train:
+            raise NotImplementedError(
+                f"{cfg.name}: MLA training waits for the flash backward kernel at q/k head "
+                f"dim {cfg.attn.qk_head_dim} and v head dim {cfg.attn.v_head_dim} (ROADMAP "
+                "queue 2 item 9)")
         return _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity)
     a = cfg.attn
     B, S, _ = x.shape
@@ -132,6 +144,12 @@ def attention(
     k = rope(k, positions, a.rope_theta, sections=a.mrope_sections)
     scale = 1.0 / math.sqrt(hd)
 
+    if train:
+        pl = cfg.parallel
+        o = flash_attention_train(q.reshape(B, S, Hkv, H // Hkv, hd), k, v, scale,
+                                  a.sliding_window, pl.attn_chunk_q, pl.attn_chunk_kv,
+                                  pl.causal_skip)
+        return AttnResult(o.reshape(B, S, H * hd) @ p["wo"], None)
     if cache is not None:
         C = cache["k"].shape[1]
         widx = (cache_pos % C if a.sliding_window is not None else cache_pos).reshape(1)
@@ -150,7 +168,7 @@ def attention(
         # kernel row b*H + h reads kv row (b*H + h) // G = b*Hkv + h // G,
         # the GQA map
         o = ops.flash_attention(
-            _rows(q), _rows(k), _rows(v), group_size=H // Hkv,
+            kernel_rows(q), kernel_rows(k), kernel_rows(v), group_size=H // Hkv,
             causal=True, window=a.sliding_window, scale=scale,
         ).reshape(B, H, S, hd).transpose(1, 2)
         cap = capacity or S
@@ -167,11 +185,6 @@ def attention(
                      "v": F.pad(vc, (0, 0, 0, 0, 0, pad))}
     out = o.reshape(B, S, H * hd) @ p["wo"]
     return AttnResult(out, new_cache)
-
-
-def _rows(t: torch.Tensor) -> torch.Tensor:
-    """[B, S, H, d] -> the flash kernel's [B*H, S, d], contiguous."""
-    return t.transpose(1, 2).reshape(-1, t.shape[1], t.shape[3]).contiguous()
 
 
 def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity):
@@ -218,8 +231,9 @@ def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity):
         kv = (ckv @ p["wkv_b"]).reshape(B, S, H, nope + vdim)
         kk = torch.cat([kv[..., :nope], k_rope[:, :, None].expand(B, S, H, rdim)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        o = ops.flash_attention(_rows(qq), _rows(kk), _rows(kv[..., nope:]), group_size=1,
-                                causal=True, scale=scale).reshape(B, H, S, vdim).transpose(1, 2)
+        o = ops.flash_attention(kernel_rows(qq), kernel_rows(kk), kernel_rows(kv[..., nope:]),
+                                group_size=1, causal=True,
+                                scale=scale).reshape(B, H, S, vdim).transpose(1, 2)
         cap = capacity or S
         pad = max(cap - S, 0)
         new_cache = {"ckv": F.pad(ckv[:, -cap:], (0, 0, 0, pad)),

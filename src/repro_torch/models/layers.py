@@ -4,7 +4,8 @@ embeddings, M-RoPE's included (the counterpart of the reference's
 
 Each block has a ``*_meta`` builder (see :mod:`repro_torch.models.params`)
 and a forward function on tensors.  ``rms_norm`` runs on the RMSNorm kernel
-on the card.
+on the card, and where a gradient is wanted its backward runs on the RMSNorm
+backward kernel; the other blocks are differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -34,7 +35,26 @@ def rms_norm_meta(d: int) -> ParamMeta:
     return ParamMeta((d,), ("d_model",), init="ones")
 
 
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return ops.rmsnorm(x, w, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = ops.rmsnorm_bwd(x, w, dy.contiguous(), eps=ctx.eps)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * w`` over the last dim, in float32, cast
+    to ``x.dtype``.  Differentiable in x and w (through the backward kernel)
+    when autograd records; serving calls the forward kernel alone."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _RMSNorm.apply(x, w, eps)
     return ops.rmsnorm(x, w, eps=eps)
 
 

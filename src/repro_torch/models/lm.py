@@ -8,6 +8,10 @@ one to one onto the reference's.  A Python loop over the periods replaces
 
 Entry points:
 
+* ``loss_fn``      — the training forward and its cross-entropy
+  (``{"tokens"}`` or ``{"embeds"}`` with ``"labels"``), differentiable in
+  the parameters through the flash and RMSNorm backward kernels, each
+  period rematerialised in the backward when ``parallel.remat``;
 * ``prefill``      — forward over a prompt (``{"tokens"}``, or
   ``{"embeds"}`` for a model that takes embeddings, either with optional
   ``"positions"``); last-position logits and the filled cache;
@@ -16,10 +20,11 @@ Entry points:
 
 Each slot of the pattern has a mixer (GQA or MLA attention, or Mamba) and, unless
 its ``ffn`` is ``"none"`` (Falcon-Mamba), a second norm and a dense MLP; a
-slot's cache is that of its mixer.  Training (``loss_fn``) comes with the
-train slice, MoE FFNs and the unrolled dense prelude (``first_k_dense``)
-with the MoE slice (ROADMAP queue 1 item 7 names the configs still to
-run).
+slot's cache is that of its mixer.  MoE FFNs and the unrolled dense
+prelude (``first_k_dense``) come with the MoE slice (ROADMAP queue 1 item 7
+names the configs still to run); Mamba training with the selective scan's
+backward (queue 1 item 8), MLA training with its flash backward (queue 2
+item 9).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -35,7 +41,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models.params import ParamMeta, init_params, map_tree, torch_dtype
 
-__all__ = ["model_meta", "init_model", "init_cache", "prefill", "decode_step",
+__all__ = ["model_meta", "init_model", "init_cache", "loss_fn", "prefill", "decode_step",
            "check_position"]
 
 
@@ -107,11 +113,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda",
 
 
 def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
-                capacity=None):
+                capacity=None, train=False):
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
         res = attn_mod.attention(cfg, p["mixer"], h, positions, cache=cache,
-                                 cache_pos=cache_pos, capacity=capacity)
+                                 cache_pos=cache_pos, capacity=capacity, train=train)
         mix, new_cache = res.out, res.cache
     else:
         mix, new_cache = mamba_mod.mamba(cfg, p["mixer"], h, cache=cache)
@@ -154,6 +160,47 @@ def _inputs(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, 
         raise ValueError(f"{cfg.name}: positions {tuple(positions.shape)}, want "
                          f"{list(default.shape)}")
     return x, positions.to(x.device)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+    """Cross-entropy training objective of a batch ``{"tokens": [B, S]}``
+    (``[B, S, K]`` for K codebooks) or ``{"embeds": [B, S, D]}``, with
+    ``"labels"`` of the tokens' shape (integers) and optional
+    ``"positions"``.  Returns ``(loss, {"loss", "nll", "aux"})``, float32 0-d
+    tensors: the mean over every label of ``logsumexp(logits) -
+    logits[label]``, the logsumexp in float32 and the label's logit the
+    picked model-dtype element (the reference's one-hot contraction picks
+    exactly it); ``aux`` is 0 (no MoE).  Each period runs under
+    ``torch.utils.checkpoint`` (non-reentrant) when ``parallel.remat``, so
+    the backward recomputes its forward, as the reference's
+    ``jax.checkpoint`` of the period body does."""
+    _check_supported(cfg)
+    if any(s.mixer == "mamba" for s in cfg.layer_pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba training waits for the selective scan's backward kernel "
+            "(ROADMAP queue 1 item 8)")
+    x, positions = _inputs(cfg, params, {k: v for k, v in batch.items() if k != "labels"})
+
+    def period(x: torch.Tensor, pp: dict) -> torch.Tensor:
+        for j, spec in enumerate(cfg.layer_pattern):
+            x, _ = _apply_slot(cfg, spec, pp[f"slot{j}"], x, positions, train=True)
+        return x
+
+    for i in range(cfg.num_periods):
+        pp = _period(params["blocks"], i)
+        if cfg.parallel.remat:
+            x = torch.utils.checkpoint.checkpoint(period, x, pp, use_reentrant=False)
+        else:
+            x = period(x, pp)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    lg = L.logits(cfg, params, x)
+    labels = batch["labels"].to(device=lg.device, dtype=torch.int64)
+    lse = torch.logsumexp(lg.float(), dim=-1)
+    ll = lg.gather(-1, labels[..., None])[..., 0].float()
+    nll = (lse - ll).mean()
+    aux = torch.zeros((), dtype=torch.float32, device=lg.device)
+    loss = nll + aux
+    return loss, {"loss": loss, "nll": nll, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None):

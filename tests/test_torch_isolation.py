@@ -49,8 +49,8 @@ def test_port_imports_nothing_of_jax_or_the_reference(path):
 
 def _entry_points():
     from repro_torch.configs import get_smoke_config
-    from repro_torch.convert import params_from_numpy
-    from repro_torch.launch import ep_dispatch, serve
+    from repro_torch.convert import opt_state_from_numpy, params_from_numpy
+    from repro_torch.launch import ep_dispatch, serve, train
     from repro_torch.models import lm
     from repro_torch.serving.engine import ServeEngine
 
@@ -63,11 +63,14 @@ def _entry_points():
         "params_from_numpy": lambda: params_from_numpy(cfg, {}),
         "serve CLI": lambda: serve.main(["--arch", "yi_6b", "--smoke"]),
         "ep_dispatch CLI": lambda: ep_dispatch.main([]),
+        "train CLI": lambda: train.main(["--arch", "yi_6b", "--smoke", "--steps", "1"]),
+        "opt_state_from_numpy": lambda: opt_state_from_numpy(cfg, {"m": {}, "v": {}}),
     }
 
 
 @pytest.mark.parametrize("name", ["ServeEngine", "lm.init_model", "lm.init_cache",
-                                  "params_from_numpy", "serve CLI", "ep_dispatch CLI"])
+                                  "params_from_numpy", "serve CLI", "ep_dispatch CLI",
+                                  "train CLI", "opt_state_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device is usable")

@@ -18,8 +18,10 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.a2a_pack import a2a_pack_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
 RNG = np.random.RandomState(0)
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
@@ -114,6 +116,52 @@ def test_cpu_calls_run_the_plain_versions_uncounted():
                                ref.flash_attention_ref(q, k, k, group_size=2),
                                rtol=0, atol=0)
     assert (ops.rmsnorm.launches, ops.flash_attention.launches) == before
+
+
+def test_backward_cpu_calls_run_the_plain_versions_uncounted():
+    before = ops.launch_counts()
+    x, w, dy = torch.randn(4, 64), torch.rand(64), torch.randn(4, 64)
+    for a, b in zip(ops.rmsnorm_bwd(x, w, dy), ref.rmsnorm_bwd_ref(x, w, dy)):
+        assert torch.equal(a, b)
+    q, k, v = torch.randn(4, 32, 16), torch.randn(2, 32, 16), torch.randn(2, 32, 16)
+    o, lse = ops.flash_attention(q, k, v, group_size=2, return_lse=True)
+    assert torch.equal(o, ref.flash_attention_ref(q, k, v, group_size=2))
+    do = torch.randn(4, 32, 16)
+    for a, b in zip(ops.flash_attention_bwd(q, k, v, o, lse, do, group_size=2),
+                    ref.flash_attention_bwd_ref(q, k, v, o, lse, do, group_size=2)):
+        assert torch.equal(a, b)
+    assert ops.launch_counts() == before
+
+
+def _bwd_args(BH=4, S=8, hd=16, g=2, dt=torch.bfloat16):
+    q, o, do = (torch.randn(BH, S, hd, dtype=dt) for _ in range(3))
+    k, v = (torch.randn(BH // g, S, hd, dtype=dt) for _ in range(2))
+    return q, k, v, o, torch.zeros(BH, S), do
+
+
+@pytest.mark.parametrize("call,err", [
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(), group_size=2), "one CUDA device"),
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(hd=64), group_size=2), "queue 2 item 9"),
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(dt=torch.float32), group_size=2), "bfloat16"),
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(), group_size=4), "group_size=4"),
+    (lambda: flash_attention_bwd_cuda(*_bwd_args()[:4], torch.zeros(4, 8, dtype=torch.bfloat16),
+                                      _bwd_args()[5], group_size=2), "lse"),
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(), group_size=2, window=0), "window"),
+    (lambda: flash_attention_cuda(*(torch.randn(2, 8, 64, dtype=torch.bfloat16),) * 3,
+                                  group_size=1, return_lse=True), "queue 2 item 9"),
+    (lambda: rmsnorm_bwd_cuda(torch.randn(4, 64), torch.rand(64), torch.randn(4, 64)),
+     "one CUDA device"),
+    (lambda: rmsnorm_bwd_cuda(torch.randn(4, 60), torch.rand(60), torch.randn(4, 60)),
+     "multiple of 8"),
+    (lambda: rmsnorm_bwd_cuda(torch.randn(4, 64), torch.rand(64), torch.randn(4, 64).bfloat16()),
+     "all float32"),
+    (lambda: rmsnorm_bwd_cuda(torch.randn(4, 64), torch.rand(64), torch.randn(4, 32)), "dy"),
+    (lambda: rmsnorm_bwd_cuda(torch.randn(1, 8200), torch.rand(8200), torch.randn(1, 8200)),
+     "wider"),
+])
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(call, err):
+    with pytest.raises((ValueError, TypeError), match=err):
+        call()
 
 
 def test_mamba_scan_cpu_call_runs_the_plain_version_uncounted():
@@ -371,6 +419,103 @@ def test_a2a_pack_wrapper_refuses_a_strided_card_tensor(cuda):
         a2a_pack_cuda(x.transpose(0, 1))
 
 
+# The training path's kernels: the forward's lse, the flash backward and the
+# RMSNorm backward, against their plain versions (bf16 at 2e-2, lse and
+# delta at 1e-5).
+
+FLASH_BWD_CASES = [  # BH, S, hd, g, window
+    (32, 512, 128, 8, None),   # yi's 32 heads over 4, one sequence
+    (16, 300, 128, 8, None),   # ragged
+    (16, 512, 128, 8, 100),    # a window edge inside a 64-row tile
+    (32, 256, 16, 4, None),    # yi smoke's head dim
+    (8, 77, 16, 2, 24),        # ragged, windowed
+    (4, 2, 128, 1, None),      # two tokens
+]
+
+
+def _bwd_err(got, want) -> float:
+    """The largest of dq's ``ref.dq_scaled_err`` and dk's and dv's
+    ``ref.scaled_err``: a causal first row's dq is 0 in exact arithmetic."""
+    return max(ref.dq_scaled_err(got[0], want[0]),
+               *(ref.scaled_err(a, b) for a, b in zip(got[1:], want[1:])))
+
+
+def _flash_train_inputs(dev, BH, S, hd, g):
+    q, do = (_card(RNG.randn(BH, S, hd).astype(np.float32), dev) for _ in range(2))
+    k, v = (_card(RNG.randn(BH // g, S, hd).astype(np.float32), dev) for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,hd,g,win", FLASH_BWD_CASES)
+def test_flash_attention_lse_on_card(cuda, BH, S, hd, g, win):
+    """The training forward's output equals the serving instance's bit for
+    bit, and its lse matches the plain version's at 1e-5."""
+    q, k, v, _ = _flash_train_inputs(cuda, BH, S, hd, g)
+    kw = dict(group_size=g, causal=True, window=win)
+    n0 = ops.flash_attention.launches
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == n0 + 1
+    assert lse.shape == (BH, S) and lse.dtype == torch.float32
+    want, want_lse = ref.flash_attention_ref(q.float(), k.float(), v.float(), return_lse=True,
+                                             **kw)
+    assert ref.scaled_err(out, want) <= TOL["bfloat16"]
+    assert ref.scaled_err(lse, want_lse) <= TOL["float32"]
+    assert torch.equal(out, ops.flash_attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BH,S,hd,g,win", FLASH_BWD_CASES)
+def test_flash_attention_backward_on_card(cuda, BH, S, hd, g, win):
+    """dq, dk and dv against the plain version (2e-2; dq's first row at its
+    head's scale, ``ref.dq_scaled_err``), delta at 1e-5, and the same bits
+    from a second call (no atomics)."""
+    q, k, v, do = _flash_train_inputs(cuda, BH, S, hd, g)
+    kw = dict(group_size=g, causal=True, window=win)
+    o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    n0 = ops.flash_attention_bwd.launches
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert ops.flash_attention_bwd.launches == n0 + 1
+    want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                                       do.float(), **kw)
+    assert all(a.shape == b.shape and a.dtype == torch.bfloat16 for a, b in zip(got, want))
+    assert _bwd_err(got, want) <= TOL["bfloat16"]
+    *again, delta = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert ref.scaled_err(delta, (do.float() * o.float()).sum(-1)) <= TOL["float32"]
+
+
+RMSNORM_BWD_CASES = [  # T, d, dtype
+    (2048, 4096, torch.bfloat16),  # yi's width at a microbatch of 2048 tokens
+    (2049, 4096, torch.bfloat16),  # ragged
+    (2048, 64, torch.bfloat16),    # the smoke configs' width
+    (3, 8, torch.bfloat16),
+    (100, 96, torch.float32),
+    (5, 4104, torch.bfloat16),     # 513 vectors: no warp filled evenly
+    (5, 4000, torch.float32),      # 1000 vectors
+    (1, 8192, torch.bfloat16),     # the widest the kernel takes
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d,dt", RMSNORM_BWD_CASES)
+def test_rmsnorm_backward_on_card(cuda, T, d, dt):
+    x = _card(RNG.randn(T, d).astype(np.float32), cuda, dt)
+    w = _card(RNG.rand(d).astype(np.float32) + 0.5, cuda, dt)
+    dy = _card(RNG.randn(T, d).astype(np.float32), cuda, dt)
+    n0 = ops.rmsnorm_bwd.launches
+    dx, dw = ops.rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm_bwd.launches == n0 + 1 and dx.dtype == dw.dtype == dt
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x.float(), w.float(), dy.float())
+    tol = TOL["bfloat16"] if dt == torch.bfloat16 else TOL["float32"]
+    assert ref.scaled_err(dx, want_dx) <= tol
+    assert ref.scaled_err(dw, want_dw) <= tol
+    assert all(torch.equal(a, b) for a, b in zip((dx, dw), rmsnorm_bwd_cuda(x, w, dy)))
+
+
 # Faults planted in copies of the kernels' sources, each of a kind a kernel
 # like these can ship with: the check above must refuse every one of them at
 # the serving shapes, where the sound kernels pass it.
@@ -396,6 +541,15 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "flash_mla_last_v_column_block_unwritten": (
         "flash_attention", "for (int nb = 0; nb < HDV / 8; ++nb)",
         "for (int nb = 0; nb < (HDQK != HDV ? HDV / 8 - 2 : HDV / 8); ++nb)"),
+    "flash_bwd_delta_dropped": (
+        "flash_attention_bwd", "if (row < rows && lane % LPR == 0) delta[row] = s;  // rowsum(dO * O)",
+        "if (row < rows && lane % LPR == 0) delta[row] = 0.f;"),
+    "flash_bwd_dkdv_over_one_head_of_the_group": (
+        "flash_attention_bwd", "const int n_it = group * nqt;  // every head of the group, every q tile",
+        "const int n_it = nqt;"),
+    "flash_bwd_diagonal_tile_unmasked": (
+        "flash_attention_bwd", "const bool edge = q0 + BN > S || (causal && q0 < k0 + BM) ||",
+        "const bool edge = q0 + BN > S ||"),
     "rmsnorm_last_row_not_prefetched": (
         "rmsnorm", "if (next < T_rows) load(nxt, (int)next);  // in flight while this row reduces",
         "if (next < T_rows - 1) load(nxt, (int)next);"),
@@ -493,6 +647,12 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         call = lambda: mamba_scan_cuda(a, b, c)[0]  # noqa: E731
         want = ref.mamba_scan_ref(a, b, c)[0]
         tol = TOL["float32"]
+    elif kernel == "flash_attention_bwd":  # yi's heads, one sequence; dq, dk and dv
+        q, k, v, do = _flash_train_inputs(cuda, 32, 512, 128, 8)
+        o, lse = flash_attention_cuda(q, k, v, group_size=8, return_lse=True)
+        call = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, group_size=8)[:3]  # noqa: E731
+        want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                                           do.float(), group_size=8)
     else:  # yi's prefill; the hd faults at h2o-danube's, gemma's and minicpm3's
         n, g, hd, hdv = ((128, 4, 120, 120) if "hd120" in fault else
                          (64, 1, 256, 256) if "hd256" in fault else
@@ -509,9 +669,14 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
                         build.load(faulty_libraries[fault], module._SIGNATURES))
     faulty = call()
     torch.cuda.synchronize()
-    errs = {name: (ref.scaled_err(out, want),
-                   ((out.float() - want).abs().max() / want.abs().max()).item())
-            for name, out in (("sound", sound), ("faulty", faulty))}
+    if kernel == "flash_attention_bwd":  # three outputs, and the error over the largest value
+        errs = {name: (_bwd_err(out, want), max(((a.float() - b).abs().max() / b.abs().max())
+                                                .item() for a, b in zip(out, want)))
+                for name, out in (("sound", sound), ("faulty", faulty))}
+    else:
+        errs = {name: (ref.scaled_err(out, want),
+                       ((out.float() - want).abs().max() / want.abs().max()).item())
+                for name, out in (("sound", sound), ("faulty", faulty))}
     print(f"\n[planted] {fault}: scaled err sound {errs['sound'][0]:.6g}, faulty "
           f"{errs['faulty'][0]:.6g} (tol {tol}); error over the largest "
           f"value: sound {errs['sound'][1]:.6g}, faulty {errs['faulty'][1]:.6g}")

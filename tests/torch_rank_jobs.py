@@ -139,3 +139,46 @@ def sleep(seconds: float) -> None:
     import time
 
     time.sleep(seconds)
+
+
+def train_step_ranks(pods: int, lanes: int, arch: str, params_npz: str, batch: int, seq: int,
+                     lr: float, warmup: int) -> dict:
+    """One train step of the float32 smoke config of ``arch`` on this rank's
+    share of ``make_batch(seed=0, step=0)`` (rank ``r`` holds rows ``r *
+    batch / world`` on, as under ``P(("pod", "data"))``), from the
+    parameters in ``params_npz`` (by "/"-joined key), with the gradients
+    synced over the (pods, lanes) mesh by each backend.  Returns, by
+    backend, the synced gradients and the updated parameters (by key) and
+    the metrics."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.groups import Mesh2D
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import batch_to, grad_and_metrics, make_train_step, sync
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    mesh = Mesh2D(pods, lanes)
+    me, per = mesh.world.index, batch // mesh.world.size
+    mine = {k: v[me * per:(me + 1) * per]
+            for k, v in make_batch(cfg, batch, seq, seed=0, step=0).items()}
+    saved = np.load(params_npz)
+    opt_cfg = OptConfig(learning_rate=lr, warmup_steps=warmup)
+    out = {}
+    for backend in ("xla", "fulllane"):
+        params = map_tree(lambda path, _: torch.from_numpy(saved[path].copy()),
+                          lm.model_meta(cfg))
+        axes = (mesh.pod, mesh.lane)
+        grads, _ = sync(*grad_and_metrics(cfg, params, batch_to(mine, "cpu")), axes, backend)
+        step = make_train_step(cfg, opt_cfg, axes=axes, backend=backend)
+        params, _, metrics = step(params, init_opt_state(params, opt_cfg), mine)
+        flat = {"grads": {}, "params": {}}
+        map_tree(lambda path, t: flat["grads"].__setitem__(path, t), grads)
+        map_tree(lambda path, t: flat["params"].__setitem__(path, t), params)
+        out[backend] = {**flat, "metrics": {k: float(v) for k, v in metrics.items()}}
+    return out
