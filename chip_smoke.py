@@ -73,11 +73,12 @@ Phases, each reported on its own lines:
    2048, 128], kv [4, 2048, 128], g = 8, causal), a ragged S = 300, a
    window of 100 and the smoke head dim 16 (dq, dk, dv at 2e-2 in
    ``ref.scaled_err``, dq's first row in ``ref.dq_scaled_err``; lse and
-   delta at 1e-5), faults planted in copies of the backward's source (delta
-   dropped, dK/dV summed over one head of the group, the diagonal tile
-   unmasked) must each fail that check; the RMSNorm backward at x [2048,
-   4096], a ragged T = 2049 and the smoke width 64; each timed as in phase
-   3, beside its plain version and SDPA's (or ``F.rms_norm``'s) backward
+   delta at 1e-5; a second call of the backward to the same bits), faults
+   planted in copies of the backward's source (delta dropped, dK/dV summed
+   over one head of the group, the diagonal tile unmasked, the last head
+   slice's dK/dV partial left out of their sum) must each fail that check;
+   the RMSNorm backward at x [2048, 4096], a ragged T = 2049 and the smoke
+   width 64; each timed as in phase 3, beside its plain version and SDPA's (or ``F.rms_norm``'s) backward
    through autograd (the forward and backward less the forward).  (b) One
    train step of Yi-6B at full width and 2 layers through the kernels and
    the same step through their plain versions, from the same parameters and
@@ -178,11 +179,14 @@ FLASH_BWD_FAULTS = {
         "if (row < rows && lane % LPR == 0) delta[row] = s;  // rowsum(dO * O)",
         "if (row < rows && lane % LPR == 0) delta[row] = 0.f;", "yi train"),
     "dkdv_over_one_head_of_the_group": (
-        "const int n_it = group * nqt;  // every head of the group, every q tile",
-        "const int n_it = nqt;", "yi train"),
+        "const int bh = bkv * group + h0 + it / nqt;",
+        "const int bh = bkv * group + it / nqt;", "yi train"),
     "diagonal_tile_unmasked": (
         "const bool edge = q0 + BN > S || (causal && q0 < k0 + BM) ||",
         "const bool edge = q0 + BN > S ||", "yi train"),
+    "last_partial_dropped": (
+        "for (int j = 1; j < slices; ++j) {  // the partials in slice order",
+        "for (int j = 1; j < slices - 1; ++j) {", "yi train"),
 }
 #: every planted fault, by the kernel whose source it is planted in
 PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS,
@@ -1407,6 +1411,10 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
             tol = TOL_F32 if name in ("lse", "delta") else TOL_BF16
             if not err <= tol:
                 raise AssertionError(f"flash training {label}: {name} scaled err {err} > {tol}")
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):  # no atomics: the same bits
+            raise AssertionError(f"flash training {label}: two backward calls differ")
+        del again
         planted = {}
         for name in faults.get(label, []):
             saved = build._LIBS["flash_attention_bwd"]

@@ -36,6 +36,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
+from turns import ptxas  # noqa: E402
 
 
 #: the C interface before the value head dim was an argument of its own
@@ -68,17 +69,12 @@ def _ptxas(log: str) -> dict:
     """By (q/k, v) head dims: registers and (spill store, spill load) bytes,
     from ``-Xptxas -v``, of the serving instances; a kernel of one head dim
     has both equal."""
-    out, hd = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '.*kernelILi(\d+)E(?:Li(\d+)E)?(Lb1E)?", ln)
-        if m:  # the training instances (lse written, ``Lb1E``) are not timed here
-            hd = None if m.group(3) else (int(m.group(1)), int(m.group(2) or m.group(1)))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and hd is not None:
-            out.setdefault(hd, {})["spill"] = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and hd is not None:
-            out.setdefault(hd, {})["regs"] = int(m.group(1))
+    out = {}
+    for e in ptxas(log):
+        m = re.search(r"kernelILi(\d+)E(?:Li(\d+)E)?(Lb1E)?", e["entry"])
+        if m and not m.group(3):  # the training instances (lse written) are not timed here
+            hd = (int(m.group(1)), int(m.group(2) or m.group(1)))
+            out[hd] = {"spill": tuple(e.get("spill", (0, 0))), "regs": e.get("regs")}
     return out
 
 

@@ -39,33 +39,23 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
+from turns import ptxas, stats  # noqa: E402
 
 #: prefill 4 x 512 tokens; decode 4 tokens; prefill at DeepSeek-V2's width
 SHAPES = ((2048, 4096), (4, 4096), (2048, 5120))
 LIB = "F.rms_norm"
 
 
-def _ptxas(log: str) -> list[dict]:
-    """Each compiled kernel's registers, spill bytes and static shared
-    memory, from ``-Xptxas -v``."""
+def _kernels(log: str) -> list[dict]:
+    """Each kernel of a build, labelled by its instance (``rows<bf16,VPT=4>``,
+    ``general<f32>``), with its ``ptxas`` reading."""
     out = []
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            name = m.group(1)
-            dt = "bf16" if "bfloat16" in name else "f32"
-            k = re.search(r"rmsnorm_rowsI\w+?Li(\d+)EE", name)
-            label = (f"rows<{dt},VPT={k.group(1)}>" if k else
-                     f"general<{dt}>" if "general" in name else name)
-            out.append({"kernel": label})
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
-        if m and out:
-            out[-1]["spill"] = [int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and out:
-            out[-1]["regs"] = int(m.group(1))
-            s = re.search(r"(\d+) bytes smem", ln)
-            out[-1]["smem"] = int(s.group(1)) if s else 0
+    for e in ptxas(log):
+        name = e.pop("entry")
+        dt = "bf16" if "bfloat16" in name else "f32"
+        k = re.search(r"rmsnorm_rowsI\w+?Li(\d+)EE", name)
+        out.append({"kernel": f"rows<{dt},VPT={k.group(1)}>" if k else
+                    f"general<{dt}>" if "general" in name else name, **e})
     return out
 
 
@@ -118,7 +108,7 @@ def main(argv=None) -> int:
     build.compile_sources(jobs)
     record = {"card": smi, "builds": {}, "shapes": {}}
     for name in jobs:
-        info = _ptxas(build.BUILD_LOG[name])
+        info = _kernels(build.BUILD_LOG[name])
         record["builds"][name] = info
         regs = max((k.get("regs", 0) for k in info), default=0)
         spills = sum(sum(k.get("spill", [0, 0])) for k in info)
@@ -162,10 +152,7 @@ def main(argv=None) -> int:
         for temp in ("cold", "warm"):
             if not readings["new", temp]:
                 continue
-            rec[temp] = {side: {"ms": readings[side, temp],
-                                "median": statistics.median(readings[side, temp]),
-                                "spread": max(readings[side, temp]) - min(readings[side, temp])}
-                         for side in sides}
+            rec[temp] = {side: stats(readings[side, temp]) for side in sides}
             for side in sides:
                 r = rec[temp][side]
                 print(f"[rmsnorm turns] {shape} {temp}: {side:24s} median {r['median']:.6f} ms, "

@@ -6,15 +6,17 @@ whose chunked loops XLA compiles: the reference has no Pallas kernel for
 the backward): from q, k, v, the forward's output and per-row logsumexp
 and the output's cotangent, the three gradients, dK and dV summed over the
 ``group_size`` q heads of each kv head.  On the H100 it is bound by the
-tensor cores.  The kernel is three launches: a ``delta = rowsum(dO * O)``
-pre-pass, one CTA per (kv row, 64-key tile) that walks the group's heads
-and q tiles with dK and dV in registers (no atomics, so the result is the
-same from run to run), and one CTA per (q row, 64-row q tile) for dQ (see
-the source).
+tensor cores, and its products run on ``wgmma``.  The kernel is a
+``delta = rowsum(dO * O)`` pre-pass; one CTA per (kv row, 64-key tile,
+slice of the group's q heads) with dK and dV in registers, whose fp32
+partials a second launch sums in slice order into bf16; and
+one CTA per (q row, 64-row q tile) for dQ (see the source).  No atomics, so
+the result is the same from run to run.
 
 The wrapper checks shapes, dtypes, device, contiguity and alignment, and
 raises on anything the kernel does not take; it allocates the outputs and
-the delta workspace and launches on PyTorch's current stream.  Its plain
+delta and the workspace of the partials (the size the library states) and
+launches on PyTorch's current stream.  Its plain
 version is ``ref.flash_attention_bwd_ref``; ``ops.flash_attention_bwd``
 chooses between them by device.
 """
@@ -34,10 +36,11 @@ __all__ = ["flash_attention_bwd_cuda"]
 _MAX_BH = 65535  # the C interface's limit
 _SIGNATURES = {
     "flash_attention_bwd_launch": (ctypes.c_int, [
-        *[ctypes.c_void_p] * 10,
+        *[ctypes.c_void_p] * 11,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]),
+    "flash_attention_bwd_workspace_bytes": (ctypes.c_longlong, [ctypes.c_int] * 4),
     "flash_attention_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -94,9 +97,11 @@ def flash_attention_bwd_cuda(
     lib = build.library("flash_attention_bwd", _SIGNATURES)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(BH, S, dtype=torch.float32, device=q.device)
+    work = torch.empty(lib.flash_attention_bwd_workspace_bytes(BH, S, hd, group_size) // 4,
+                       dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         code = lib.flash_attention_bwd_launch(
-            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta)),
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta, work)),
             BH, S, hd, group_size, int(causal), 0 if window is None else int(window),
             float(scale), torch.cuda.current_stream().cuda_stream)
     if code:

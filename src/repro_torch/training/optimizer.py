@@ -8,8 +8,10 @@ the parameters to theirs.  Plain PyTorch (the reference has no kernel
 here).  Unlike the reference's pure function it updates the parameters and
 moments in place, leaf by leaf and in slices of the leading dim, so a
 full-width update needs float32 temporaries of one slice rather than of the
-whole tree; every operation is elementwise, so the slices change no value.
-ZeRO-1 sharding of the moments has no one-GPU counterpart.
+whole tree.  The slices change no value: the update is elementwise, and the
+global norm sums each row of the leading dim on its own (a slice holds whole
+rows) before one sum over all rows of all leaves.  ZeRO-1 sharding of the
+moments has no one-GPU counterpart.
 """
 
 from __future__ import annotations
@@ -70,13 +72,20 @@ def init_opt_state(params: dict, cfg: OptConfig) -> dict:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's float32 sum of squares, summed leaf
-    by leaf in the reference's order; a float32 0-d tensor."""
-    total = None
+    """sqrt of the float32 sum of squares of every leaf; a float32 0-d
+    tensor.  Each row of a leaf's leading dim (each element of a 1-d leaf,
+    a 0-d leaf whole) is summed on its own, then all rows of all leaves, in
+    the reference's leaf order, in one sum.  So the value does not depend
+    on how ``_SLICE`` cuts a leaf, as long as a row's sum has the same bits
+    however many rows the call holds.  PyTorch does not promise that; the
+    tests check it on the CPU and, on the card, at Yi's embedding and at a
+    stacked [4, 4096, 11008] leaf in one-row slices."""
+    rows = []
     for leaf in leaves(tree):
-        sq = sum(s.float().square().sum() for (s,) in _slices(leaf))
-        total = sq if total is None else total + sq
-    return torch.sqrt(total)
+        for (s,) in _slices(leaf):
+            sq = s.float().square()
+            rows.append(sq.reshape(1) if s.dim() == 0 else sq.reshape(s.shape[0], -1).sum(1))
+    return torch.sqrt(torch.cat(rows).sum())
 
 
 def _schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:

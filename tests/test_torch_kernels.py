@@ -430,6 +430,8 @@ FLASH_BWD_CASES = [  # BH, S, hd, g, window
     (32, 256, 16, 4, None),    # yi smoke's head dim
     (8, 77, 16, 2, 24),        # ragged, windowed
     (4, 2, 128, 1, None),      # two tokens
+    (32, 2048, 128, 8, None),  # yi's training shape: one 2048-token sequence
+    (28, 512, 128, 7, None),   # qwen2-vl's group of 7
 ]
 
 
@@ -545,11 +547,14 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "flash_attention_bwd", "if (row < rows && lane % LPR == 0) delta[row] = s;  // rowsum(dO * O)",
         "if (row < rows && lane % LPR == 0) delta[row] = 0.f;"),
     "flash_bwd_dkdv_over_one_head_of_the_group": (
-        "flash_attention_bwd", "const int n_it = group * nqt;  // every head of the group, every q tile",
-        "const int n_it = nqt;"),
+        "flash_attention_bwd", "const int bh = bkv * group + h0 + it / nqt;",
+        "const int bh = bkv * group + it / nqt;"),
     "flash_bwd_diagonal_tile_unmasked": (
         "flash_attention_bwd", "const bool edge = q0 + BN > S || (causal && q0 < k0 + BM) ||",
         "const bool edge = q0 + BN > S ||"),
+    "flash_bwd_last_partial_dropped": (
+        "flash_attention_bwd", "for (int j = 1; j < slices; ++j) {  // the partials in slice order",
+        "for (int j = 1; j < slices - 1; ++j) {"),
     "rmsnorm_last_row_not_prefetched": (
         "rmsnorm", "if (next < T_rows) load(nxt, (int)next);  // in flight while this row reduces",
         "if (next < T_rows - 1) load(nxt, (int)next);"),

@@ -74,15 +74,64 @@ def test_adamw_matches_the_reference(moment_dtype, clip):
         assert float(tinfo["grad_norm"]) > 10  # the clip was on
 
 
-def test_updates_in_slices_match_one_update(monkeypatch):
-    """The update is elementwise: slicing a leaf along its leading dim (as
-    a full-width leaf is) changes no value."""
+def _whole_and_sliced(monkeypatch, shape, dtype, seed, device, slice_elems):
+    """One AdamW update of a [shape] leaf taken whole and taken in slices of
+    ``slice_elems`` elements, from the same seeded parameters and gradient."""
+    gen = torch.Generator(device=device).manual_seed(seed)
     cfg = opt.OptConfig(learning_rate=1e-2, warmup_steps=1)
-    p = {"w": torch.randn(6, 5, 7)}
-    g = {"w": torch.randn(6, 5, 7)}
+    p = {"w": torch.randn(shape, generator=gen, device=device).to(dtype)}
+    g = {"w": torch.randn(shape, generator=gen, device=device).to(dtype)}
+    monkeypatch.setattr(opt, "_SLICE", p["w"].numel())  # the leaf in one slice
     whole = opt.adamw_update(g, opt.init_opt_state(p, cfg), {"w": p["w"].clone()}, cfg)
-    monkeypatch.setattr(opt, "_SLICE", 35)  # one [5, 7] slice at a time
+    monkeypatch.setattr(opt, "_SLICE", slice_elems)
     sliced = opt.adamw_update(g, opt.init_opt_state(p, cfg), {"w": p["w"].clone()}, cfg)
+    return whole, sliced
+
+
+def _assert_same_update(whole, sliced):
+    assert torch.equal(whole[2]["grad_norm"], sliced[2]["grad_norm"])
     assert torch.equal(whole[0]["w"], sliced[0]["w"])
     assert torch.equal(whole[1]["m"]["w"], sliced[1]["m"]["w"])
     assert torch.equal(whole[1]["v"]["w"], sliced[1]["v"]["w"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4])
+def test_updates_in_slices_match_one_update(monkeypatch, seed):
+    """Slicing a leaf along its leading dim (as a full-width leaf is)
+    changes no value: the update is elementwise, and the global norm (and
+    with it the clip) sums rows before it sums slices."""
+    _assert_same_update(*_whole_and_sliced(monkeypatch, (6, 5, 7), torch.float32, seed, "cpu",
+                                           35))  # one [5, 7] slice at a time
+
+
+@pytest.mark.parametrize("shape, slice_elems", [
+    ((3, 5000), 5000),          # one row a slice
+    ((4, 3, 4096), 2 * 4096),   # two rows of a 3-d leaf a slice
+    ((2, 2, 3), 3),             # short rows
+    ((9000,), 1000),            # a 1-d leaf: each element a row
+])
+def test_norm_in_slices_matches_one_norm(monkeypatch, shape, slice_elems):
+    """The global norm of a leaf taken whole and in slices has the same
+    bits, for leaves of 1 to 3 dims, and agrees with float64's to 1e-6."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)) * 3
+    monkeypatch.setattr(opt, "_SLICE", x.numel())
+    whole = opt.global_norm({"w": x})
+    monkeypatch.setattr(opt, "_SLICE", slice_elems)
+    assert len(list(opt._slices(x))) > 1
+    assert torch.equal(opt.global_norm({"w": x}), whole)
+    np.testing.assert_allclose(float(whole), np.linalg.norm(x.double().numpy()), rtol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, dtype, slice_elems", [
+    ((64000, 4096), torch.bfloat16, opt._SLICE),  # Yi's embedding, at the module's slice size
+    ((4, 4096, 11008), torch.float32, 4096 * 11008),  # a stacked MLP leaf, one row a slice
+])
+def test_updates_in_slices_match_one_update_on_card(monkeypatch, shape, dtype, slice_elems):
+    """The same on the card, at Yi's embedding and at a stacked MLP leaf of
+    Yi's widths cut into one 45M-element row a slice (as ``_SLICE`` cuts
+    Yi's [L, 4096, 11008] leaves): there a library's reduction of a long
+    row may split it across CTAs by the number of rows in the call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    _assert_same_update(*_whole_and_sliced(monkeypatch, shape, dtype, 0, "cuda", slice_elems))
