@@ -77,8 +77,15 @@ Phases, each reported on its own lines:
    planted in copies of the backward's source (delta dropped, dK/dV summed
    over one head of the group, the diagonal tile unmasked, the last head
    slice's dK/dV partial left out of their sum) must each fail that check;
-   the RMSNorm backward at x [2048, 4096], a ragged T = 2049 and the smoke
-   width 64; each timed as in phase 3, beside its plain version and SDPA's (or ``F.rms_norm``'s) backward
+   the RMSNorm backward (one launch: dw summed in it after a grid-wide
+   barrier) at x [2048, 4096], a ragged T = 2049, the smoke width 64 and
+   every other config's widths at T = 2048 (3840, 3072, 2048, 2560, 768,
+   256, 3584), with a second call to the same bits and faults planted in
+   copies of its source (the last partial row left out of the dw sum, the
+   last row's prefetch dropped, a narrow row's shuffle reaching the next
+   row's lanes, the last row team left out of the CTA's dw row), which
+   must each fail that check; each timed as in phase 3, beside its plain
+   version and SDPA's (or ``F.rms_norm``'s) backward
    through autograd (the forward and backward less the forward).  (b) One
    train step of Yi-6B at full width and 2 layers through the kernels and
    the same step through their plain versions, from the same parameters and
@@ -188,9 +195,26 @@ FLASH_BWD_FAULTS = {
         "for (int j = 1; j < slices; ++j) {  // the partials in slice order",
         "for (int j = 1; j < slices - 1; ++j) {", "yi train"),
 }
+#: faults planted in copies of ``csrc/rmsnorm_bwd.cu`` (name: sound line,
+#: faulty line, phase-8 shape it is checked at): each must fail that shape's
+#: check.  ``tests/test_torch_kernels.py`` plants the same.
+RMSNORM_BWD_FAULTS = {
+    "last_partial_row_left_out": (
+        "const int r1 = min(r0 + chunk, rows);  // this thread's share of the partial rows",
+        "const int r1 = min(r0 + chunk, rows - 1);", (2049, 4096)),
+    "last_row_not_prefetched": (
+        "if (next < T_rows) copy_row((it + kDepth) % S, (int)next);  // in flight while this row reduces",
+        "if (next < T_rows - 1) copy_row((it + kDepth) % S, (int)next);", (2049, 4096)),
+    "segment_shuffle_reaches_the_next_row": (
+        "for (int off = L >> 1; off > 0; off >>= 1) {  // inside the row's segment",
+        "for (int off = L; off > 0; off >>= 1) {", (2048, 64)),
+    "last_team_left_out_of_the_cta_row": (
+        "for (int u = 0; u < units; ++u) s += smem[(size_t)u * d + c];  // in unit order",
+        "for (int u = 0; u < units - 1; ++u) s += smem[(size_t)u * d + c];", (2049, 4096)),
+}
 #: every planted fault, by the kernel whose source it is planted in
 PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS,
-           "flash_attention_bwd": FLASH_BWD_FAULTS}
+           "flash_attention_bwd": FLASH_BWD_FAULTS, "rmsnorm_bwd": RMSNORM_BWD_FAULTS}
 #: phase 8's attention cases: (label, BH, g, S, hd, window): one 2048-token
 #: sequence of Yi's 32 heads over 4 (a microbatch of the train step), a
 #: ragged S, a window edge inside a 64-row tile, the smoke configs' head dim
@@ -200,8 +224,11 @@ TRAIN_FLASH_SPECS = [
     ("window 100", 32, 8, 512, 128, 100),
     ("hd 16 (smoke)", 16, 4, 128, 16, None),
 ]
-#: phase 8's RMSNorm backward shapes: Yi's microbatch, ragged, the smoke width
-TRAIN_RMSNORM_SPECS = [(2048, 4096), (2049, 4096), (2048, 64)]
+#: phase 8's RMSNorm backward shapes: Yi's microbatch, ragged, the smoke width,
+#: then every other config's widths at a microbatch of 2048 tokens (Danube,
+#: Gemma, MusicGen, MiniCPM3's hidden, q_norm and kv_norm, Qwen2-VL)
+TRAIN_RMSNORM_SPECS = [(2048, 4096), (2049, 4096), (2048, 64), (2048, 3840), (2048, 3072),
+                       (2048, 2048), (2048, 2560), (2048, 768), (2048, 256), (2048, 3584)]
 #: phase 8's full-width run: Yi-6B at 16 of its 32 layers (the state of all
 #: 32 would not fit one card), the config's own batch, microbatches and remat
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 8, 2048, 6
@@ -1465,15 +1492,21 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
     return fwd_cases, bwd_cases
 
 
-def rmsnorm_train_cases(gen) -> list:
+def rmsnorm_train_cases(gen, fault_libs) -> list:
     """Phase 8 (a): the RMSNorm backward against its plain version at
-    ``TRAIN_RMSNORM_SPECS``, bf16."""
+    ``TRAIN_RMSNORM_SPECS``, bf16, a second call to the same bits, and every
+    planted fault of ``RMSNORM_BWD_FAULTS``."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import build
+    from repro_torch.kernels import rmsnorm_bwd as rb_mod
     from repro_torch.kernels.ref import rmsnorm_bwd_ref, scaled_err
     from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
+    faults = {}
+    for name, (_, _, shape) in RMSNORM_BWD_FAULTS.items():
+        faults.setdefault(shape, []).append(name)
     cases = []
     for T, d in TRAIN_RMSNORM_SPECS:
         x, dy = (torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1485,6 +1518,24 @@ def rmsnorm_train_cases(gen) -> list:
         err = max(scaled_err(dx, want_dx), scaled_err(dw, want_dw))
         if not err <= TOL_BF16:
             raise AssertionError(f"rmsnorm_bwd [{T},{d}]: scaled err {err} > {TOL_BF16}")
+        if not all(torch.equal(a, b) for a, b in zip((dx, dw), rmsnorm_bwd_cuda(x, w, dy))):
+            raise AssertionError(f"rmsnorm_bwd [{T},{d}]: two calls differ")
+        planted = {}
+        for name in faults.get((T, d), []):
+            saved = build._LIBS["rmsnorm_bwd"]
+            try:
+                build._LIBS["rmsnorm_bwd"] = build.load(fault_libs[name], rb_mod._SIGNATURES)
+                f_dx, f_dw = rmsnorm_bwd_cuda(x, w, dy)
+                torch.cuda.synchronize()
+            finally:
+                build._LIBS["rmsnorm_bwd"] = saved
+            f_err = max(scaled_err(f_dx, want_dx), scaled_err(f_dw, want_dw))
+            print(f"[kernel] rmsnorm_bwd planted fault {name} at [{T},{d}]: scaled err "
+                  f"{f_err:.6g} (sound {err:.6g}, tol {TOL_BF16})")
+            if f_err <= TOL_BF16:  # a faulty output of NaNs fails the check too
+                raise AssertionError(f"planted fault {name} passed the check: {f_err}")
+            planted[name] = f_err if math.isfinite(f_err) else str(f_err)
+            del f_dx, f_dw
 
         def lib_fwd(x, w, d=d):
             return F.rms_norm(x, (d,), w, 1e-6)
@@ -1499,6 +1550,8 @@ def rmsnorm_train_cases(gen) -> list:
             "bound_bytes_ms": (3 * T * d + 2 * d) * 2 / PEAK_BYTES_PER_S * 1e3,
             "bound_ops_ms": 10 * T * d / PEAK_FP32_FLOPS * 1e3,
         }
+        if planted:
+            case["planted_fault_scaled_err"] = planted
         _less_forward(case, _ms(lib_fwd, (x, w), iters=100))
         cases.append(case)
         del x, dy, w, dx, dw
@@ -1793,7 +1846,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fwd_train, bwd_train = flash_train_cases(gen, fault_libs)
-    rms_train = rmsnorm_train_cases(gen)
+    rms_train = rmsnorm_train_cases(gen, fault_libs)
     for name, cases in (("flash_attention (training forward)", fwd_train),
                         ("flash_attention_bwd", bwd_train), ("rmsnorm_bwd", rms_train)):
         _print_cases(name, cases, TOL_BF16)

@@ -5,14 +5,21 @@ Computes what ``jax.grad`` of the reference's ``rms_norm``
 ``rmsnorm_pallas``'s function: with ``r = rsqrt(mean(x^2) + eps)``, ``dx =
 r * (w * dy) - x * r^3 * mean(x * w * dy)`` and ``dw = sum over rows of dy *
 (x * r)``.  On the H100 it is bound by bytes (x and dy read, dx written,
-each once).  The kernel walks the rows on a persistent grid, keeps each
-CTA's fp32 share of dw in registers and writes it to a workspace that a
-second launch of the same source sums in a fixed order (see the source).
+each once).  It is one launch: teams of lanes walk the rows on a persistent
+grid with a ring of rows in flight (narrow rows several a warp), each CTA
+writes its fp32 share of dw to a workspace row, and after a grid-wide
+barrier the CTAs sum the workspace's column stripes in a fixed order (see
+the source).
 
 The wrapper checks shapes, dtypes, device, contiguity and alignment, and
-raises on anything the kernel does not take; it allocates the outputs and
-the workspace and launches on PyTorch's current stream.  Its plain version
-is ``ref.rmsnorm_bwd_ref``; ``ops.rmsnorm_bwd`` chooses between them by
+raises on anything the kernel does not take; it asks the library for the
+grid (every CTA resident at once, from the device's occupancy), allocates
+the outputs and the workspace, and launches on PyTorch's current stream.
+The barrier's counter is a pair of words per stream in a buffer kept per
+device, zeroed once and set back to 0 by each launch's last arriving CTA;
+it is made at the first call on a device, which therefore must not be
+inside a CUDA graph's capture.  Its plain version is
+``ref.rmsnorm_bwd_ref``; ``ops.rmsnorm_bwd`` chooses between them by
 device.
 """
 
@@ -27,17 +34,41 @@ from repro_torch.kernels import build
 __all__ = ["rmsnorm_bwd_cuda"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: resident CTAs per SM of the row kernel's persistent grid: each writes one
-#: workspace row of d float32s, which the second launch reads
-_CTAS_PER_SM = 2
-_MAX_VECS = 8 * 32 * 4  # 8 warps x 4 vectors a thread
+_MAX_VECS = 8 * 32 * 4  # 8 warps x 4 vectors a lane
+#: streams a device's barrier buffer has room for, one counter pair each
+_BARRIER_SLOTS = 64
 _SIGNATURES = {
+    "rmsnorm_bwd_plan": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
     "rmsnorm_bwd_launch": (ctypes.c_int, [
-        *[ctypes.c_void_p] * 6, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        *[ctypes.c_void_p] * 7, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p,
     ]),
     "rmsnorm_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+#: by device index: (uint32 counter pairs [_BARRIER_SLOTS, 2], {stream: slot})
+_BARRIERS: dict[int, tuple[torch.Tensor, dict[int, int]]] = {}
+
+
+def _barrier(device: torch.device, stream: int) -> int:
+    """The address of the barrier's counter pair of ``stream`` on ``device``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _BARRIERS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("rmsnorm_bwd: call it once on this device before capturing a "
+                               "CUDA graph (its barrier counters are made at the first call)")
+        _BARRIERS[index] = (torch.zeros(_BARRIER_SLOTS, 2, dtype=torch.int32, device=device), {})
+    buf, slots = _BARRIERS[index]
+    slot = slots.setdefault(stream, len(slots))
+    if slot >= _BARRIER_SLOTS:
+        raise RuntimeError(f"rmsnorm_bwd: more than {_BARRIER_SLOTS} streams on one device")
+    return buf.data_ptr() + slot * 8
+
+
+def _check(lib, code: int) -> None:
+    if code:
+        raise RuntimeError(f"rmsnorm_bwd kernel launch failed: CUDA error {code} "
+                           f"({lib.rmsnorm_bwd_error_string(code).decode()})")
 
 
 def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
@@ -65,16 +96,14 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
     if x.data_ptr() % 16 or w.data_ptr() % 16 or dy.data_ptr() % 16:
         raise ValueError("rmsnorm_bwd: x, w and dy must be 16-byte aligned")
     lib = build.library("rmsnorm_bwd", _SIGNATURES)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(T, _CTAS_PER_SM * sms)
+    code = _DTYPE_CODE[x.dtype]
     dx, dw = torch.empty_like(x), torch.empty_like(w)
-    ws = torch.empty(blocks, d, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        code = lib.rmsnorm_bwd_launch(
+        plan = (ctypes.c_int * 4)()  # blocks (= workspace rows), threads, lanes, smem
+        _check(lib, lib.rmsnorm_bwd_plan(T, d, code, plan))
+        stream = torch.cuda.current_stream().cuda_stream
+        ws = torch.empty(plan[0], d, dtype=torch.float32, device=x.device)
+        _check(lib, lib.rmsnorm_bwd_launch(
             x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-            ws.data_ptr(), blocks, T, d, float(eps), _DTYPE_CODE[x.dtype],
-            torch.cuda.current_stream().cuda_stream)
-    if code:
-        raise RuntimeError(f"rmsnorm_bwd kernel launch failed: CUDA error {code} "
-                           f"({lib.rmsnorm_bwd_error_string(code).decode()})")
+            ws.data_ptr(), _barrier(x.device, stream), plan[0], T, d, float(eps), code, stream))
     return dx, dw

@@ -48,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import time
 
 import numpy as np
@@ -74,6 +75,10 @@ def _device_us(evt) -> float:
     return evt.self_device_time_total
 
 
+#: the names of the port's hand-written kernels (``kernels/csrc``)
+_PORT_KERNEL = re.compile(r"rmsnorm|flash_|mamba_scan|a2a_pack")
+
+
 def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
     # device time is read from the device's own records (kernels, copies,
     # memsets) only: an operator's entry repeats the time of its kernels
@@ -86,9 +91,14 @@ def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
           f"{busy_us / n / 1e3:.3f} ms per call ({n} calls, "
           f"{sum(e.count for e in on_device) // n} device records each); device "
           f"idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
-    for e in sorted(on_device, key=_device_us, reverse=True)[:top]:
+    ranked = sorted(on_device, key=_device_us, reverse=True)
+    for e in ranked[:top]:
         print(f"[profile]   device {_device_us(e) / n / 1e3:9.4f} ms/call  "
               f"x{e.count / n:<6g} {e.key[:90]}")
+    for e in ranked[top:]:  # the port's own kernels, at whatever rank
+        if _PORT_KERNEL.search(e.key):
+            print(f"[profile]   device {_device_us(e) / n / 1e3:9.4f} ms/call  "
+                  f"x{e.count / n:<6g} {e.key[:90]} (port kernel)")
     for e in sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]:
         print(f"[profile]   host   {e.self_cpu_time_total / n / 1e3:9.4f} ms/call  "
               f"x{e.count / n:<6g} {e.key[:90]}")

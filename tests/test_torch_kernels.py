@@ -498,6 +498,17 @@ RMSNORM_BWD_CASES = [  # T, d, dtype
     (5, 4104, torch.bfloat16),     # 513 vectors: no warp filled evenly
     (5, 4000, torch.float32),      # 1000 vectors
     (1, 8192, torch.bfloat16),     # the widest the kernel takes
+] + [  # the configs' other widths at a microbatch of 2048 tokens (danube, gemma,
+    # musicgen, minicpm3's hidden, q_norm and kv_norm, qwen2-vl)
+    (2048, d, torch.bfloat16) for d in (3840, 3072, 2048, 2560, 768, 256, 3584)] + [
+    # fewer rows than the grid holds
+    (1, 4096, torch.bfloat16), (4, 4096, torch.bfloat16), (130, 4096, torch.bfloat16),
+    (1, 64, torch.bfloat16), (4, 256, torch.bfloat16), (130, 768, torch.bfloat16),
+    # ragged narrow rows, and fp32
+    (2049, 256, torch.bfloat16),   # two rows a warp
+    (2047, 64, torch.bfloat16),    # four rows a warp
+    (2048, 4096, torch.float32),   # 4 vectors a lane
+    (2048, 256, torch.float32),
 ]
 
 
@@ -516,6 +527,28 @@ def test_rmsnorm_backward_on_card(cuda, T, d, dt):
     assert ref.scaled_err(dx, want_dx) <= tol
     assert ref.scaled_err(dw, want_dw) <= tol
     assert all(torch.equal(a, b) for a, b in zip((dx, dw), rmsnorm_bwd_cuda(x, w, dy)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,d", [(2048, 4096), (2049, 256), (2048, 64)])
+def test_rmsnorm_backward_graph_replays_give_the_same_bits(cuda, T, d):
+    """A call captured in a CUDA graph and replayed twice, with an eager call
+    between the replays, gives the eager call's bits each time: dw is summed
+    in a fixed order, and the grid barrier's counter is back at 0 after
+    every launch."""
+    x, dy = (_card(RNG.randn(T, d).astype(np.float32), cuda, torch.bfloat16) for _ in range(2))
+    w = _card(RNG.rand(d).astype(np.float32) + 0.5, cuda, torch.bfloat16)
+    want = rmsnorm_bwd_cuda(x, w, dy)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = rmsnorm_bwd_cuda(x, w, dy)
+    for _ in range(2):
+        for t in got:
+            t.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in zip(rmsnorm_bwd_cuda(x, w, dy), want))
 
 
 # Faults planted in copies of the kernels' sources, each of a kind a kernel
@@ -563,6 +596,18 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "rmsnorm_block_step_last_warp_left_out": (
         "rmsnorm", "return warp_sum(lane < W ? part[lane] : 0.f);",
         "return warp_sum(lane < W - 1 ? part[lane] : 0.f);"),
+    "rmsnorm_bwd_last_partial_row_left_out": (
+        "rmsnorm_bwd", "const int r1 = min(r0 + chunk, rows);  // this thread's share of the partial rows",
+        "const int r1 = min(r0 + chunk, rows - 1);"),
+    "rmsnorm_bwd_last_row_not_prefetched": (
+        "rmsnorm_bwd", "if (next < T_rows) copy_row((it + kDepth) % S, (int)next);  // in flight while this row reduces",
+        "if (next < T_rows - 1) copy_row((it + kDepth) % S, (int)next);"),
+    "rmsnorm_bwd_segment_shuffle_reaches_the_next_row": (
+        "rmsnorm_bwd", "for (int off = L >> 1; off > 0; off >>= 1) {  // inside the row's segment",
+        "for (int off = L; off > 0; off >>= 1) {"),
+    "rmsnorm_bwd_last_team_left_out_of_the_cta_row": (
+        "rmsnorm_bwd", "for (int u = 0; u < units; ++u) s += smem[(size_t)u * d + c];  // in unit order",
+        "for (int u = 0; u < units - 1; ++u) s += smem[(size_t)u * d + c];"),
     "scan_state_dropped_at_half": (
         "mamba_scan", "h = __fadd_rn(__fmul_rn(av[u], h), bv[u]);",
         "h = __fadd_rn(__fmul_rn(av[u], t0 + u == S / 2 ? 0.f : h), bv[u]);"),
@@ -647,6 +692,13 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         w = (torch.rand(4096, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
         call = lambda: rmsnorm_cuda(x, w, 1e-6)  # noqa: E731
         want = ref.rmsnorm_ref(x.float(), w.float(), eps=1e-6)
+    elif kernel == "rmsnorm_bwd":  # yi's microbatch with one row more; the smoke width
+        T, d = (2048, 64) if "segment" in fault else (2049, 4096)
+        x, dy = (torch.randn(T, d, generator=gen, device=cuda).to(torch.bfloat16)
+                 for _ in range(2))
+        w = (torch.rand(d, generator=gen, device=cuda) + 0.5).to(torch.bfloat16)
+        call = lambda: rmsnorm_bwd_cuda(x, w, dy)  # noqa: E731
+        want = ref.rmsnorm_bwd_ref(x.float(), w.float(), dy.float())
     elif kernel == "mamba_scan":
         a, b, c, _ = _scan_on_card(cuda, 4, 512, 8192, 16, False)
         call = lambda: mamba_scan_cuda(a, b, c)[0]  # noqa: E731
@@ -674,9 +726,12 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
                         build.load(faulty_libraries[fault], module._SIGNATURES))
     faulty = call()
     torch.cuda.synchronize()
-    if kernel == "flash_attention_bwd":  # three outputs, and the error over the largest value
-        errs = {name: (_bwd_err(out, want), max(((a.float() - b).abs().max() / b.abs().max())
-                                                .item() for a, b in zip(out, want)))
+    if kernel in ("flash_attention_bwd", "rmsnorm_bwd"):  # several outputs
+        err = _bwd_err if kernel == "flash_attention_bwd" else (
+            lambda got, want: max(ref.scaled_err(a, b) for a, b in zip(got, want)))
+        errs = {name: (err(out, want), max(((a.float() - b.float()).abs().max()
+                                            / b.float().abs().max()).item()
+                                           for a, b in zip(out, want)))
                 for name, out in (("sound", sound), ("faulty", faulty))}
     else:
         errs = {name: (ref.scaled_err(out, want),
