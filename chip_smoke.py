@@ -18,7 +18,9 @@ Phases, each reported on its own lines:
    kernel's source (hd 120's zero-filled pad vector read from the next row,
    hd 256's second half of the output columns left unwritten) must each
    fail that check, and so must a fault planted in the MLA pair (q/k head
-   dim 96, v head dim 64: v's last 16-column block left unwritten);
+   dim 96, v head dim 64: v's last 16-column block left unwritten) and one
+   in DeepSeek-V2's MLA pair (q/k 192, v 128: the last 64 q/k columns, the
+   rotary part, left out of the scores);
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
    greedy, each decode step a replay of the engine's captured CUDA graph.
@@ -41,7 +43,14 @@ Phases, each reported on its own lines:
    a prefill through the kernels over each row's prompt and first 8
    tokens; MusicGen serves prompts of 512 x 4 codebooks; MiniCPM3 runs MLA
    (the expanded prefill through flash at q/k head dim 96 and v head dim
-   64, the absorbed decode over the latent cache).  Last, full-width
+   64, the absorbed decode over the latent cache).  Then the MoE models at
+   full width and 8 layers (their weights at full depth would not fit one
+   card): DBRX-132B (16 experts, top-4, every layer MoE; flash at head dim
+   128, GQA group 6) and DeepSeek-V2-236B (the dense prelude layer and 7
+   MoE layers of 160 routed experts, top-6, and 2 shared; MLA through
+   flash at q/k 192 and v 128).  The float32 reference prefill casts each
+   weight where it reads it (``float32_reads``), so its float32 copy never
+   holds more than one layer's weights.  Last, full-width
    Qwen2-VL-7B, which takes embeddings and M-RoPE positions and which no
    engine drives (the reference's refuses it): seeded embeds [4, 512, 3584]
    with positions whose t is the index and whose h and w walk a 16 x 16
@@ -177,6 +186,9 @@ FLASH_FAULTS = {
         "for (int nb = 0; nb < HDV / 8; ++nb)",
         "for (int nb = 0; nb < (HDQK != HDV ? HDV / 8 - 2 : HDV / 8); ++nb)",
         "minicpm3 prefill"),
+    "mla192_rope_columns_left_out_of_the_score": (
+        "for (int kk = 0; kk < KQ; ++kk) {",
+        "for (int kk = 0; kk < (HDQK == 192 ? KQ - 4 : KQ); ++kk) {", "deepseek prefill"),
 }
 #: faults planted in copies of ``csrc/flash_attention_bwd.cu`` (name: sound
 #: line, faulty line, label of the phase-8 case it is checked at): each must
@@ -364,8 +376,9 @@ def rmsnorm_cases(gen):
     Falcon-Mamba-7B, a ragged T (one row past the prefill's 2048), a second
     width (DeepSeek-V2's 5120), and the prefill and decode shapes of
     H2O-Danube3 (d 3840, 4 x 4608 tokens), Gemma (3072), MusicGen (2048),
-    Qwen2-VL (3584) and MiniCPM3 (2560, and inside MLA 768 for ``q_norm``
-    and 256 for ``kv_norm``)."""
+    Qwen2-VL (3584), MiniCPM3 (2560, and inside MLA 768 for ``q_norm``
+    and 256 for ``kv_norm``), DBRX (6144) and DeepSeek-V2 (5120, and inside
+    MLA 1536 and 512)."""
     import torch
     import torch.nn.functional as F
 
@@ -374,11 +387,13 @@ def rmsnorm_cases(gen):
 
     cases = []
     # prefill 4 x 512 tokens; decode 4 tokens; ragged; second width; then
-    # danube's, gemma's, musicgen's, qwen2-vl's and minicpm3's prefill and decode
+    # danube's, gemma's, musicgen's, qwen2-vl's, minicpm3's, dbrx's and
+    # deepseek-v2's prefill and decode
     for T, d in ((2048, 4096), (4, 4096), (2049, 4096), (2048, 5120), (18432, 3840),
                  (4, 3840), (2048, 3072), (4, 3072), (2048, 2048), (4, 2048),
                  (2048, 3584), (4, 3584), (2048, 2560), (4, 2560), (2048, 768), (4, 768),
-                 (2048, 256), (4, 256)):
+                 (2048, 256), (4, 256), (2048, 6144), (4, 6144), (4, 5120), (2048, 1536),
+                 (4, 1536), (2048, 512), (4, 512)):
         x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
         out = rmsnorm_cuda(x, w, 1e-6)
@@ -434,6 +449,12 @@ FLASH_SPECS = [
     ("ragged minicpm3", 4 * 40, 1, 300, 300, 96, 64, True, None),
     ("hd 24/16 (minicpm3 smoke)", 4 * 4, 1, 256, 256, 24, 16, True, None),
     ("qwen2-vl prefill", 4 * 28, 7, 512, 512, 128, 128, True, None),
+    # the MoE slice: DBRX's GQA group of 6; DeepSeek-V2's MLA (expanded
+    # prefill: q/k 128 + 64, v 128, MHA), ragged and small
+    ("dbrx prefill", 4 * 48, 6, 512, 512, 128, 128, True, None),
+    ("deepseek prefill", 4 * 128, 1, 512, 512, 192, 128, True, None),
+    ("ragged deepseek", 4 * 128, 1, 300, 300, 192, 128, True, None),
+    ("small deepseek", 2, 1, 64, 64, 192, 128, True, None),
 ]
 
 
@@ -487,7 +508,8 @@ def flash_cases(gen, fault_libs):
     """Kernel against plain version: Yi prefill, ragged, windowed, hd 16,
     one sequence at Yi's 4096 context (bound by the tensor cores), the
     dense serving slice's shapes at hd 120, 256 and 64, MiniCPM3's MLA pair
-    (96, 64) and its smoke pair (24, 16), and Qwen2-VL's group of 7; then
+    (96, 64) and its smoke pair (24, 16), Qwen2-VL's group of 7, DBRX's
+    group of 6 and DeepSeek-V2's MLA pair (192, 128); then
     every planted fault of ``FLASH_FAULTS`` against its case's check."""
     import torch
 
@@ -847,6 +869,10 @@ def _widths(cfg) -> tuple:
                 a.v_head_dim)
     if a.mrope_sections is not None:
         out += (a.mrope_sections,)
+    if cfg.moe is not None:
+        e = cfg.moe
+        out += (e.num_experts, e.top_k, e.d_ff_expert, e.num_shared_experts,
+                e.capacity_factor, cfg.first_k_dense)
     return out
 
 
@@ -855,7 +881,9 @@ def _widths(cfg) -> tuple:
 #: have no second norm, MiniCPM3's MLA adds ``q_norm`` and ``kv_norm``), its
 #: prompt length and cache capacity (4 requests, 32 new tokens each), and
 #: where set, the decode step whose logits must match a prefill over each
-#: row's prompt and its tokens so far.  Qwen2-VL takes embeddings: no engine
+#: row's prompt and its tokens so far.  ``depth``: the layers kept of an
+#: MoE model, whose weights at full depth would not fit one card (its
+#: widths are the published config's).  Qwen2-VL takes embeddings: no engine
 #: drives it (``drive_embeds``)
 _DENSE = {"norms_per_layer": 2, "prompt": 512, "capacity": 1024}
 SERVED = {
@@ -877,6 +905,15 @@ SERVED = {
     "minicpm3_4b": {**_DENSE, "norms_per_layer": 4, "prefill": {"flash_attention": 62},
                     "widths": (62, 2560, 40, 40, 64, 6400, 73448, None, 1, "silu", "bfloat16",
                                768, 256, 64, 32, 64)},
+    "dbrx_132b": {**_DENSE, "depth": 8, "prefill": {"flash_attention": 8},
+                  "widths": (40, 6144, 48, 8, 128, 10752, 100352, None, 1, "silu", "bfloat16",
+                             16, 4, 10752, 0, 1.25, 0)},
+    # the dense prelude layer and 7 MoE layers; MLA adds q_norm and kv_norm
+    "deepseek_v2_236b": {**_DENSE, "depth": 8, "norms_per_layer": 4,
+                         "prefill": {"flash_attention": 8},
+                         "widths": (60, 5120, 128, 128, 128, 12288, 102400, None, 1, "silu",
+                                    "bfloat16", 1536, 512, 128, 64, 128,
+                                    160, 6, 1536, 2, 1.25, 1)},
     "qwen2_vl_7b": {**_DENSE, "full_forward_at": 8, "prefill": {"flash_attention": 28},
                     "widths": (28, 3584, 28, 4, 128, 18944, 152064, None, 1, "silu",
                                "bfloat16", (16, 24, 24))},
@@ -1031,6 +1068,8 @@ def serve(arch: str, seed: int = 0) -> dict:
     want = SERVED[arch]
     if _widths(cfg) != want["widths"]:
         raise AssertionError(f"{arch} is not at its published widths: {_widths(cfg)}")
+    if "depth" in want:
+        cfg = dataclasses.replace(cfg, num_layers=want["depth"])
     slots, capacity, prompt_len, max_new = 4, want["capacity"], want["prompt"], 32
     k = cfg.num_codebooks
     prompt_shape = (prompt_len, k) if k > 1 else (prompt_len,)
@@ -1040,8 +1079,8 @@ def serve(arch: str, seed: int = 0) -> dict:
                            device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[serve] {cfg.name} full width: {n_params / 1e9:.3f} B params, bf16, "
-          f"random init from seed {seed} in {time.perf_counter() - t0:.1f} s")
+    print(f"[serve] {cfg.name} full width, {cfg.num_layers} layers: {n_params / 1e9:.3f} B "
+          f"params, bf16, random init from seed {seed} in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.RandomState(seed)
 
@@ -1135,25 +1174,60 @@ def serve(arch: str, seed: int = 0) -> dict:
     return res
 
 
+class _Float32Rows:
+    """A bf16 tensor read as float32: each index of it gives a float32 copy
+    of that part, made at the read."""
+
+    def __init__(self, t):
+        self.t = t
+
+    def __getitem__(self, i):
+        return self.t[i].float()
+
+
+class _Float32Tree(dict):
+    """A parameter tree read as float32: each tensor a float32 copy made at
+    the read, each subtree a tree of its own; ``_Float32Rows`` leaves as they
+    are."""
+
+    def __getitem__(self, k):
+        v = super().__getitem__(k)
+        if isinstance(v, dict):
+            return _Float32Tree(v)
+        return v.float() if hasattr(v, "float") else v
+
+
+def float32_reads(params: dict) -> dict:
+    """``params`` as a float32 forward reads them: every weight cast where it
+    is read (a stacked leaf a period at a time, an untied embedding table a
+    token's rows at a time), so the float32 copy never holds more than one
+    layer's weights: the float32 model in bounded memory (a float32 DBRX at
+    8 layers is 109 GB)."""
+    from repro_torch.models.params import map_tree
+
+    rows = {"blocks": map_tree(lambda _, t: _Float32Rows(t), params["blocks"])}
+    if params["embed"] and params["head"]:  # an untied table, read by rows
+        rows["embed"] = {"embedding": _Float32Rows(params["embed"]["embedding"])}
+    return _Float32Tree({**params, **rows})
+
+
 def _prefill_against_float32(cfg, params, batch, kern, capacity: int) -> dict:
     """The prefill's logits through the kernels (``kern``) against the same
     prefill through the plain versions of the kernels, in the model's bf16
-    and in float32 (the reference for the bf16 rounding): no further from
+    and in float32 (the reference for the bf16 rounding; each weight cast
+    where it is read, ``float32_reads``): no further from
     float32 than ``LOGIT_NOISE_RATIO`` times the plain bf16 logits are,
     within ``TOL_BF16`` (rms) of those, and the same first token wherever
     float32's top-2 gap exceeds the bf16 noise."""
     import torch
 
     from repro_torch.models import lm
-    from repro_torch.models.params import map_tree
 
     torch.cuda.reset_peak_memory_stats()
     with plain_kernels():
         plain, _ = lm.prefill(cfg, params, batch, capacity=capacity)
-        params32 = map_tree(lambda _, t: t.float(), params)
-        exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"), params32, batch,
-                              capacity=capacity)
-        del params32
+        exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"),
+                              float32_reads(params), batch, capacity=capacity)
     peak = torch.cuda.max_memory_allocated() / 1e9
     err_kern, err_plain = _rms_rel(kern, exact), _rms_rel(plain, exact)
     err_kp = _rms_rel(kern, plain)

@@ -3,8 +3,7 @@
 ``get_config(name)`` returns the exact published configuration;
 ``get_smoke_config(name)`` returns the reduced same-family variant the CPU
 parity tests use.  The registry knows every architecture the reference
-knows, but returns only those whose family the port can run; the others
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+knows, and the port runs every one of them.
 """
 
 from __future__ import annotations
@@ -45,13 +44,6 @@ ARCH_IDS = [
     "falcon_mamba_7b",
 ]
 
-# architectures the port cannot run yet -> what they need (ROADMAP queue 1)
-_NOT_PORTED = {
-    "deepseek_v2_236b": "MoE (ROADMAP queue 1 item 7)",
-    "dbrx_132b": "MoE (ROADMAP queue 1 item 7)",
-    "jamba_1_5_large_398b": "MoE (ROADMAP queue 1 item 7)",
-}
-
 # canonical dashed ids (CLI --arch) -> module name
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
@@ -60,11 +52,6 @@ def _module(name: str):
     name = ALIASES.get(name, name)
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ALIASES)}")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name}: the PyTorch port does not run it yet; it needs "
-            f"{_NOT_PORTED[name]}"
-        )
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 

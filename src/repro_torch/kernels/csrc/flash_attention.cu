@@ -29,8 +29,13 @@
 //   the kernel: hd 120 runs as 128, the 16th 16-byte vector of each shared
 //   row zero-filled by cp.async, and only the 120 real columns written back;
 // - the value head dim HDV may differ from the query/key one HDQK (MLA:
-//   q/k 96, v 64): Q K^T runs over HDQK's k-steps, V's tiles, P V and the
-//   output fragments cover HDV's columns only, so V and O move no padding;
+//   q/k 96, v 64; q/k 192, v 128): Q K^T runs over HDQK's k-steps, V's
+//   tiles, P V and the output fragments cover HDV's columns only, so V and
+//   O move no padding; at q/k 192 that pair takes hd 256's path (Q re-read
+//   from shared memory at every k-step, 32-key tiles: 168 registers,
+//   68,608 B): with Q's fragments held and 64-key tiles it spilled at 255
+//   registers and ran 6.6% slower on the H100, and with Q re-read and
+//   64-key tiles it gained 1.3% at 250 registers (PERF.md section 6);
 // - S = Q K^T runs on mma.sync m16n8k16 (bf16 in, fp32 accumulate), K's
 //   B-fragments come from shared memory through ldmatrix, and the scores
 //   stay in the accumulator fragments: each thread holds 2 rows x 2
@@ -414,6 +419,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   FLASH_CASE(256, 256)
   FLASH_CASE(24, 16)  // MiniCPM3 smoke's MLA: q/k 16 + 8 (padded to 32), v 16
   FLASH_CASE(96, 64)  // MiniCPM3's MLA: q/k 64 + 32, v 64
+  FLASH_CASE(192, 128)  // DeepSeek-V2's MLA: q/k 128 + 64, v 128
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;
 }

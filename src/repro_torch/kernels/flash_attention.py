@@ -14,11 +14,12 @@ the output accumulator stay in registers (bf16 operands, fp32
 accumulation), and K/V tiles of 64 rows (32 at head_dim 256, where Q is
 re-read from shared memory at every k-step rather than held in registers)
 arrive by ``cp.async`` into a two-stage ring in shared memory while the
-previous tile is computed.  A head dim that is no multiple of 16 is padded
+previous tile is computed (DeepSeek-V2's MLA pair, q/k 192 and v 128,
+takes hd 256's path too).  A head dim that is no multiple of 16 is padded
 inside the kernel, in its shared-memory tiles (no copy here).  The value
-head dim may differ from the query/key one (MLA's 64 beside 96): the kernel
-takes both as template parameters, so V and the output move only their own
-columns.  Unlike the Pallas kernel it masks the ragged edge, so Sq and Skv
+head dim may differ from the query/key one (MLA's 64 beside 96, 128 beside
+192): the kernel takes both as template parameters, so V and the output
+move only their own columns.  Unlike the Pallas kernel it masks the ragged edge, so Sq and Skv
 need not be multiples of its tiles.  For training (``models/flash.py``) it
 also returns each row's logsumexp (``return_lse=True``, at the head dims
 :data:`LSE_HEAD_DIMS` that the backward kernel takes), from an instance of
@@ -45,9 +46,10 @@ __all__ = ["HEAD_DIMS", "LSE_HEAD_DIMS", "flash_attention_cuda"]
 #: (q/k head dim, v head dim) pairs the kernel is instantiated for: the smoke
 #: configs' (16, 16) and MiniCPM3 smoke's (24, 16), and the published
 #: configs' 64 (MusicGen), 120 (H2O-Danube3, run padded to 128 inside the
-#: kernel), 128 (Yi, Qwen2-VL), 256 (Gemma) and MiniCPM3's MLA (96, 64); 24
-#: runs padded to 32
-HEAD_DIMS = ((16, 16), (64, 64), (120, 120), (128, 128), (256, 256), (24, 16), (96, 64))
+#: kernel), 128 (Yi, Qwen2-VL, DBRX), 256 (Gemma) and the MLA pairs of
+#: MiniCPM3 (96, 64) and DeepSeek-V2 (192, 128); 24 runs padded to 32
+HEAD_DIMS = ((16, 16), (64, 64), (120, 120), (128, 128), (256, 256), (24, 16), (96, 64),
+             (192, 128))
 #: head dims the lse instance (and the backward kernel) is built for: Yi's
 #: 128 and the smoke configs' 16; the others wait for ROADMAP queue 2 item 9
 LSE_HEAD_DIMS = (16, 128)

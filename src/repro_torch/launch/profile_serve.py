@@ -6,6 +6,8 @@ a few decode steps of the slot engine, on the GPU.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch h2o_danube_3_4b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch minicpm3_4b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2_vl_7b
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch dbrx_132b --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch deepseek_v2_236b --layers 8
 
 The run has the shapes of ``chip_smoke.py``'s serving phase: 4 slots,
 prompts of 512 tokens (of 512 x 4 codebooks for MusicGen), a cache of 1024;
@@ -14,8 +16,15 @@ H2O-Danube3 takes prompts of 4608 tokens into a cache of 5120, past its
 4 decode steps: host wall time without the profiler (its own cost stays
 out of it), the device's busy time (the sum of the device's own records:
 kernels, copies and memsets; this path runs on one stream, so none
-overlap), hence the device's idle share, and the kernels that take most
-device time and the operators that take most host time.  The decode step is
+overlap), hence the device's idle share, the kernels that take most
+device time and the operators that take most host time, and the device
+time split into the attention (flash) and RMSNorm kernels, and for an MoE
+model the layer's stages by their profiler spans (``moe.SPANS``: routing,
+dispatch, the expert GEMMs, combine, shared experts); the rest is every
+other operator (projections, the head, embedding).  A captured step's
+replay has no spans: its split is that of the eager step.  ``--layers``
+keeps the first layers of the config (DBRX-132B and DeepSeek-V2-236B fit
+one card at 8).  The decode step is
 measured both ways, eager (op by op from Python) and as the engine's
 captured CUDA graph, in turns (eager, graph, graph, eager) on fresh
 engines: host times move between calls, so only turns inside one call
@@ -31,7 +40,7 @@ after the other, in both orders, twice.
 ``--train`` profiles a train step instead (``training/train_step.py``, the
 step ``launch/train.py`` runs): Yi-6B's published widths, batch 8 x 2048 in
 the config's 8 microbatches with remat, AdamW; ``--layers`` cuts the depth
-(the state of all 32 layers does not fit one card: ``--layers 16``, as
+there too (the state of all 32 layers does not fit one card: ``--layers 16``, as
 ``chip_smoke.py`` trains).  One step warms up, one is timed alone on the
 host clock (synchronised), one is profiled.
 
@@ -59,6 +68,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.models import lm
+from repro_torch.models.moe import SPANS
 from repro_torch.models.params import torch_dtype
 from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.engine import Request, ServeEngine
@@ -83,7 +93,8 @@ def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
     # device time is read from the device's own records (kernels, copies,
     # memsets) only: an operator's entry repeats the time of its kernels
     events = prof.key_averages()
-    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    on_device = [e for e in events
+                 if e.device_type == DeviceType.CUDA and e.key not in SPANS]
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
     busy_us = sum(_device_us(e) for e in on_device)
     wall_us = wall_s * 1e6
@@ -102,6 +113,16 @@ def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
     for e in sorted(on_host, key=lambda e: e.self_cpu_time_total, reverse=True)[:top]:
         print(f"[profile]   host   {e.self_cpu_time_total / n / 1e3:9.4f} ms/call  "
               f"x{e.count / n:<6g} {e.key[:90]}")
+    split = {"flash attention": sum(_device_us(e) for e in on_device if "flash_" in e.key),
+             "rmsnorm": sum(_device_us(e) for e in on_device if "rmsnorm" in e.key)}
+    for span in SPANS:  # a span's device time: the kernels of the operators inside it
+        us = sum(e.device_time_total for e in prof.events()
+                 if e.name == span and e.device_type == DeviceType.CPU)
+        if us:
+            split[span] = us
+    split["rest"] = busy_us - sum(split.values())
+    print("[profile]   split " + ", ".join(
+        f"{k} {us / n / 1e3:.4f} ms ({us / max(busy_us, 1e-9):.3f})" for k, us in split.items()))
 
 
 def main(argv=None):
@@ -109,15 +130,15 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--train", action="store_true", help="profile a train step")
     ap.add_argument("--layers", type=int, default=None,
-                    help="--train: layers of the config to keep (default: all)")
+                    help="layers of the config to keep (default: all)")
     args = ap.parse_args(argv)
     prompt_len, capacity = SHAPES.get(args.arch, DEFAULT_SHAPE)
 
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.train:
-        if args.layers:
-            cfg = dataclasses.replace(cfg, num_layers=args.layers)
         return _profile_train(cfg, device)
     k = cfg.num_codebooks
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0),

@@ -6,13 +6,17 @@
       --requests 4 --max-new 16            # the Mamba path, on the GPU
   PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen_large
                                            # 4 codebooks: prompts [S, 4]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b --layers 8
+                                           # MoE at full width, 8 of 40 layers
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --eager
                                            # the decode step from Python, not a CUDA graph
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --smoke \\
       --device cpu                         # plain PyTorch on the CPU
 
 On the card each decode step replays one captured CUDA graph; ``--eager``
-runs it op by op from Python instead, as the CPU always does.  All requests
+runs it op by op from Python instead, as the CPU always does.  ``--layers``
+keeps the first layers of the config (DBRX-132B and DeepSeek-V2-236B fit one
+card at 8).  All requests
 are admitted in one wave, so ``--requests`` may not exceed
 ``--slots``, and every prompt and its new tokens must fit the cache: the
 engine admits a wave only into an empty cache, and a request it cannot
@@ -22,6 +26,7 @@ admit or finish would never complete.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -37,6 +42,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers of the config to keep (default: all)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=16)
@@ -57,6 +64,8 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_model(cfg, gen, device=device)
     sampler = (greedy_sample if args.temperature == 0.0

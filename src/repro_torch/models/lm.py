@@ -19,11 +19,14 @@ Entry points:
   updated in place.
 
 Each slot of the pattern has a mixer (GQA or MLA attention, or Mamba) and, unless
-its ``ffn`` is ``"none"`` (Falcon-Mamba), a second norm and a dense MLP; a
-slot's cache is that of its mixer.  MoE FFNs and the unrolled dense
-prelude (``first_k_dense``) come with the MoE slice (ROADMAP queue 1 item 7
-names the configs still to run); Mamba training with the selective scan's
-backward (queue 1 item 8), MLA training with its flash backward (queue 2
+its ``ffn`` is ``"none"`` (Falcon-Mamba), a second norm and a dense MLP or
+an MoE FFN (``models/moe.py``); a slot's cache is that of its mixer.  The
+first ``first_k_dense`` layers (DeepSeek-V2's one) run before the stacked
+periods as an unrolled prelude, ``prelude<j>``, with a dense FFN, their
+parameters and caches unstacked, as in the reference; the periods stacked
+under ``blocks`` are the ``(num_layers - first_k_dense) // len(pattern)``
+that remain.  Mamba training waits for the selective scan's backward
+(ROADMAP queue 1 item 8), MLA training for its flash backward (queue 2
 item 9).
 """
 
@@ -39,17 +42,11 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.params import ParamMeta, init_params, map_tree, torch_dtype
 
 __all__ = ["model_meta", "init_model", "init_cache", "loss_fn", "prefill", "decode_step",
-           "check_position"]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if any(s.ffn == "moe" for s in cfg.layer_pattern) or cfg.first_k_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers and the dense prelude come with the MoE "
-            "slice (ROADMAP queue 1 item 7)")
+           "check_position", "scanned_periods"]
 
 
 def _slot_meta(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -59,7 +56,8 @@ def _slot_meta(cfg: ModelConfig, spec: LayerSpec) -> dict:
                      else mamba_mod.mamba_meta(cfg))}
     if spec.ffn != "none":
         out["norm2"] = L.rms_norm_meta(d)
-        out["ffn"] = L.mlp_meta(d, cfg.d_ff, cfg.act)
+        out["ffn"] = (L.mlp_meta(d, cfg.d_ff, cfg.act) if spec.ffn == "dense"
+                      else moe_mod.moe_meta(cfg))
     return out
 
 
@@ -71,14 +69,27 @@ def _stack_meta(tree, n: int):
     )
 
 
+def scanned_periods(cfg: ModelConfig) -> int:
+    """The periods stacked under ``blocks``: the layers after the prelude."""
+    return (cfg.num_layers - cfg.first_k_dense) // len(cfg.layer_pattern)
+
+
+def _prelude(cfg: ModelConfig) -> list[tuple[str, LayerSpec]]:
+    """``(name, spec)`` of each prelude layer: the pattern's slot with a dense FFN."""
+    return [(f"prelude{j}", dataclasses.replace(
+        cfg.layer_pattern[j % len(cfg.layer_pattern)], ffn="dense"))
+        for j in range(cfg.first_k_dense)]
+
+
 def model_meta(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
+    P = scanned_periods(cfg)
     return {
         "embed": L.embed_meta(cfg),
         "head": L.head_meta(cfg),
         "final_norm": L.rms_norm_meta(cfg.d_model),
-        "blocks": {f"slot{i}": _stack_meta(_slot_meta(cfg, spec), cfg.num_periods)
+        "blocks": {f"slot{i}": _stack_meta(_slot_meta(cfg, spec), P)
                    for i, spec in enumerate(cfg.layer_pattern)},
+        **{name: _slot_meta(cfg, spec) for name, spec in _prelude(cfg)},
     }
 
 
@@ -99,21 +110,24 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda",
                dtype=torch.bfloat16) -> dict:
     """Zero caches (KV, or MLA's latent ``ckv`` and ``krope``, for
     attention; conv window and state for Mamba), stacked over periods like
-    the parameters.  KV and conv window in
+    the parameters, and one for each prelude layer.  KV and conv window in
     ``dtype`` (bf16, as the reference's; ``prefill``'s filled cache takes
     the model dtype), the Mamba state in float32."""
     device = resolve_device(device)
-    _check_supported(cfg)
+    P = scanned_periods(cfg)
     blocks = {}
     for i, spec in enumerate(cfg.layer_pattern):
         one = _slot_cache(cfg, spec, batch, capacity, device, dtype)
-        blocks[f"slot{i}"] = {n: t.expand((cfg.num_periods,) + t.shape).clone()
-                              for n, t in one.items()}
-    return {"blocks": blocks}
+        blocks[f"slot{i}"] = {n: t.expand((P,) + t.shape).clone() for n, t in one.items()}
+    return {"blocks": blocks,
+            **{name: _slot_cache(cfg, spec, batch, capacity, device, dtype)
+               for name, spec in _prelude(cfg)}}
 
 
 def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
                 capacity=None, train=False):
+    """One layer: (x, its filled or updated cache, its MoE aux loss or None)."""
+    aux = None
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
         res = attn_mod.attention(cfg, p["mixer"], h, positions, cache=cache,
@@ -124,8 +138,12 @@ def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
     x = x + mix
     if spec.ffn != "none":
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp(p["ffn"], h2, cfg.act)
-    return x, new_cache
+        if spec.ffn == "dense":
+            f = L.mlp(p["ffn"], h2, cfg.act)
+        else:
+            f, aux = moe_mod.moe(cfg, p["ffn"], h2)
+        x = x + f
+    return x, new_cache, aux
 
 
 def _period(tree: dict, i: int) -> dict:
@@ -170,35 +188,39 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, 
     tensors: the mean over every label of ``logsumexp(logits) -
     logits[label]``, the logsumexp in float32 and the label's logit the
     picked model-dtype element (the reference's one-hot contraction picks
-    exactly it); ``aux`` is 0 (no MoE).  Each period runs under
+    exactly it); ``aux`` the MoE layers' load-balance losses summed in
+    layer order (0 without MoE), and ``loss = nll + aux``.  Each period runs under
     ``torch.utils.checkpoint`` (non-reentrant) when ``parallel.remat``, so
     the backward recomputes its forward, as the reference's
-    ``jax.checkpoint`` of the period body does."""
-    _check_supported(cfg)
+    ``jax.checkpoint`` of the period body does; the prelude layers do not."""
     if any(s.mixer == "mamba" for s in cfg.layer_pattern):
         raise NotImplementedError(
             f"{cfg.name}: Mamba training waits for the selective scan's backward kernel "
             "(ROADMAP queue 1 item 8)")
     x, positions = _inputs(cfg, params, {k: v for k, v in batch.items() if k != "labels"})
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def period(x: torch.Tensor, pp: dict) -> torch.Tensor:
+    def period(x: torch.Tensor, aux: torch.Tensor, pp: dict):
         for j, spec in enumerate(cfg.layer_pattern):
-            x, _ = _apply_slot(cfg, spec, pp[f"slot{j}"], x, positions, train=True)
-        return x
+            x, _, a = _apply_slot(cfg, spec, pp[f"slot{j}"], x, positions, train=True)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
-    for i in range(cfg.num_periods):
+    for name, spec in _prelude(cfg):
+        x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, train=True)
+    for i in range(scanned_periods(cfg)):
         pp = _period(params["blocks"], i)
         if cfg.parallel.remat:
-            x = torch.utils.checkpoint.checkpoint(period, x, pp, use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(period, x, aux, pp, use_reentrant=False)
         else:
-            x = period(x, pp)
+            x, aux = period(x, aux, pp)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(cfg, params, x)
     labels = batch["labels"].to(device=lg.device, dtype=torch.int64)
     lse = torch.logsumexp(lg.float(), dim=-1)
     ll = lg.gather(-1, labels[..., None])[..., 0].float()
     nll = (lse - ll).mean()
-    aux = torch.zeros((), dtype=torch.float32, device=lg.device)
     loss = nll + aux
     return loss, {"loss": loss, "nll": nll, "aux": aux}
 
@@ -215,18 +237,20 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
     The flash kernel masks by index, so attention follows the positions'
     order only where their first (t) component is ``arange(S)``; the
     reference masks by that component (ROADMAP, reference caveats)."""
-    _check_supported(cfg)
     x, positions = _inputs(cfg, params, batch)
+    cache = {}
+    for name, spec in _prelude(cfg):
+        x, cache[name], _ = _apply_slot(cfg, spec, params[name], x, positions,
+                                        capacity=capacity)
     filled = {}
-    for i in range(cfg.num_periods):
+    for i in range(scanned_periods(cfg)):
         for j, spec in enumerate(cfg.layer_pattern):
             slot = f"slot{j}"
-            x, nc = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
-                                positions, capacity=capacity)
+            x, nc, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
+                                   positions, capacity=capacity)
             filled.setdefault(slot, []).append(nc)
-    cache = {"blocks": {slot: {n: torch.stack([c[n] for c in caches])
-                               for n in caches[0]}
-                        for slot, caches in filled.items()}}
+    cache["blocks"] = {slot: {n: torch.stack([c[n] for c in caches]) for n in caches[0]}
+                       for slot, caches in filled.items()}
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(cfg, params, x[:, -1:])
     return lg[:, 0], cache
@@ -263,7 +287,6 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dic
     The step reads its inputs, writes the cache in place and reads nothing
     back to the host, so one capture of it with a tensor position serves
     every position (``serving/decode_graph.py``)."""
-    _check_supported(cfg)
     x = (L.embed(cfg, params["embed"], tokens) if cfg.embed_inputs
          else tokens.to(torch_dtype(cfg.dtype)).contiguous())
     B = x.shape[0]
@@ -271,12 +294,15 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dic
         check_position(cfg, cache, cache_pos)
         cache_pos = torch.full((), cache_pos, dtype=torch.int64, device=x.device)
     positions = _default_positions(cfg, B, 1, cache_pos)
-    for i in range(cfg.num_periods):
+    for name, spec in _prelude(cfg):
+        x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, cache=cache[name],
+                              cache_pos=cache_pos)
+    for i in range(scanned_periods(cfg)):
         for j, spec in enumerate(cfg.layer_pattern):
             slot = f"slot{j}"
-            x, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
-                               positions, cache=_period(cache["blocks"][slot], i),
-                               cache_pos=cache_pos)
+            x, _, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
+                                  positions, cache=_period(cache["blocks"][slot], i),
+                                  cache_pos=cache_pos)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(cfg, params, x)
     return lg[:, 0], cache

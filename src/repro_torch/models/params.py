@@ -20,6 +20,8 @@ __all__ = ["ParamMeta", "init_params", "map_tree", "torch_dtype"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+#: values of a leaf drawn in one float32 call; a larger leaf is drawn in slices
+_DRAW_AT_ONCE = 2**31
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,8 +71,17 @@ def _init_one(meta: ParamMeta, generator: torch.Generator, device, dtype):
     # layer dim included
     fan_in = meta.shape[0] if len(meta.shape) == 1 else int(np.prod(meta.shape[:-1]))
     scale = meta.scale if meta.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.randn(meta.shape, generator=generator, device=device, dtype=torch.float32)
-    return w.mul_(scale).to(dtype)
+    if math.prod(meta.shape) <= _DRAW_AT_ONCE:
+        w = torch.randn(meta.shape, generator=generator, device=device, dtype=torch.float32)
+        return w.mul_(scale).to(dtype)
+    # a stacked leaf of MoE experts (DBRX's w_gate at 8 layers: 8.5 G values)
+    # is drawn slice by slice along its first dim, so its float32 draw never
+    # needs more than one slice's room
+    out = torch.empty(meta.shape, dtype=dtype, device=device)
+    for piece in out:
+        piece.copy_(torch.randn(piece.shape, generator=generator, device=device,
+                                dtype=torch.float32).mul_(scale))
+    return out
 
 
 def init_params(meta_tree, generator: torch.Generator, device, dtype=torch.bfloat16):

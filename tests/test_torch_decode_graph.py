@@ -3,8 +3,9 @@
 
 Both run the same kernels on the same inputs, so their logits must be equal
 bit for bit.  On the yi, falcon-mamba, h2o-danube (a sliding window),
-musicgen (2 codebooks: a [B, 1, K] token buffer) and minicpm3 (MLA: a latent
-cache) smoke configs (bf16), and on qwen2-vl's (embeds: a [B, 1, D] input
+musicgen (2 codebooks: a [B, 1, K] token buffer), minicpm3 (MLA: a latent
+cache), dbrx (MoE: routing and dispatch inside the graph) and deepseek-v2
+(MoE after a dense prelude layer) smoke configs (bf16), and on qwen2-vl's (embeds: a [B, 1, D] input
 buffer; no engine drives it):
 
 * the serving engine with the graph (the default on the card) and without
@@ -32,7 +33,8 @@ from repro_torch.models.params import map_tree
 from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.engine import Request, ServeEngine, greedy_sample
 
-ARCHS = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "musicgen_large", "minicpm3_4b"]
+ARCHS = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "musicgen_large", "minicpm3_4b",
+         "dbrx_132b", "deepseek_v2_236b"]
 #: the captured step alone also takes a model that takes embeddings
 REPLAY_ARCHS = ARCHS + ["qwen2_vl_7b"]
 SLOTS, CAP, PROMPT, STEPS = 4, 64, 8, 16
@@ -62,7 +64,7 @@ def _norms_per_forward(cfg) -> int:
     mla = cfg.attn is not None and cfg.attn.kind == "mla"
     per_period = sum(1 + (s.ffn != "none") + 2 * (mla and s.mixer == "attn")
                      for s in cfg.layer_pattern)
-    return per_period * cfg.num_periods + 1
+    return per_period * cfg.num_periods + 1  # a prelude layer has the period's norms
 
 
 def _serve(cfg, params, cuda_graph: bool, waves):

@@ -2,8 +2,8 @@
 package's (``repro.serving.engine``), on the same parameters, prompts,
 slots and capacity, and the port's serve CLI.
 
-Float32 copies of the yi, falcon-mamba, musicgen and minicpm3 (MLA) smoke
-configs, so the
+Float32 copies of the yi, falcon-mamba, musicgen, minicpm3 (MLA), dbrx
+(MoE) and deepseek-v2 (MoE, a dense prelude, MLA) smoke configs, so the
 logits agree to 1e-5 of their scale.  The port's engine is fed the reference's
 tokens (teacher forcing), so every step's logits are comparable even where
 a near-tie could flip a greedy choice; its own greedy choice must equal
@@ -71,6 +71,19 @@ def test_minicpm3_engine_matches_reference():
     """MLA: the expanded prefill fills the latent cache that the absorbed
     decode steps read."""
     _engine_matches_reference("minicpm3_4b")
+
+
+def test_dbrx_engine_matches_reference():
+    """MoE in every layer: as in the reference, each call routes its own
+    tokens at its own capacity (the prefill's 4 x 12, the step's 4), and
+    the left pads (token 0) of the shorter prompts are routed and take
+    capacity slots."""
+    _engine_matches_reference("dbrx_132b")
+
+
+def test_deepseek_engine_matches_reference():
+    """The dense prelude layer, MLA and shared experts."""
+    _engine_matches_reference("deepseek_v2_236b")
 
 
 def test_engine_refuses_a_model_that_takes_embeddings():
@@ -175,6 +188,10 @@ def test_serve_cli_runs_musicgen_smoke_on_cpu():
 
 def test_serve_cli_runs_minicpm3_smoke_on_cpu():
     _serve_cli_runs_smoke_on_cpu("minicpm3_4b")
+
+
+def test_serve_cli_runs_dbrx_smoke_on_cpu():
+    _serve_cli_runs_smoke_on_cpu("dbrx_132b")
 
 
 def _serve_cli_runs_smoke_on_cpu(arch):

@@ -295,6 +295,11 @@ def test_flash_attention_kernel_on_card(cuda, BH, Sq, Skv, hd, g, win, causal):
     (16, 64, 64, 24, 16, 1, None, True),     # minicpm3 smoke: q/k 24 (padded to 32), v 16
     (8, 100, 100, 24, 16, 2, 30, True),      # ... ragged, GQA, windowed
     (4, 1, 1, 96, 64, 1, None, True),        # one token
+    (512, 512, 512, 192, 128, 1, None, True),  # deepseek-v2's MLA prefill, 4 x 128 heads
+    (128, 300, 300, 192, 128, 1, None, True),  # ragged
+    (8, 33, 77, 192, 128, 2, None, False),     # Sq != Skv, GQA, non-causal
+    (16, 200, 200, 192, 128, 1, 50, True),     # a window edge inside a 32-key tile
+    (4, 1, 1, 192, 128, 1, None, True),        # one token
 ])
 def test_flash_attention_unequal_head_dims_on_card(cuda, BH, Sq, Skv, hd, hdv, g, win, causal):
     """v's head dim differs from q's and k's (MLA's expanded prefill): the
@@ -315,7 +320,8 @@ def test_flash_attention_unequal_head_dims_on_card(cuda, BH, Sq, Skv, hd, hdv, g
 # fill no warp evenly), the smoke widths 8 and 96, at the decode step's and the
 # prefill's T and one row more than the latter; then the widths past the
 # register path's 16 warps x 4 vectors, which take the general kernel
-RMSNORM_WIDTHS = (8, 96, 256, 512, 768, 1536, 2560, 3072, 3584, 3840, 4096, 4104, 5120, 8192)
+RMSNORM_WIDTHS = (8, 96, 256, 512, 768, 1536, 2560, 3072, 3584, 3840, 4096, 4104, 5120, 6144,
+                  8192)
 RMSNORM_CASES = [(100, 96, torch.float32), (3, 64, torch.float32), (5, 8, torch.bfloat16)] + [
     (T, d, dt) for dt in (torch.bfloat16, torch.float32) for T in (1, 4, 2048, 2049)
     for d in RMSNORM_WIDTHS] + [
@@ -576,6 +582,9 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "flash_mla_last_v_column_block_unwritten": (
         "flash_attention", "for (int nb = 0; nb < HDV / 8; ++nb)",
         "for (int nb = 0; nb < (HDQK != HDV ? HDV / 8 - 2 : HDV / 8); ++nb)"),
+    "flash_mla192_rope_columns_left_out_of_the_score": (
+        "flash_attention", "for (int kk = 0; kk < KQ; ++kk) {",
+        "for (int kk = 0; kk < (HDQK == 192 ? KQ - 4 : KQ); ++kk) {"),
     "flash_bwd_delta_dropped": (
         "flash_attention_bwd", "if (row < rows && lane % LPR == 0) delta[row] = s;  // rowsum(dO * O)",
         "if (row < rows && lane % LPR == 0) delta[row] = 0.f;"),
@@ -710,9 +719,10 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         call = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, group_size=8)[:3]  # noqa: E731
         want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
                                            do.float(), group_size=8)
-    else:  # yi's prefill; the hd faults at h2o-danube's, gemma's and minicpm3's
+    else:  # yi's prefill; the hd faults at h2o-danube's, gemma's, deepseek-v2's and minicpm3's
         n, g, hd, hdv = ((128, 4, 120, 120) if "hd120" in fault else
                          (64, 1, 256, 256) if "hd256" in fault else
+                         (128, 1, 192, 128) if "mla192" in fault else
                          (160, 1, 96, 64) if "mla" in fault else (128, 8, 128, 128))
         q, k, v = (_with_slack(torch.randn(m * 512 * d, generator=gen, device=cuda))
                    .view(m, 512, d) for m, d in ((n, hd), (n // g, hd), (n // g, hdv)))

@@ -11,6 +11,7 @@ in the reference, the filled cache takes the model dtype.
 """
 
 import dataclasses
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from repro.models import lm as JLM
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.models import lm as TLM
+from repro_torch.models.params import map_tree
 
 TOL_F32 = 1e-5
 B, S, CAP, STEPS = 2, 16, 24, 4
@@ -258,14 +260,21 @@ def test_bf16_params_carry_across_exactly():
 
 @pytest.mark.parametrize("arch", ["dbrx_132b", "jamba_1_5_large_398b", "deepseek_v2_236b"])
 def test_registry_names_what_is_not_ported(arch):
+    """The MoE configs were the last the registry named as not ported: it
+    now returns them, and knows no architecture it refuses."""
+    from repro_torch import configs
     from repro_torch.configs import get_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        get_config(arch)
+    assert not hasattr(configs, "_NOT_PORTED")
+    assert get_config(arch).family in ("moe", "hybrid")
+    assert get_config(arch).moe is not None and get_smoke_config(arch).moe is not None
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(arch + "_x")
 
 
 PORTED = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "gemma_7b", "musicgen_large",
-          "qwen2_vl_7b", "minicpm3_4b"]
+          "qwen2_vl_7b", "minicpm3_4b", "dbrx_132b", "deepseek_v2_236b",
+          "jamba_1_5_large_398b"]
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -279,3 +288,28 @@ def test_registry_loads_the_ported_configs_as_the_reference_has_them(arch):
                       (get_smoke_config(arch), jax_smoke_config(arch))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert port.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_chip_smoke_float32_reads_give_the_float32_prefill(arch, monkeypatch):
+    """``chip_smoke.py``'s float32 reference prefill casts each weight where
+    it is read (``float32_reads``, so a full-width MoE model's float32 copy
+    fits the card): its logits and caches equal those of the whole tree cast
+    at once, bit for bit, for every config, whether it has a tied table, an
+    untied one or none (embeds)."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = get_smoke_config(arch)
+    params = TLM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    k = cfg.num_codebooks
+    batch = ({"tokens": torch.randint(0, cfg.vocab_size, (2, 8, k) if k > 1 else (2, 8),
+                                      generator=gen)} if cfg.embed_inputs
+             else {"embeds": torch.randn(2, 8, cfg.d_model, generator=gen)})
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    want, want_cache = TLM.prefill(cfg32, map_tree(lambda _, t: t.float(), params), batch)
+    got, got_cache = TLM.prefill(cfg32, chip_smoke.float32_reads(params), batch)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    map_tree(lambda path, a, b: None if torch.equal(a, b) else pytest.fail(path),
+             got_cache, want_cache)

@@ -94,7 +94,7 @@ def _reference_step(jcfg, params, batch):
 @pytest.mark.parametrize("arch,micro,remat", [
     ("yi_6b", 1, False), ("yi_6b", 2, False), ("yi_6b", 1, True), ("yi_6b", 2, True),
     ("gemma_7b", 1, False), ("h2o_danube_3_4b", 1, False), ("musicgen_large", 2, False),
-    ("qwen2_vl_7b", 1, False),
+    ("qwen2_vl_7b", 1, False), ("dbrx_132b", 2, False),
 ])
 def test_train_step_matches_the_reference(arch, micro, remat):
     jcfg, tcfg = _configs(arch, microbatches=micro, remat=remat)
