@@ -80,12 +80,20 @@ Phases, each reported on its own lines:
 8. training.  (a) The training forward's lse and the flash backward
    kernel against their plain versions at Yi's training shape (q [32,
    2048, 128], kv [4, 2048, 128], g = 8, causal), a ragged S = 300, a
-   window of 100 and the smoke head dim 16 (dq, dk, dv at 2e-2 in
-   ``ref.scaled_err``, dq's first row in ``ref.dq_scaled_err``; lse and
-   delta at 1e-5; a second call of the backward to the same bits), faults
-   planted in copies of the backward's source (delta dropped, dK/dV summed
-   over one head of the group, the diagonal tile unmasked, the last head
-   slice's dK/dV partial left out of their sum) must each fail that check;
+   window of 100 and the smoke head dim 16, and at every other head-dim
+   pair: one microbatch of Gemma (q, k, v [16, 2048, 256]), Danube (q [32,
+   4608, 120], kv [8, 4608, 120], window 4096, past the window), MusicGen
+   ([32, 2048, 64]), MiniCPM3 (q/k [40, 2048, 96], v [.., 64]) and
+   DeepSeek-V2 (q/k [128, 2048, 192], v [.., 128]), the smoke pair (24,
+   16), a ragged S = 300 at 256 and at (96, 64), and a window edge inside
+   a tile at 120 (dq, dk, dv at 2e-2 in ``ref.scaled_err``, dq's first row
+   in ``ref.dq_scaled_err``; lse and delta at 1e-5; a second call of the
+   backward to the same bits), faults planted in copies of the backward's
+   source (delta dropped, dK/dV summed over one head of the group, the
+   diagonal tile unmasked, the last head slice's dK/dV partial left out of
+   their sum; the MLA pair's dV partial written at the q/k width and its
+   delta read at it, hd 256's second column half of dK dropped, hd 120's
+   pad columns left unzeroed) must each fail that check;
    the RMSNorm backward (one launch: dw summed in it after a grid-wide
    barrier) at x [2048, 4096], a ragged T = 2049, the smoke width 64 and
    every other config's widths at T = 2048 (3840, 3072, 2048, 2560, 768,
@@ -95,17 +103,23 @@ Phases, each reported on its own lines:
    row's lanes, the last row team left out of the CTA's dw row), which
    must each fail that check; each timed as in phase 3, beside its plain
    version and SDPA's (or ``F.rms_norm``'s) backward
-   through autograd (the forward and backward less the forward).  (b) One
-   train step of Yi-6B at full width and 2 layers through the kernels and
-   the same step through their plain versions, from the same parameters and
-   batch (8 microbatches of 1 x 2048): loss, ``grad_norm``, every gradient
-   and every updated parameter must agree.  (c) ``launch/train.py``'s loop
-   on Yi-6B at full width and 16 of its 32 layers, batch 8 x 2048 in 8
-   microbatches with remat, one repeated batch, 6 steps at learning rate
-   3e-4 after 1 warmup step: the loss must fall, and each step must launch
-   the kernels as the code implies (flash forward 2LM, backward LM, RMSNorm
-   forward (4L+1)M, backward (2L+1)M); step time, tokens/s, model FLOPs per
-   second over the card's peak and peak memory are printed.  (d) At the
+   through autograd (the forward and backward less the forward; SDPA
+   takes Danube's window as a mask).  (b) One train step at full width and
+   2 layers of Yi-6B, H2O-Danube3-4B (sequences of 4608, so the window
+   masks), Gemma-7B, MusicGen-Large and MiniCPM3-4B, each through the
+   kernels and through their plain versions, from the same parameters and
+   batch (8 microbatches of 1 sequence): loss, ``grad_norm``, every
+   gradient and every updated parameter must agree.  (c)
+   ``launch/train.py``'s loop at full width on Yi-6B at 16 of its 32
+   layers for 6 steps, Gemma-7B at 10 of its 28, MiniCPM3-4B at all 62,
+   H2O-Danube3-4B at all 24 (sequences of 4608, past its window) and
+   MusicGen-Large at all 48 for 4 (the depth whose AdamW state fits the
+   card), batch 8 x 2048 in 8 microbatches with remat, one repeated batch, learning rate 3e-4 after
+   1 warmup step: the loss must fall, and each step must launch the
+   kernels as the code implies (flash forward 2LM, backward LM, RMSNorm
+   forward (2nL+1)M, backward (nL+1)M, n the norms of a layer: 2, 4 with
+   MLA's); step time, tokens/s, model FLOPs per second over the card's
+   peak and peak memory are printed.  (d) At the
    smoke config's size: a run stopped at its checkpoint and resumed takes
    its next step to the loss, parameters and optimizer state of a run that
    never stopped, bit for bit.
@@ -206,6 +220,19 @@ FLASH_BWD_FAULTS = {
     "last_partial_dropped": (
         "for (int j = 1; j < slices; ++j) {  // the partials in slice order",
         "for (int j = 1; j < slices - 1; ++j) {", "yi train"),
+    "mla_dv_plane_at_hdqk_width": (
+        "float* const rv = pv + (size_t)kp * HDV + c0v + 2 * t;",
+        "float* const rv = pv + (size_t)kp * HDQK + c0v + 2 * t;", "minicpm3 train"),
+    "hd256_second_dk_half_dropped": (
+        "make_float2(dka[4 * nb + 2 * i], dka[4 * nb + 2 * i + 1]);  // dK",
+        "c0q ? make_float2(0.f, 0.f) : make_float2(dka[4 * nb + 2 * i], dka[4 * nb + 2 * i + 1]);",
+        "gemma train"),
+    "hd120_pad_columns_unzeroed": (
+        "const int bytes = gr < n && c * 8 < HD ? 16 : 0;  // zeros past the end and in the pad",
+        "const int bytes = gr < n ? 16 : 0;", "danube train"),
+    "mla_delta_read_at_hdqk": (
+        "constexpr int VPR = HDV / 8;  // 16-byte vectors of a row of o or dO",
+        "constexpr int VPR = HDQK / 8;", "minicpm3 train"),
 }
 #: faults planted in copies of ``csrc/rmsnorm_bwd.cu`` (name: sound line,
 #: faulty line, phase-8 shape it is checked at): each must fail that shape's
@@ -227,23 +254,48 @@ RMSNORM_BWD_FAULTS = {
 #: every planted fault, by the kernel whose source it is planted in
 PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS,
            "flash_attention_bwd": FLASH_BWD_FAULTS, "rmsnorm_bwd": RMSNORM_BWD_FAULTS}
-#: phase 8's attention cases: (label, BH, g, S, hd, window): one 2048-token
-#: sequence of Yi's 32 heads over 4 (a microbatch of the train step), a
-#: ragged S, a window edge inside a 64-row tile, the smoke configs' head dim
+#: phase 8's attention cases: (label, BH, g, S, hd, hd_v, window): one
+#: sequence of a model's heads (a microbatch of its train step: 2048 tokens,
+#: Danube's 4608 past its window of 4096), ragged S, window edges inside a
+#: 64-row tile, the smoke configs' head dims
 TRAIN_FLASH_SPECS = [
-    ("yi train", 32, 8, 2048, 128, None),
-    ("ragged", 32, 8, 300, 128, None),
-    ("window 100", 32, 8, 512, 128, 100),
-    ("hd 16 (smoke)", 16, 4, 128, 16, None),
+    ("yi train", 32, 8, 2048, 128, 128, None),
+    ("ragged", 32, 8, 300, 128, 128, None),
+    ("window 100", 32, 8, 512, 128, 128, 100),
+    ("hd 16 (smoke)", 16, 4, 128, 16, 16, None),
+    ("gemma train", 16, 1, 2048, 256, 256, None),
+    ("danube train", 32, 4, 4608, 120, 120, 4096),
+    ("musicgen train", 32, 1, 2048, 64, 64, None),
+    ("minicpm3 train", 40, 1, 2048, 96, 64, None),
+    ("deepseek train", 128, 1, 2048, 192, 128, None),
+    ("hd 24/16 (minicpm3 smoke)", 16, 1, 128, 24, 16, None),
+    ("ragged hd 256", 16, 1, 300, 256, 256, None),
+    ("ragged minicpm3", 40, 1, 300, 96, 64, None),
+    ("window 100, hd 120", 32, 4, 512, 120, 120, 100),
 ]
 #: phase 8's RMSNorm backward shapes: Yi's microbatch, ragged, the smoke width,
 #: then every other config's widths at a microbatch of 2048 tokens (Danube,
 #: Gemma, MusicGen, MiniCPM3's hidden, q_norm and kv_norm, Qwen2-VL)
 TRAIN_RMSNORM_SPECS = [(2048, 4096), (2049, 4096), (2048, 64), (2048, 3840), (2048, 3072),
                        (2048, 2048), (2048, 2560), (2048, 768), (2048, 256), (2048, 3584)]
-#: phase 8's full-width run: Yi-6B at 16 of its 32 layers (the state of all
-#: 32 would not fit one card), the config's own batch, microbatches and remat
-TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 8, 2048, 6
+#: phase 8's batch: 8 sequences, one a microbatch (the configs' 8), of 2048
+#: tokens (Danube's 4608, past its window of 4096)
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+#: phase 8 (b): (arch, sequence length), each at full width and 2 layers
+TRAIN_AGAINST_PLAIN = [("yi_6b", TRAIN_SEQ), ("h2o_danube_3_4b", 4608),
+                       ("gemma_7b", TRAIN_SEQ), ("musicgen_large", TRAIN_SEQ),
+                       ("minicpm3_4b", TRAIN_SEQ)]
+#: phase 8 (c): (arch, layers, steps, sequence length) at full width, the
+#: config's own microbatches and remat, at the depth whose AdamW state (~16
+#: B a parameter) fits one card: Yi-6B at 16 of its 32 layers (3.29 B
+#: parameters, ~54 GB), Gemma-7B at 10 of its 28 (its tied embedding and 10
+#: layers are 3.55 B, ~58 GB, with ~5 GB of logits a microbatch at a
+#: vocabulary of 256,000), MiniCPM3-4B at all 62 (4.26 B, ~69 GB),
+#: H2O-Danube3-4B at all 24 (3.96 B, ~64 GB) on sequences of 4608, past its
+#: window, and MusicGen-Large at all 48 (2.45 B, ~40 GB)
+TRAIN_FULL_WIDTH = [("yi_6b", 16, 6, TRAIN_SEQ), ("gemma_7b", 10, 4, TRAIN_SEQ),
+                    ("minicpm3_4b", 62, 4, TRAIN_SEQ), ("h2o_danube_3_4b", 24, 4, 4608),
+                    ("musicgen_large", 48, 4, TRAIN_SEQ)]
 #: the loss averages 16,384 per-token terms: the kernels' bf16 rounding,
 #: which differs from the plain versions' float32 element by element,
 #: averages out in it
@@ -1493,10 +1545,16 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
     for name, (_, _, label) in FLASH_BWD_FAULTS.items():
         faults.setdefault(label, []).append(name)
     fwd_cases, bwd_cases = [], []
-    for label, BH, g, S, hd, window in TRAIN_FLASH_SPECS:
-        q, k, v = flash_inputs(gen, BH, g, S, S, hd)
-        do = torch.randn(BH, S, hd, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def slack(x):  # x as the head of a longer allocation, as flash_inputs makes them
+        buf = torch.empty(x.numel() + 64, dtype=x.dtype, device=x.device)
+        return buf[:x.numel()].view(x.shape).copy_(x)
+
+    for label, BH, g, S, hd, hdv, window in TRAIN_FLASH_SPECS:
+        q, k, v = flash_inputs(gen, BH, g, S, S, hd, hdv)
+        do = torch.randn(BH, S, hdv, generator=gen, device="cuda").to(torch.bfloat16)
         kw = dict(group_size=g, causal=True, window=window)
+        iters = 10 if BH * S <= 2**16 else 5  # fewer calls a graph where the plain one is long
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         got = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         torch.cuda.synchronize()
@@ -1517,12 +1575,13 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
             raise AssertionError(f"flash training {label}: two backward calls differ")
         del again
         planted = {}
+        o_s, do_s = slack(o), slack(do)  # a fault reading past a row's end reads memory
         for name in faults.get(label, []):
             saved = build._LIBS["flash_attention_bwd"]
             try:
                 build._LIBS["flash_attention_bwd"] = build.load(fault_libs[name],
                                                                 fb_mod._SIGNATURES)
-                faulty = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)[:3]
+                faulty = flash_attention_bwd_cuda(q, k, v, o_s, lse, do_s, **kw)[:3]
                 torch.cuda.synchronize()
             finally:
                 build._LIBS["flash_attention_bwd"] = saved
@@ -1533,7 +1592,9 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
                 raise AssertionError(f"planted fault {name} passed the check: {f_err}")
             planted[name] = f_err if math.isfinite(f_err) else str(f_err)
             del faulty
-        shape = (f"{label}: q[{BH},{S},{hd}] kv[{BH // g},{S},{hd}] g={g} causal"
+        del o_s, do_s
+        kv = f"kv[{BH // g},{S},{hd}]" if hdv == hd else f"k[{BH // g},{S},{hd}] v[..,{hdv}]"
+        shape = (f"{label}: q[{BH},{S},{hd}] {kv} g={g} causal"
                  f"{f' window={window}' if window else ''} bf16")
         lib = flash_library(S, S, True, window)
         fwd = {"shape": f"{shape}, with lse", "scaled_err": max(errs["out"], errs["lse"]),
@@ -1541,21 +1602,22 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
                "max_abs_err": (o.float() - want_o).abs().max().item(),
                **_times(lambda q, k, v: flash_attention_cuda(q, k, v, return_lse=True, **kw),
                         lambda q, k, v: flash_attention_ref(q, k, v, return_lse=True, **kw),
-                        lib, (q, k, v), iters=10),
-               **flash_bounds(BH, g, S, S, hd, True, window)}
+                        lib, (q, k, v), iters=iters),
+               **flash_bounds(BH, g, S, S, hd, True, window, hdv)}
         pairs = _attn_pairs(S, S, True, window)
-        nbytes = (4 * BH + 4 * (BH // g)) * S * hd * 2 + BH * S * 4  # q o do dq, k v dk dv, lse
+        # q dq and k dk at hd, o do and v dv at hd_v, lse
+        nbytes = 2 * (BH + BH // g) * S * (hd + hdv) * 2 + BH * S * 4
         bwd = {"shape": shape, "scaled_err": max(errs[n] for n in ("dq", "dk", "dv")),
                "scaled_err_delta": errs["delta"],
                "max_abs_err": max((a.float() - b).abs().max().item()
                                   for a, b in zip(got[:3], want)),
                **_times(lambda *a: flash_attention_bwd_cuda(*a, **kw)[:3],
                         lambda *a: flash_attention_bwd_ref(*a, **kw),
-                        _autograd_library(lib, 3), (q, k, v, o, lse, do), iters=10),
+                        _autograd_library(lib, 3), (q, k, v, o, lse, do), iters=iters),
                "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
-               # P, dV, dP, dQ, dK over the unmasked pairs (P and dP computed
-               # twice by the kernels, counted once)
-               "bound_ops_ms": 2 * 5 * hd * BH * pairs / PEAK_BF16_TC_FLOPS * 1e3}
+               # P, dQ, dK at hd and dV, dP at hd_v over the unmasked pairs (P
+               # and dP computed twice by the kernels, counted once)
+               "bound_ops_ms": 2 * (3 * hd + 2 * hdv) * BH * pairs / PEAK_BF16_TC_FLOPS * 1e3}
         if planted:
             bwd["planted_fault_scaled_err"] = planted
         _less_forward(bwd, {"cold": fwd["library_ms"] if fwd["inputs"] == "cold" else None,
@@ -1632,11 +1694,24 @@ def rmsnorm_train_cases(gen, fault_libs) -> list:
     return cases
 
 
-def _yi(layers: int):
-    """Yi-6B at its published widths and ``layers`` of its 32 layers."""
+def _config(arch: str, layers: int):
+    """``arch`` at its published widths and ``layers`` of its layers."""
     from repro_torch.configs import get_config
 
-    return dataclasses.replace(get_config("yi_6b"), num_layers=layers)
+    return dataclasses.replace(get_config(arch), num_layers=layers)
+
+
+def _launches_per_step(cfg) -> dict:
+    """The kernels' launches one train step implies, in each of its M
+    microbatches: every layer's forward once, and once more in the backward
+    under remat; every layer's backward once; the final norm once each way.
+    A layer has 2 norms, and MLA's q_norm (with a q_lora_rank) and kv_norm
+    beside them."""
+    L, M, a = cfg.num_layers, cfg.parallel.microbatches, cfg.attn
+    r = 2 if cfg.parallel.remat else 1
+    n = 2 + (a.kind == "mla") * (1 + bool(a.q_lora_rank))
+    return {"flash_attention": r * L * M, "flash_attention_bwd": L * M,
+            "rmsnorm": (r * n * L + 1) * M, "rmsnorm_bwd": (n * L + 1) * M}
 
 
 def _step_share(g, norm: float):
@@ -1646,17 +1721,17 @@ def _step_share(g, norm: float):
     return cg / (cg.abs() + 1e-8)
 
 
-def train_path_against_plain(seed: int = 0) -> dict:
-    """Phase 8 (b): one train step of Yi-6B at full width and 2 layers
-    (batch 8 x 2048 in 8 microbatches, remat) through the kernels, and the
-    same step through their plain versions, from the same parameters and
-    batch.  The loss within ``LOSS_TOL`` (relative), ``grad_norm`` and every
-    gradient (rms over its leaf) within the bf16 tolerance, and every
-    updated parameter within what the two gradients imply for a first AdamW
-    step (``lr`` times the difference of the shares of ``_step_share``), one
-    bf16 unit in the last place of the larger result (each rounds once, by
-    at most half of one), and 8 float32 units at the scale of the update's
-    terms (``|p| + lr``)."""
+def train_path_against_plain(arch: str, seq: int, seed: int = 0) -> dict:
+    """Phase 8 (b): one train step of ``arch`` at full width and 2 layers
+    (batch ``TRAIN_BATCH`` x ``seq`` in the config's 8 microbatches, remat)
+    through the kernels, and the same step through their plain versions,
+    from the same parameters and batch.  The loss within ``LOSS_TOL``
+    (relative), ``grad_norm`` and every gradient (rms over its leaf) within
+    the bf16 tolerance, and every updated parameter within what the two
+    gradients imply for a first AdamW step (``lr`` times the difference of
+    the shares of ``_step_share``), one bf16 unit in the last place of the
+    larger result (each rounds once, by at most half of one), and 8 float32
+    units at the scale of the update's terms (``|p| + lr``)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1666,11 +1741,11 @@ def train_path_against_plain(seed: int = 0) -> dict:
     from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state, leaves
     from repro_torch.training.train_step import batch_to, grad_and_metrics
 
-    cfg = _yi(2)
+    cfg = _config(arch, 2)
     L, M = cfg.num_layers, cfg.parallel.microbatches
     opt_cfg = OptConfig(learning_rate=3e-4, warmup_steps=1)
     params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
-    batch = batch_to(make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed), "cuda")
+    batch = batch_to(make_batch(cfg, TRAIN_BATCH, seq, seed=seed), "cuda")
     runs = {}
     for mode in ("kernels", "plain"):
         p = map_tree(lambda _, t: t.clone(), params)
@@ -1688,12 +1763,10 @@ def train_path_against_plain(seed: int = 0) -> dict:
         del grads, p
         gc.collect()
     kern, plain = runs["kernels"], runs["plain"]
-    want = {**dict.fromkeys(kern["launches"], 0), "flash_attention": 2 * L * M,
-            "flash_attention_bwd": L * M, "rmsnorm": (4 * L + 1) * M,
-            "rmsnorm_bwd": (2 * L + 1) * M}
+    want = {**dict.fromkeys(kern["launches"], 0), **_launches_per_step(cfg)}
     if kern["launches"] != want or any(plain["launches"].values()):
-        raise AssertionError(f"launches: kernels {kern['launches']} (want {want}), plain "
-                             f"{plain['launches']} (want none)")
+        raise AssertionError(f"{arch} launches: kernels {kern['launches']} (want {want}), "
+                             f"plain {plain['launches']} (want none)")
     loss_rel = abs(kern["loss"] - plain["loss"]) / abs(plain["loss"])
     gnorm_rel = abs(kern["grad_norm"] - plain["grad_norm"]) / plain["grad_norm"]
     grad_rms = max(_rms_rel(a, b) for a, b in zip(kern["grads"], plain["grads"]))
@@ -1717,15 +1790,15 @@ def train_path_against_plain(seed: int = 0) -> dict:
                 n: t.flatten()[i].item() for n, t in (("p_kernels", pk), ("p_plain", pp),
                                                       ("p_before", pb),
                                                       ("g_kernels", gk), ("g_plain", gp))}}
-    res = {"config": f"yi_6b, {L} layers, full width", "batch": [TRAIN_BATCH, TRAIN_SEQ],
+    res = {"config": f"{arch}, {L} layers, full width", "batch": [TRAIN_BATCH, seq],
            "microbatches": M, "loss": {m: r["loss"] for m, r in runs.items()},
            "grad_norm": {m: r["grad_norm"] for m, r in runs.items()},
            "loss_rel_diff": loss_rel, "grad_norm_rel_diff": gnorm_rel,
            "grads_worst_rms_rel": grad_rms, "params_worst_over_bound": worst_step,
            "params_worst_element": worst_at,
            "launches": kern["launches"], "seconds": {m: r["seconds"] for m, r in runs.items()}}
-    print(f"[train] kernel path against plain path, one step of Yi-6B at full width and {L} "
-          f"layers ({TRAIN_BATCH} x {TRAIN_SEQ}, {M} microbatches): loss {kern['loss']:.6f} "
+    print(f"[train] kernel path against plain path, one step of {arch} at full width and {L} "
+          f"layers ({TRAIN_BATCH} x {seq}, {M} microbatches): loss {kern['loss']:.6f} "
           f"against {plain['loss']:.6f} (rel {loss_rel:.3g}, tol {LOSS_TOL}); grad_norm "
           f"{kern['grad_norm']:.6f} against {plain['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
           f"{TOL_BF16}); worst gradient rms rel {grad_rms:.3g} (tol {TOL_BF16}); updated "
@@ -1738,10 +1811,30 @@ def train_path_against_plain(seed: int = 0) -> dict:
     return res
 
 
-def train_full_width(seed: int = 0) -> dict:
-    """Phase 8 (c): ``launch/train.py``'s loop on Yi-6B at full width and
-    ``TRAIN_LAYERS`` layers; returns its numbers and the kernels' launches
-    over the run."""
+def _model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step: 6 per token and weight of every
+    product (the embedding table is a lookup, but also the head where it is
+    tied; the norms' weights are no product), and the attention's QK^T and
+    PV over the unmasked pairs, forward and backward (3x)."""
+    from repro_torch.models import lm
+
+    lookup = 0
+    for path, leaf in _leaf_paths(lm.model_meta(cfg)):
+        name = path.rsplit("/", 1)[-1]
+        if name.endswith("norm") or (name == "embedding" and not cfg.tie_embeddings):
+            lookup += math.prod(leaf.shape)
+    a = cfg.attn
+    hd_qk, hd_v = (a.qk_head_dim, a.v_head_dim) if a.kind == "mla" else (a.head_dim,) * 2
+    pairs = _attn_pairs(seq, seq, True, a.sliding_window)
+    attn = 6 * pairs * (hd_qk + hd_v) * a.num_heads * cfg.num_layers * batch
+    return 6 * (n_params - lookup) * batch * seq + attn
+
+
+def train_full_width(arch: str, layers: int, steps: int, seq: int, seed: int = 0) -> dict:
+    """Phase 8 (c): ``launch/train.py``'s loop on ``arch`` at full width and
+    ``layers`` layers, ``steps`` steps (the first a warm-up) on one repeated
+    batch of ``TRAIN_BATCH`` x ``seq`` tokens; returns its numbers and the
+    kernels' launches over the run."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1749,21 +1842,17 @@ def train_full_width(seed: int = 0) -> dict:
     from repro_torch.models import lm
     from repro_torch.training.optimizer import OptConfig
 
-    cfg = _yi(TRAIN_LAYERS)
-    L, M, a = cfg.num_layers, cfg.parallel.microbatches, cfg.attn
-    if (cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim, cfg.d_ff, cfg.vocab_size,
-            cfg.dtype, M, cfg.parallel.remat) != (4096, 32, 4, 128, 11008, 64000, "bfloat16",
-                                                  8, True):
-        raise AssertionError(f"not Yi-6B's published widths: {cfg}")
+    cfg = _config(arch, layers)
+    L, M = cfg.num_layers, cfg.parallel.microbatches
+    # the published widths but the depth (the first of them), bf16, the
+    # config's 8 microbatches, remat
+    if (_widths(cfg)[1:], M, cfg.parallel.remat) != (SERVED[arch]["widths"][1:], TRAIN_BATCH,
+                                                     True):
+        raise AssertionError(f"not {arch}'s published widths and microbatches: {cfg}")
     n_params = sum(math.prod(m.shape) for m in _leaves(lm.model_meta(cfg)))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    # every weight is in a product but the embedding table (a lookup) and the norms'
-    gemm = n_params - cfg.padded_vocab * cfg.d_model - (2 * L + 1) * cfg.d_model
-    attn = 12 * _attn_pairs(TRAIN_SEQ, TRAIN_SEQ, True, None) * a.head_dim * a.num_heads * L \
-        * TRAIN_BATCH  # QK^T and PV, forward and backward (3x)
-    model_flops = 6 * gemm * tokens + attn
-    want = {"flash_attention": 2 * L * M, "flash_attention_bwd": L * M,
-            "rmsnorm": (4 * L + 1) * M, "rmsnorm_bwd": (2 * L + 1) * M}
+    tokens = TRAIN_BATCH * seq
+    model_flops = _model_flops(cfg, n_params, TRAIN_BATCH, seq)
+    want = _launches_per_step(cfg)
     per_step = []
     last = {}
 
@@ -1776,9 +1865,9 @@ def train_full_width(seed: int = 0) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()  # the main path's counts start here
-    out = train(cfg, OptConfig(learning_rate=3e-4, warmup_steps=1), steps=TRAIN_STEPS,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, corpus_size=1, seed=seed, device="cuda",
-                log_every=1, arch="yi_6b", on_step=on_step)
+    out = train(cfg, OptConfig(learning_rate=3e-4, warmup_steps=1), steps=steps,
+                batch=TRAIN_BATCH, seq=seq, corpus_size=1, seed=seed, device="cuda",
+                log_every=1, arch=arch, on_step=on_step)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 1e9
     del out["state"]
@@ -1787,27 +1876,27 @@ def train_full_width(seed: int = 0) -> dict:
     hist = out["history"]
     for i, counts in enumerate(per_step):
         if counts != {**dict.fromkeys(counts, 0), **want}:
-            raise AssertionError(f"step {i}: launches {counts}, want {want}")
+            raise AssertionError(f"{arch} step {i}: launches {counts}, want {want}")
     losses = [h["loss"] for h in hist]
-    if not (len(losses) == TRAIN_STEPS and all(map(math.isfinite, losses))
+    if not (len(losses) == steps and all(map(math.isfinite, losses))
             and losses[-1] < losses[0]):
-        raise AssertionError(f"the loss did not fall: {losses}")
+        raise AssertionError(f"{arch}: the loss did not fall: {losses}")
     steady = statistics.median(h["seconds"] for h in hist[1:])
-    res = {"config": f"yi_6b, {L} of 32 layers, full width", "params": n_params,
-           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatches": M, "remat": True,
-           "steps": TRAIN_STEPS, "losses": losses,
+    res = {"config": f"{arch}, {L} layers, full width", "params": n_params,
+           "batch": [TRAIN_BATCH, seq], "microbatches": M, "remat": True,
+           "steps": steps, "losses": losses,
            "grad_norm": [h["grad_norm"] for h in hist], "lr": [h["lr"] for h in hist],
            "step_s": [h["seconds"] for h in hist], "step_s_median_after_first": steady,
            "tokens_per_s": tokens / steady, "model_flops_per_step": model_flops,
            "mfu": model_flops / (steady * PEAK_BF16_TC_FLOPS), "peak_mem_gb": peak,
            "launches_per_step": want, "launches": launches}
     for h in hist:
-        print(f"[train] yi_6b x{L} step {h['step']}: loss {h['loss']:.6f}, grad_norm "
+        print(f"[train] {arch} x{L} step {h['step']}: loss {h['loss']:.6f}, grad_norm "
               f"{h['grad_norm']:.4f}, lr {h['lr']:.3g}, {h['seconds']:.3f} s (host clock, "
               f"synchronised)")
-    print(f"[train] yi_6b at full width, {L} of 32 layers ({n_params:,} parameters), "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens in {M} microbatches, remat: loss "
-          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {TRAIN_STEPS} steps; step {steady:.3f} s "
+    print(f"[train] {arch} at full width, {L} layers ({n_params:,} parameters), "
+          f"{TRAIN_BATCH} x {seq} tokens in {M} microbatches, remat: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in {steps} steps; step {steady:.3f} s "
           f"(median after the first), {tokens / steady:,.0f} tokens/s, model FLOPs "
           f"{model_flops:.4g} a step = {res['mfu']:.3f} of 989 TFLOP/s; peak memory "
           f"{peak:.2f} GB; launches per step {want}, as the code implies")
@@ -1852,12 +1941,16 @@ def train_checkpoint(seed: int = 0) -> dict:
     return {"losses": losses, "resumed_at": 3, "state_equal": True}
 
 
-def _leaves(tree):
+def _leaf_paths(tree, path=""):
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k, v in tree.items():
+            yield from _leaf_paths(v, f"{path}/{k}")
     else:
-        yield tree
+        yield path, tree
+
+
+def _leaves(tree):
+    return (leaf for _, leaf in _leaf_paths(tree))
 
 
 def main() -> int:
@@ -1927,16 +2020,23 @@ def main() -> int:
     done("train kernels")
     gc.collect()
     torch.cuda.empty_cache()
-    train = {"path_against_plain": train_path_against_plain()}
-    done("train step against plain")
-    train["full_width"] = full = train_full_width()
-    done("train full width")
+    train = {"path_against_plain": {}, "full_width": {}}
+    for arch, seq in TRAIN_AGAINST_PLAIN:
+        train["path_against_plain"][arch] = train_path_against_plain(arch, seq)
+        gc.collect()
+        torch.cuda.empty_cache()
+        done(f"train step against plain {arch}")
+    for arch, layers, steps, seq in TRAIN_FULL_WIDTH:  # the main path's runs
+        train["full_width"][f"train {arch} x{layers}"] = train_full_width(arch, layers, steps,
+                                                                          seq)
+        done(f"train full width {arch}")
     train["checkpoint"] = train_checkpoint()
     done("train checkpoint")
-    run = f"train yi_6b x{TRAIN_LAYERS}"
+    runs = {run: r["launches"] for run, r in train["full_width"].items()}
 
     def by_model(k):
-        return {**{a: r["launches"][k] for a, r in served.items()}, run: full["launches"][k]}
+        return {**{a: r["launches"][k] for a, r in served.items()},
+                **{run: n[k] for run, n in runs.items()}}
 
     kernels = [
         kernel_entry("rmsnorm", "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -1954,10 +2054,10 @@ def main() -> int:
         kernel_entry("flash_attention_bwd",
                      "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                      "src/repro/models/flash.py:108", bwd_train,
-                     {run: full["launches"]["flash_attention_bwd"]}),
+                     {run: n["flash_attention_bwd"] for run, n in runs.items()}),
         kernel_entry("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                      "src/repro/models/layers.py:40", rms_train,
-                     {run: full["launches"]["rmsnorm_bwd"]}),
+                     {run: n["rmsnorm_bwd"] for run, n in runs.items()}),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

@@ -7,9 +7,12 @@ against SDPA's backward, in turns inside one run.
 
 ``--old`` is an earlier ``flash_attention_bwd.cu`` (for example one taken
 with ``git show <commit>:src/repro_torch/kernels/csrc/flash_attention_bwd.cu``
-into a directory the run can read), with the committed C interface or the
-one before the workspace (ten pointers, dK and dV summed over the group in
-registers).  Each ``--variant`` is the committed source with some of its
+into a directory the run can read), with the committed C interface, the
+one of one head dim (a workspace, q/k and v at one head dim: before the
+head-dim pairs) or the one before the workspace (ten pointers, dK and dV
+summed over the group in registers).  An old build of one head dim sits out
+the cases at a head-dim pair it does not take (hd_v != hd, or a head dim
+other than 16 and 128).  Each ``--variant`` is the committed source with some of its
 ``constexpr int`` knobs set otherwise.  The script builds every side and
 prints each build's registers, spill bytes and static shared memory per
 kernel (``-Xptxas -v``) beside each side's dynamic shared memory per CTA
@@ -50,6 +53,16 @@ _NO_WORKSPACE = {
     ]),
     "flash_attention_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+#: the C interface of one head dim, with the workspace
+_ONE_HEAD_DIM = {
+    "flash_attention_bwd_launch": (ctypes.c_int, [
+        *[ctypes.c_void_p] * 11,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+    ]),
+    "flash_attention_bwd_workspace_bytes": (ctypes.c_longlong, [ctypes.c_int] * 4),
+    "flash_attention_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 LIB = "sdpa"
 
 
@@ -69,14 +82,34 @@ def _no_workspace_call(lib, q, k, v, o, lse, do, *, group_size, causal, window):
     return dq, dk, dv, delta
 
 
+def _one_head_dim_call(lib, q, k, v, o, lse, do, *, group_size, causal, window):
+    """A call of a build with the interface of one head dim."""
+    import torch
+
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    BH, S, hd = q.shape
+    delta = torch.empty(BH, S, dtype=torch.float32, device=q.device)
+    work = torch.empty(lib.flash_attention_bwd_workspace_bytes(BH, S, hd, group_size) // 4,
+                       dtype=torch.float32, device=q.device)
+    code = lib.flash_attention_bwd_launch(
+        *(t.data_ptr() for t in (q, k, v, o, do, lse, dq, dk, dv, delta, work)),
+        BH, S, hd, group_size, int(causal), window or 0, hd ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    if code:
+        raise RuntimeError(f"old flash_attention_bwd launch failed: CUDA error {code}")
+    return dq, dk, dv, delta
+
+
 def _kernels(log: str) -> list[dict]:
     """Each backward kernel of a build, named as in the source
-    (``flash_bwd_dkdv<128>``), with its ``ptxas`` reading."""
+    (``flash_bwd_dkdv<128>``, ``flash_bwd_dkdv<96, 64>``), with its
+    ``ptxas`` reading."""
     out = []
     for e in ptxas(log):
-        m = re.search(r"\d(flash_bwd_[a-z_]+)(ILi(\d+)E)?", e["entry"])
+        m = re.search(r"\d(flash_bwd_[a-z_]+)(?:I((?:Li\d+E)+)E)?", e["entry"])
         if m:
-            out.append({"kernel": m.group(1) + (f"<{m.group(3)}>" if m.group(3) else ""),
+            dims = ", ".join(re.findall(r"Li(\d+)E", m.group(2) or ""))
+            out.append({"kernel": m.group(1) + (f"<{dims}>" if dims else ""),
                         **{k: v for k, v in e.items() if k != "entry"}})
     return out
 
@@ -141,24 +174,29 @@ def main(argv=None) -> int:
             f"{k.get('smem')} B static smem" for k in info)
             + f"; dynamic smem per CTA: {record['builds'][name]['dynamic_smem']}")
 
-    old_workspace = "flash_attention_bwd_workspace_bytes" in texts["old"]
-    libs = {n: build.load(jobs[n][1], fb._SIGNATURES if n != "old" or old_workspace
-                          else _NO_WORKSPACE) for n in jobs}
-    kernels = ["old", "new", *args.variant]
-    order = kernels + [LIB, LIB] + kernels[::-1]
+    old_kind = ("pairs" if "int head_dim_v" in texts["old"] else
+                "one head dim" if "flash_attention_bwd_workspace_bytes" in texts["old"]
+                else "no workspace")
+    old_call = {"one head dim": _one_head_dim_call, "no workspace": _no_workspace_call}
+    old_sigs = {"one head dim": _ONE_HEAD_DIM, "no workspace": _NO_WORKSPACE}
+    libs = {n: build.load(jobs[n][1], old_sigs.get(old_kind, fb._SIGNATURES) if n == "old"
+                          else fb._SIGNATURES) for n in jobs}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, BH, g, S, hd, window in cs.TRAIN_FLASH_SPECS:
-        q, k, v = cs.flash_inputs(gen, BH, g, S, S, hd)
-        do = torch.randn(BH, S, hd, generator=gen, device="cuda").to(torch.bfloat16)
+    for label, BH, g, S, hd, hdv, window in cs.TRAIN_FLASH_SPECS:
+        takes = old_kind == "pairs" or (hd == hdv and hd in (16, 128))
+        kernels = ["old", "new", *args.variant] if takes else ["new", *args.variant]
+        order = kernels + [LIB, LIB] + kernels[::-1]
+        q, k, v = cs.flash_inputs(gen, BH, g, S, S, hd, hdv)
+        do = torch.randn(BH, S, hdv, generator=gen, device="cuda").to(torch.bfloat16)
         kw = dict(group_size=g, causal=True, window=window)
         o, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
         want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
                                        do.float(), **kw)
         fns = {}
         for n in kernels:
-            def call(*a, lib=libs[n], plain=n == "old" and not old_workspace):
-                if plain:
-                    return _no_workspace_call(lib, *a, **kw)[:3]
+            def call(*a, lib=libs[n], old=n == "old" and old_kind != "pairs"):
+                if old:
+                    return old_call[old_kind](lib, *a, **kw)[:3]
                 build._LIBS["flash_attention_bwd"] = lib
                 return fb.flash_attention_bwd_cuda(*a, **kw)[:3]
             fns[n] = call
@@ -191,15 +229,17 @@ def main(argv=None) -> int:
                     if t[temp] is not None:
                         readings[n][temp].append(t[temp])
         pairs = cs._attn_pairs(S, S, True, window)
-        nbytes = (4 * BH + 4 * (BH // g)) * S * hd * 2 + BH * S * 4
+        nbytes = 2 * (BH + BH // g) * S * (hd + hdv) * 2 + BH * S * 4
         bound = {"bound_bytes_ms": nbytes / cs.PEAK_BYTES_PER_S * 1e3,
-                 "bound_ops_ms": 2 * 5 * hd * BH * pairs / cs.PEAK_BF16_TC_FLOPS * 1e3}
-        case = {"shape": label, "q": [BH, S, hd], "kv": [BH // g, S, hd], "g": g,
+                 "bound_ops_ms": 2 * (3 * hd + 2 * hdv) * BH * pairs / cs.PEAK_BF16_TC_FLOPS
+                 * 1e3}
+        case = {"shape": label, "q": [BH, S, hd], "k": [BH // g, S, hd],
+                "v": [BH // g, S, hdv], "g": g,
                 "window": window, "scaled_err": errs, **bound,
                 "times": {n: {temp: stats(r) for temp, r in rs.items() if r}
                           for n, rs in readings.items()}}
         record["cases"].append(case)
-        print(f"[turns] {label}: q[{BH},{S},{hd}] kv[{BH // g},{S},{hd}] g={g} causal"
+        print(f"[turns] {label}: q[{BH},{S},{hd}] k[{BH // g},{S},{hd}] v[..,{hdv}] g={g} causal"
               f"{f' window={window}' if window else ''}; bound "
               f"{max(bound.values()):.6f} ms (bytes {bound['bound_bytes_ms']:.6f}, ops "
               f"{bound['bound_ops_ms']:.6f}); scaled err "
@@ -210,7 +250,8 @@ def main(argv=None) -> int:
                       f"{st['spread']:.6f}: " + " ".join(f"{x:.6f}" for x in st["ms"]))
         temp = "cold" if "cold" in case["times"]["new"] else "warm"
         med = {n: ts[temp]["median"] for n, ts in case["times"].items()}
-        print(f"[turns]   {temp}: new {med['new']:.6f} ms = {med['new'] / med['old']:.3f} of old, "
+        vs_old = f"{med['new'] / med['old']:.3f} of old, " if "old" in med else ""
+        print(f"[turns]   {temp}: new {med['new']:.6f} ms = {vs_old}"
               f"{med['new'] / med[LIB]:.3f}x SDPA's backward, "
               f"{max(bound.values()) / med['new']:.3f} of the bound")
         del q, k, v, o, lse, do

@@ -68,8 +68,10 @@
 // Training (models/flash.py's forward, `_fwd_impl`) also needs each row's
 // logsumexp: the instance with kLse = true writes lse [BH, Sq] fp32 in
 // natural-log units (m + log l, the reference's) from the epilogue, where m
-// is held in log2 units.  The serving instance (kLse = false) compiles to
-// the code it had before, and its C entry point is unchanged.
+// is held in log2 units, at every head-dim pair the serving instance takes
+// (the backward kernel, flash_attention_bwd.cu, takes the same pairs).  The
+// serving instance (kLse = false) compiles to the code it had before, and
+// its C entry point is unchanged.
 //
 // Layout: q [BH, Sq, HDQK], k [BH/group, Skv, HDQK], v [BH/group, Skv, HDV],
 // o [BH, Sq, HDV], all contiguous bf16.  C interface (ctypes): returns
@@ -425,18 +427,26 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 }
 
 // The training forward: o as above and lse [BH, Sq] fp32, natural log, at
-// the head dims the backward kernel takes (flash_attention_bwd.cu).
+// every pair above.
 extern "C" int flash_attention_lse_launch(const void* q, const void* k, const void* v, void* o,
                                           void* lse, int BH, int Sq, int Skv, int head_dim,
-                                          int group, int causal, int window, float scale,
-                                          void* stream) {
+                                          int head_dim_v, int group, int causal, int window,
+                                          float scale, void* stream) {
   if (bad_shape(BH, Sq, Skv, group)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (head_dim == 16)
-    return launch<16, 16, true>(q, k, v, o, l, BH, Sq, Skv, group, causal, window, scale, s);
-  if (head_dim == 128)
-    return launch<128, 128, true>(q, k, v, o, l, BH, Sq, Skv, group, causal, window, scale, s);
+#define FLASH_LSE_CASE(QK, V)                                                           \
+  if (head_dim == QK && head_dim_v == V)                                                \
+    return launch<QK, V, true>(q, k, v, o, l, BH, Sq, Skv, group, causal, window, scale, s);
+  FLASH_LSE_CASE(16, 16)
+  FLASH_LSE_CASE(64, 64)
+  FLASH_LSE_CASE(120, 120)
+  FLASH_LSE_CASE(128, 128)
+  FLASH_LSE_CASE(256, 256)
+  FLASH_LSE_CASE(24, 16)
+  FLASH_LSE_CASE(96, 64)
+  FLASH_LSE_CASE(192, 128)
+#undef FLASH_LSE_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,9 +21,10 @@ head dim may differ from the query/key one (MLA's 64 beside 96, 128 beside
 192): the kernel takes both as template parameters, so V and the output
 move only their own columns.  Unlike the Pallas kernel it masks the ragged edge, so Sq and Skv
 need not be multiples of its tiles.  For training (``models/flash.py``) it
-also returns each row's logsumexp (``return_lse=True``, at the head dims
-:data:`LSE_HEAD_DIMS` that the backward kernel takes), from an instance of
-its own: the serving instance and its C entry point are unchanged.
+also returns each row's logsumexp (``return_lse=True``, at every pair of
+:data:`HEAD_DIMS`, the pairs the backward kernel takes too), from an
+instance of its own: the serving instance and its C entry point are
+unchanged.
 
 The wrapper checks shapes, dtypes, device, contiguity and alignment, and
 raises on anything the kernel does not take; it allocates the output and
@@ -41,18 +42,16 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["HEAD_DIMS", "LSE_HEAD_DIMS", "flash_attention_cuda"]
+__all__ = ["HEAD_DIMS", "flash_attention_cuda"]
 
-#: (q/k head dim, v head dim) pairs the kernel is instantiated for: the smoke
-#: configs' (16, 16) and MiniCPM3 smoke's (24, 16), and the published
-#: configs' 64 (MusicGen), 120 (H2O-Danube3, run padded to 128 inside the
-#: kernel), 128 (Yi, Qwen2-VL, DBRX), 256 (Gemma) and the MLA pairs of
-#: MiniCPM3 (96, 64) and DeepSeek-V2 (192, 128); 24 runs padded to 32
+#: (q/k head dim, v head dim) pairs the kernel, its lse instance and the
+#: backward kernel are instantiated for: the smoke configs' (16, 16) and
+#: MiniCPM3 smoke's (24, 16), and the published configs' 64 (MusicGen), 120
+#: (H2O-Danube3, run padded to 128 inside the kernel), 128 (Yi, Qwen2-VL,
+#: DBRX), 256 (Gemma) and the MLA pairs of MiniCPM3 (96, 64) and DeepSeek-V2
+#: (192, 128); 24 runs padded to 32
 HEAD_DIMS = ((16, 16), (64, 64), (120, 120), (128, 128), (256, 256), (24, 16), (96, 64),
              (192, 128))
-#: head dims the lse instance (and the backward kernel) is built for: Yi's
-#: 128 and the smoke configs' 16; the others wait for ROADMAP queue 2 item 9
-LSE_HEAD_DIMS = (16, 128)
 _MAX_BH = 65535  # the C interface's limit
 _SIGNATURES = {
     "flash_attention_launch": (ctypes.c_int, [
@@ -62,7 +61,7 @@ _SIGNATURES = {
     ]),
     "flash_attention_lse_launch": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
     ]),
     "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -84,8 +83,7 @@ def flash_attention_cuda(
     ``(hd, hd_v)`` in :data:`HEAD_DIMS`.  Returns ``softmax(q k^T * scale +
     mask) v`` as ``[BH, Sq, hd_v]`` bfloat16; ``scale`` defaults to
     1/sqrt(hd).  ``return_lse``: returns ``(out, lse)``, lse [BH, Sq] float32
-    the natural-log logsumexp of each row's scaled, masked scores (hd in
-    :data:`LSE_HEAD_DIMS`, hd_v = hd)."""
+    the natural-log logsumexp of each row's scaled, masked scores."""
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"flash_attention: want q [BH, Sq, hd], k [BHkv, Skv, hd] "
                          f"and v [BHkv, Skv, hd_v], got {tuple(q.shape)}, "
@@ -98,10 +96,6 @@ def flash_attention_cuda(
                          f"{tuple(k.shape)} do not match group_size={group_size}")
     if (hd, hdv) not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dims ({hd}, {hdv}) not in {HEAD_DIMS}")
-    if return_lse and (hd not in LSE_HEAD_DIMS or hdv != hd):
-        raise ValueError(f"flash_attention: lse at head dims ({hd}, {hdv}) is not built: "
-                         f"the training path takes {LSE_HEAD_DIMS} (other head dims: "
-                         f"ROADMAP queue 2 item 9)")
     if Sq == 0 or Skv == 0 or BH == 0 or BH > _MAX_BH:
         raise ValueError(f"flash_attention: want 0 < BH <= {_MAX_BH} and "
                          f"nonempty sequences, got BH={BH}, Sq={Sq}, Skv={Skv}")
@@ -120,7 +114,7 @@ def flash_attention_cuda(
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     lib = build.library("flash_attention", _SIGNATURES)
     out = q.new_empty(BH, Sq, hdv)
-    common = (BH, Sq, Skv)
+    common = (BH, Sq, Skv, hd, hdv)
     tail = (group_size, int(causal), 0 if window is None else int(window), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -128,11 +122,11 @@ def flash_attention_cuda(
             lse = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
             code = lib.flash_attention_lse_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                *common, hd, *tail, stream)
+                *common, *tail, stream)
         else:
             code = lib.flash_attention_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                *common, hd, hdv, *tail, stream)
+                *common, *tail, stream)
     if code:
         raise RuntimeError(
             f"flash_attention kernel launch failed: CUDA error {code} "

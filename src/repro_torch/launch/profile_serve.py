@@ -38,13 +38,15 @@ Last, a graph and an eager engine are built together and admitted one
 after the other, in both orders, twice.
 
 ``--train`` profiles a train step instead (``training/train_step.py``, the
-step ``launch/train.py`` runs): Yi-6B's published widths, batch 8 x 2048 in
-the config's 8 microbatches with remat, AdamW; ``--layers`` cuts the depth
-there too (the state of all 32 layers does not fit one card: ``--layers 16``, as
-``chip_smoke.py`` trains).  One step warms up, one is timed alone on the
-host clock (synchronised), one is profiled.
+step ``launch/train.py`` runs): the config's published widths, batch 8 x
+``--seq`` (2048 by default) in the config's 8 microbatches with remat,
+AdamW; ``--layers`` cuts the depth there too, to what ``chip_smoke.py``
+trains where the state of every layer does not fit one card (Yi-6B
+``--layers 16``, Gemma-7B ``--layers 10``).  One step warms up, one is
+timed alone on the host clock (synchronised), one is profiled.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi_6b --train --layers 16
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch h2o_danube_3_4b --train --seq 4608
 
 Qwen2-VL takes embeddings, which no engine drives: its run profiles
 ``lm.prefill`` over seeded embeds [4, 512, D] and the decode step on seeded
@@ -131,6 +133,8 @@ def main(argv=None):
     ap.add_argument("--train", action="store_true", help="profile a train step")
     ap.add_argument("--layers", type=int, default=None,
                     help="layers of the config to keep (default: all)")
+    ap.add_argument("--seq", type=int, default=2048,
+                    help="tokens a sequence of a train step (with --train)")
     args = ap.parse_args(argv)
     prompt_len, capacity = SHAPES.get(args.arch, DEFAULT_SHAPE)
 
@@ -139,7 +143,7 @@ def main(argv=None):
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if args.train:
-        return _profile_train(cfg, device)
+        return _profile_train(cfg, device, seq=args.seq)
     k = cfg.num_codebooks
     params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(0),
                            device=device)

@@ -20,12 +20,13 @@ Three compute paths (MLA has the last two):
   form, whose scores and values are taken against the latent cache.  The
   new entries are written into the cache in place.
 
-* train — GQA over the whole sequence with no cache, through
+* train — attention over the whole sequence with no cache, through
   ``models/flash.flash_attention_train`` (the flash kernel forward with its
   logsumexp, and the flash backward kernel), as the reference's
-  ``_gqa_attention`` takes its custom-VJP flash attention when there is no
-  cache and none to fill.  MLA training raises: its backward kernel at q/k
-  head dim 96 and v head dim 64 is ROADMAP queue 2 item 9.
+  ``_gqa_attention`` and ``_mla_attention`` take their custom-VJP flash
+  attention when there is no cache and none to fill.  MLA trains in the
+  expanded form of its prefill: keys ``[k_nope ‖ k_rope]`` at q/k head dim
+  ``qk_head_dim``, values at ``v_head_dim``, G = 1, no window.
 """
 
 from __future__ import annotations
@@ -128,12 +129,7 @@ def attention(
     a full-attention cache, where the reference's ``dynamic_update_slice``
     would clamp it."""
     if cfg.attn.kind == "mla":
-        if train:
-            raise NotImplementedError(
-                f"{cfg.name}: MLA training waits for the flash backward kernel at q/k head "
-                f"dim {cfg.attn.qk_head_dim} and v head dim {cfg.attn.v_head_dim} (ROADMAP "
-                "queue 2 item 9)")
-        return _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity)
+        return _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity, train)
     a = cfg.attn
     B, S, _ = x.shape
     H, Hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
@@ -187,12 +183,13 @@ def attention(
     return AttnResult(out, new_cache)
 
 
-def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity):
+def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity, train):
     """MLA: queries through the ``q_lora_rank`` bottleneck (``q_norm``),
     keys and values from the latent ``ckv`` = ``kv_norm`` of the first
     ``kv_lora_rank`` columns of ``x @ wkv_a``, and one rotary key of
     ``qk_rope_head_dim`` shared by every head.  Scores are scaled by
-    1/sqrt(qk_head_dim), not 1/sqrt(head_dim)."""
+    1/sqrt(qk_head_dim), not 1/sqrt(head_dim).  ``train``: the expanded
+    form through the training flash attention, no cache."""
     a = cfg.attn
     B, S, _ = x.shape
     H, lora = a.num_heads, a.kv_lora_rank
@@ -226,11 +223,16 @@ def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity):
         o = torch.einsum("bqhl,lhv->bqhv", o_lat.to(wkv_b.dtype), wkv_b[..., nope:])
         new_cache = cache
     else:
-        # expanded prefill: per-head keys [k_nope ‖ k_rope] at qk_head_dim and
-        # values at v_head_dim, through the flash kernel (MHA: group 1)
+        # expanded form: per-head keys [k_nope ‖ k_rope] at qk_head_dim and
+        # values at v_head_dim, through the flash kernels (MHA: group 1)
         kv = (ckv @ p["wkv_b"]).reshape(B, S, H, nope + vdim)
         kk = torch.cat([kv[..., :nope], k_rope[:, :, None].expand(B, S, H, rdim)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
+        if train:
+            pl = cfg.parallel
+            o = flash_attention_train(qq[:, :, :, None], kk, kv[..., nope:], scale, None,
+                                      pl.attn_chunk_q, pl.attn_chunk_kv, pl.causal_skip)
+            return AttnResult(o.reshape(B, S, H * vdim) @ p["wo"], None)
         o = ops.flash_attention(kernel_rows(qq), kernel_rows(kk), kernel_rows(kv[..., nope:]),
                                 group_size=1, causal=True,
                                 scale=scale).reshape(B, H, S, vdim).transpose(1, 2)

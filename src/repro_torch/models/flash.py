@@ -2,7 +2,8 @@
 counterpart of the reference's custom-VJP ``repro/models/flash.py``).
 
 ``flash_attention_train`` keeps the reference's layout (q [B, S, Hkv, G,
-hd], k/v [B, S, Hkv, hd]) and its memory-lean factorisation: the forward
+hd], k [B, S, Hkv, hd], v [B, S, Hkv, hd_v]: v's head dim may differ from
+q's and k's, as MLA's does) and its memory-lean factorisation: the forward
 saves only q, k, v, the output and each row's logsumexp (``lse``), and the
 backward recomputes the scores from them.  Both directions go through the
 kernels on the card (``ops.flash_attention(return_lse=True)`` and
@@ -52,7 +53,7 @@ class _FlashTrain(torch.autograd.Function):
 def flash_attention_train(
     q: torch.Tensor,  # [B, Sq, Hkv, G, hd]
     k: torch.Tensor,  # [B, Skv, Hkv, hd]
-    v: torch.Tensor,  # [B, Skv, Hkv, hd]
+    v: torch.Tensor,  # [B, Skv, Hkv, hd_v]
     scale: float,
     window: int | None,
     chunk_q: int,
@@ -60,8 +61,9 @@ def flash_attention_train(
     causal_skip: bool,
 ) -> torch.Tensor:
     """Causal (and optionally windowed) attention of the aligned training
-    layout (``q_pos == arange(Sq)``, Skv == Sq); returns [B, Sq, Hkv, G, hd]
-    in q's dtype, differentiable in q, k and v.  ``chunk_q``, ``chunk_kv``
+    layout (``q_pos == arange(Sq)``, Skv == Sq); returns [B, Sq, Hkv, G,
+    hd_v] in q's dtype, differentiable in q, k and v.  (hd, hd_v) is a pair
+    of ``flash_attention.HEAD_DIMS`` on the card.  ``chunk_q``, ``chunk_kv``
     and ``causal_skip`` are the reference's and leave the result as it is."""
     del chunk_q, chunk_kv, causal_skip
     if k.shape[1] != q.shape[1]:

@@ -25,9 +25,9 @@ first ``first_k_dense`` layers (DeepSeek-V2's one) run before the stacked
 periods as an unrolled prelude, ``prelude<j>``, with a dense FFN, their
 parameters and caches unstacked, as in the reference; the periods stacked
 under ``blocks`` are the ``(num_layers - first_k_dense) // len(pattern)``
-that remain.  Mamba training waits for the selective scan's backward
-(ROADMAP queue 1 item 8), MLA training for its flash backward (queue 2
-item 9).
+that remain.  Every attention config trains (MLA through its expanded form
+and the flash kernels at its pair of head dims); Mamba training waits for
+the selective scan's backward (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -9,6 +9,9 @@ against the reference's custom-VJP ``flash_attention_train`` and
 reference test's tolerances (forward rtol 1e-5, gradients 1e-4 absolute on
 ``sum * 0.01``), and one bfloat16 case at 2e-2 in ``ref.scaled_err`` (dq in
 ``ref.dq_scaled_err``: a causal first row's dq is 0 in exact arithmetic).
+The same at a v head dim unlike q's and k's (MLA's layout: MiniCPM3
+smoke's (24, 16), and (12, 8)), with and without a window, through
+``jax.vjp`` of the reference against the port's autograd.
 Then ``layers.rms_norm``'s gradients (the RMSNorm backward's plain version)
 against ``jax.grad`` of the reference's ``layers.rms_norm``: 1e-5 of the
 scale in float32, 2e-2 in bfloat16.
@@ -57,6 +60,35 @@ def test_flash_train_grads_match_the_reference(B, S, Hkv, G, hd, win, skip):
     for a, b in zip(got_g, want_g):
         assert a.shape == b.shape
         assert float(np.abs(a.numpy() - np.asarray(b)).max()) < 1e-4
+
+
+@pytest.mark.parametrize("B,S,Hkv,G,hd,hdv,win", [
+    (2, 64, 2, 1, 24, 16, None),   # MiniCPM3 smoke's MLA pair, MHA
+    (2, 64, 2, 1, 24, 16, 24),     # ... windowed
+    (1, 96, 2, 2, 12, 8, None),    # a GQA group of 2
+    (2, 96, 1, 3, 12, 8, 20),      # ... windowed, the window's edge inside a chunk
+])
+def test_flash_train_grads_at_unequal_head_dims_match_the_reference(B, S, Hkv, G, hd, hdv,
+                                                                      win):
+    """v (and the output) at head dim ``hdv`` beside q/k at ``hd``: the
+    output and the three gradients of a random cotangent, float32, at the
+    tolerances above."""
+    q = RNG.randn(B, S, Hkv, G, hd).astype(np.float32)
+    k = RNG.randn(B, S, Hkv, hd).astype(np.float32)
+    v = RNG.randn(B, S, Hkv, hdv).astype(np.float32)
+    do = (RNG.randn(B, S, Hkv, G, hdv) * 0.01).astype(np.float32)
+    scale = 1 / np.sqrt(hd)
+    out, vjp = jax.vjp(lambda *a: jflash(*a, scale, win, 32, 32, True),
+                       *map(jnp.asarray, (q, k, v)))
+    want_g = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    got = flash_attention_train(*ts, scale, win, 32, 32, True)
+    got.backward(torch.from_numpy(do))
+    assert tuple(got.shape) == (B, S, Hkv, G, hdv)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), rtol=1e-5, atol=1e-6)
+    for t, w in zip(ts, want_g):
+        assert t.grad.shape == w.shape
+        assert float(np.abs(t.grad.numpy() - np.asarray(w)).max()) < 1e-4
 
 
 def test_flash_train_bf16_matches_the_reference():

@@ -133,22 +133,31 @@ def test_backward_cpu_calls_run_the_plain_versions_uncounted():
     assert ops.launch_counts() == before
 
 
-def _bwd_args(BH=4, S=8, hd=16, g=2, dt=torch.bfloat16):
-    q, o, do = (torch.randn(BH, S, hd, dtype=dt) for _ in range(3))
-    k, v = (torch.randn(BH // g, S, hd, dtype=dt) for _ in range(2))
+def _bwd_args(BH=4, S=8, hd=16, g=2, dt=torch.bfloat16, hdv=None, hdo=None):
+    """q, k [.., hd]; v [.., hdv]; o, do [.., hdo] (both hd by default)."""
+    hdv = hdv or hd
+    q, k = torch.randn(BH, S, hd, dtype=dt), torch.randn(BH // g, S, hd, dtype=dt)
+    v = torch.randn(BH // g, S, hdv, dtype=dt)
+    o, do = (torch.randn(BH, S, hdo or hdv, dtype=dt) for _ in range(2))
     return q, k, v, o, torch.zeros(BH, S), do
 
 
 @pytest.mark.parametrize("call,err", [
     (lambda: flash_attention_bwd_cuda(*_bwd_args(), group_size=2), "one CUDA device"),
-    (lambda: flash_attention_bwd_cuda(*_bwd_args(hd=64), group_size=2), "queue 2 item 9"),
+    # a pair of head dims outside HEAD_DIMS, and v at a head dim that does not
+    # match q's and k's pair; o at v's head dim
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(hd=48), group_size=2), r"\(48, 48\) not in"),
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(hd=96, hdv=96), group_size=2),
+     r"\(96, 96\) not in"),
+    (lambda: flash_attention_bwd_cuda(*_bwd_args(hd=96, hdv=64, hdo=96), group_size=2),
+     "o, do"),
     (lambda: flash_attention_bwd_cuda(*_bwd_args(dt=torch.float32), group_size=2), "bfloat16"),
     (lambda: flash_attention_bwd_cuda(*_bwd_args(), group_size=4), "group_size=4"),
     (lambda: flash_attention_bwd_cuda(*_bwd_args()[:4], torch.zeros(4, 8, dtype=torch.bfloat16),
                                       _bwd_args()[5], group_size=2), "lse"),
     (lambda: flash_attention_bwd_cuda(*_bwd_args(), group_size=2, window=0), "window"),
-    (lambda: flash_attention_cuda(*(torch.randn(2, 8, 64, dtype=torch.bfloat16),) * 3,
-                                  group_size=1, return_lse=True), "queue 2 item 9"),
+    (lambda: flash_attention_cuda(*(torch.randn(2, 8, 96, dtype=torch.bfloat16),) * 3,
+                                  group_size=1, return_lse=True), r"\(96, 96\) not in"),
     (lambda: rmsnorm_bwd_cuda(torch.randn(4, 64), torch.rand(64), torch.randn(4, 64)),
      "one CUDA device"),
     (lambda: rmsnorm_bwd_cuda(torch.randn(4, 60), torch.rand(60), torch.randn(4, 60)),
@@ -429,15 +438,26 @@ def test_a2a_pack_wrapper_refuses_a_strided_card_tensor(cuda):
 # RMSNorm backward, against their plain versions (bf16 at 2e-2, lse and
 # delta at 1e-5).
 
-FLASH_BWD_CASES = [  # BH, S, hd, g, window
-    (32, 512, 128, 8, None),   # yi's 32 heads over 4, one sequence
-    (16, 300, 128, 8, None),   # ragged
-    (16, 512, 128, 8, 100),    # a window edge inside a 64-row tile
-    (32, 256, 16, 4, None),    # yi smoke's head dim
-    (8, 77, 16, 2, 24),        # ragged, windowed
-    (4, 2, 128, 1, None),      # two tokens
-    (32, 2048, 128, 8, None),  # yi's training shape: one 2048-token sequence
-    (28, 512, 128, 7, None),   # qwen2-vl's group of 7
+FLASH_BWD_CASES = [  # BH, S, hd, hd_v, g, window
+    (32, 512, 128, 128, 8, None),   # yi's 32 heads over 4, one sequence
+    (16, 300, 128, 128, 8, None),   # ragged
+    (16, 512, 128, 128, 8, 100),    # a window edge inside a 64-row tile
+    (32, 256, 16, 16, 4, None),     # yi smoke's head dim
+    (8, 77, 16, 16, 2, 24),         # ragged, windowed
+    (4, 2, 128, 128, 1, None),      # two tokens
+    (32, 2048, 128, 128, 8, None),  # yi's training shape: one 2048-token sequence
+    (28, 512, 128, 128, 7, None),   # qwen2-vl's group of 7
+    (16, 512, 256, 256, 1, None),   # gemma: dK, dV and dQ in column halves
+    (8, 300, 256, 256, 1, 100),     # ... ragged, windowed
+    (32, 512, 120, 120, 4, None),   # danube: 120 padded to 128
+    (32, 600, 120, 120, 4, 100),    # ... a window edge inside a tile, ragged
+    (32, 512, 64, 64, 1, None),     # musicgen
+    (40, 512, 96, 64, 1, None),     # minicpm3's MLA pair (64-byte swizzle at 96)
+    (8, 300, 96, 64, 2, 40),        # ... ragged, windowed, a group of 2
+    (32, 512, 192, 128, 1, None),   # deepseek-v2's MLA pair (column halves of 96 and 64)
+    (8, 77, 192, 128, 1, None),     # ... ragged
+    (16, 256, 24, 16, 1, None),     # minicpm3 smoke's pair: 24 padded to 32
+    (8, 77, 24, 16, 2, 24),         # ... ragged, windowed
 ]
 
 
@@ -448,18 +468,24 @@ def _bwd_err(got, want) -> float:
                *(ref.scaled_err(a, b) for a, b in zip(got[1:], want[1:])))
 
 
-def _flash_train_inputs(dev, BH, S, hd, g):
-    q, do = (_card(RNG.randn(BH, S, hd).astype(np.float32), dev) for _ in range(2))
-    k, v = (_card(RNG.randn(BH // g, S, hd).astype(np.float32), dev) for _ in range(2))
-    return q, k, v, do
+def _flash_train_inputs(dev, BH, S, hd, g, hdv=None):
+    """q [BH, S, hd], k [BH // g, S, hd], v [BH // g, S, hd_v], do [BH, S,
+    hd_v] in bf16 on the card, each the head of a longer allocation (a
+    planted fault reading past a row's end reads memory that is there)."""
+    hdv = hdv or hd
+
+    def mk(*shape):
+        return _with_slack(_card(RNG.randn(*shape).astype(np.float32), dev).flatten()).view(shape)
+
+    return mk(BH, S, hd), mk(BH // g, S, hd), mk(BH // g, S, hdv), mk(BH, S, hdv)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("BH,S,hd,g,win", FLASH_BWD_CASES)
-def test_flash_attention_lse_on_card(cuda, BH, S, hd, g, win):
+@pytest.mark.parametrize("BH,S,hd,hdv,g,win", FLASH_BWD_CASES)
+def test_flash_attention_lse_on_card(cuda, BH, S, hd, hdv, g, win):
     """The training forward's output equals the serving instance's bit for
     bit, and its lse matches the plain version's at 1e-5."""
-    q, k, v, _ = _flash_train_inputs(cuda, BH, S, hd, g)
+    q, k, v, _ = _flash_train_inputs(cuda, BH, S, hd, g, hdv)
     kw = dict(group_size=g, causal=True, window=win)
     n0 = ops.flash_attention.launches
     out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
@@ -474,12 +500,12 @@ def test_flash_attention_lse_on_card(cuda, BH, S, hd, g, win):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("BH,S,hd,g,win", FLASH_BWD_CASES)
-def test_flash_attention_backward_on_card(cuda, BH, S, hd, g, win):
+@pytest.mark.parametrize("BH,S,hd,hdv,g,win", FLASH_BWD_CASES)
+def test_flash_attention_backward_on_card(cuda, BH, S, hd, hdv, g, win):
     """dq, dk and dv against the plain version (2e-2; dq's first row at its
     head's scale, ``ref.dq_scaled_err``), delta at 1e-5, and the same bits
     from a second call (no atomics)."""
-    q, k, v, do = _flash_train_inputs(cuda, BH, S, hd, g)
+    q, k, v, do = _flash_train_inputs(cuda, BH, S, hd, g, hdv)
     kw = dict(group_size=g, causal=True, window=win)
     o, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     n0 = ops.flash_attention_bwd.launches
@@ -597,6 +623,20 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "flash_bwd_last_partial_dropped": (
         "flash_attention_bwd", "for (int j = 1; j < slices; ++j) {  // the partials in slice order",
         "for (int j = 1; j < slices - 1; ++j) {"),
+    "flash_bwd_mla_dv_plane_at_hdqk_width": (
+        "flash_attention_bwd", "float* const rv = pv + (size_t)kp * HDV + c0v + 2 * t;",
+        "float* const rv = pv + (size_t)kp * HDQK + c0v + 2 * t;"),
+    "flash_bwd_hd256_second_dk_half_dropped": (
+        "flash_attention_bwd",
+        "make_float2(dka[4 * nb + 2 * i], dka[4 * nb + 2 * i + 1]);  // dK",
+        "c0q ? make_float2(0.f, 0.f) : make_float2(dka[4 * nb + 2 * i], dka[4 * nb + 2 * i + 1]);"),
+    "flash_bwd_hd120_pad_columns_unzeroed": (
+        "flash_attention_bwd",
+        "const int bytes = gr < n && c * 8 < HD ? 16 : 0;  // zeros past the end and in the pad",
+        "const int bytes = gr < n ? 16 : 0;"),
+    "flash_bwd_mla_delta_read_at_hdqk": (
+        "flash_attention_bwd", "constexpr int VPR = HDV / 8;  // 16-byte vectors of a row of o or dO",
+        "constexpr int VPR = HDQK / 8;"),
     "rmsnorm_last_row_not_prefetched": (
         "rmsnorm", "if (next < T_rows) load(nxt, (int)next);  // in flight while this row reduces",
         "if (next < T_rows - 1) load(nxt, (int)next);"),
@@ -713,12 +753,17 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         call = lambda: mamba_scan_cuda(a, b, c)[0]  # noqa: E731
         want = ref.mamba_scan_ref(a, b, c)[0]
         tol = TOL["float32"]
-    elif kernel == "flash_attention_bwd":  # yi's heads, one sequence; dq, dk and dv
-        q, k, v, do = _flash_train_inputs(cuda, 32, 512, 128, 8)
-        o, lse = flash_attention_cuda(q, k, v, group_size=8, return_lse=True)
-        call = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, group_size=8)[:3]  # noqa: E731
+    elif kernel == "flash_attention_bwd":  # yi's heads, one sequence; dq, dk and dv; the
+        # head-dim faults at danube's, gemma's and minicpm3's heads
+        BH, hd, hdv, g = ((32, 120, 120, 4) if "hd120" in fault else
+                          (16, 256, 256, 1) if "hd256" in fault else
+                          (40, 96, 64, 1) if "mla" in fault else (32, 128, 128, 8))
+        q, k, v, do = _flash_train_inputs(cuda, BH, 512, hd, g, hdv)
+        o, lse = flash_attention_cuda(q, k, v, group_size=g, return_lse=True)
+        o = _with_slack(o.flatten()).view(o.shape)
+        call = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do, group_size=g)[:3]  # noqa: E731
         want = ref.flash_attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
-                                           do.float(), group_size=8)
+                                           do.float(), group_size=g)
     else:  # yi's prefill; the hd faults at h2o-danube's, gemma's, deepseek-v2's and minicpm3's
         n, g, hd, hdv = ((128, 4, 120, 120) if "hd120" in fault else
                          (64, 1, 256, 256) if "hd256" in fault else

@@ -2,8 +2,8 @@
 (``repro_torch.models.attention``, MLA branch) against the JAX package's:
 the flash path at unequal q/k and v head dims, the layer's expanded prefill
 and filled latent cache, its absorbed decode, and the whole model's prefill
-and decode, with the reference's own parameters (``lm.init_model``) carried
-across by ``convert.params_from_numpy``.
+and decode, and the layer's training gradients, with the reference's own
+parameters (``lm.init_model``) carried across by ``convert.params_from_numpy``.
 
 Float32 copies of the smoke config (q/k head dim 16 + 8 = 24, v head dim
 16), where the point is the algorithm: tolerance 1e-5 of the output's
@@ -118,6 +118,37 @@ def test_mla_layer_prefill_and_absorbed_decode_match_reference():
         assert _rel(tout, jout) < TOL_F32, f"step {t}"
         for name in tcache:
             assert _rel(tcache[name], jcache[name]) < TOL_F32, f"step {t} {name}"
+
+
+def test_mla_layer_training_gradients_match_reference():
+    """The layer's training form (the expanded keys through the training
+    flash attention, no cache): its output and the gradients of ``sum(out
+    * w)`` in x and in every parameter of the layer, against
+    ``jax.value_and_grad`` of the reference's, float32."""
+    jcfg, tcfg = _configs()
+    jp, tp = _params(jcfg, tcfg)
+    jl, tl = _layer(jp, tp, 1)
+    rng = np.random.RandomState(5)
+    x = rng.randn(B, S, tcfg.d_model).astype(np.float32)
+    w = rng.randn(B, S, tcfg.d_model).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S), (B, S)).copy()
+
+    def jloss(params, x):
+        out, _ = JA.attention(jcfg, params, x, jnp.asarray(pos))
+        return (out * w).sum(), out
+
+    (_, jout), (jgp, jgx) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jl, jnp.asarray(x))
+    tl = {n: t.detach().clone().requires_grad_() for n, t in tl.items()}
+    tx = torch.from_numpy(x).requires_grad_()
+    tout, cache = TA.attention(tcfg, tl, tx, torch.from_numpy(pos), train=True)
+    (tout * torch.from_numpy(w)).sum().backward()
+    assert cache is None
+    assert _rel(tout.detach(), jout) < TOL_F32
+    assert _rel(tx.grad, jgx) < TOL_F32
+    assert set(tl) == set(jgp)
+    for n, t in tl.items():
+        assert _rel(t.grad, jgp[n]) < TOL_F32, n
 
 
 @pytest.mark.parametrize("position", ["int", "tensor"])

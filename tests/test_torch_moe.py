@@ -15,8 +15,9 @@ the reference's own parameters (``lm.init_model``) carried across by
 * The LM: prefill logits and every leaf of the filled cache (DeepSeek's
   unstacked ``prelude0`` included), then one decode step, float32; the
   port's decode against its own full forward, dropless; the periods
-  stacked under ``blocks``; DBRX's loss, nll, aux and every gradient
-  against ``jax.value_and_grad`` of the reference's ``loss_fn``.
+  stacked under ``blocks``; DBRX's and DeepSeek-V2's loss, nll, aux and
+  every gradient against ``jax.value_and_grad`` of the reference's
+  ``loss_fn``; Jamba's training refused (its Mamba layers).
 """
 
 import dataclasses
@@ -230,13 +231,12 @@ def test_deepseek_stacks_the_periods_after_its_prelude():
     assert got == want
 
 
-@pytest.mark.parametrize("remat", [False, True])
-def test_dbrx_loss_and_gradients_match_reference(remat):
-    """Loss, nll, aux and the gradient of every parameter on float32 DBRX
-    smoke, against ``jax.value_and_grad`` of the reference's ``loss_fn``,
-    each gradient at 1e-5 of its largest value (1e-4 with remat, whose
-    backward recomputes each period's forward)."""
-    jcfg, tcfg = _configs("dbrx_132b")
+def _loss_and_gradients(arch, remat):
+    """Loss, nll, aux and the gradient of every parameter of ``arch``'s
+    float32 smoke config, the port's against ``jax.value_and_grad`` of the
+    reference's ``loss_fn``, each gradient at 1e-5 of its largest value
+    (1e-4 with remat, whose backward recomputes each period's forward)."""
+    jcfg, tcfg = _configs(arch)
     jcfg, tcfg = (dataclasses.replace(c, parallel=dataclasses.replace(c.parallel, remat=remat))
                   for c in (jcfg, tcfg))
     jp, tp = _params(jcfg, tcfg)
@@ -262,16 +262,25 @@ def test_dbrx_loss_and_gradients_match_reference(remat):
         assert _rel(g, w) < tol, path
 
 
-@pytest.mark.parametrize("arch,item", [("deepseek_v2_236b", "queue 2 item 9"),
-                                       ("jamba_1_5_large_398b", "queue 1 item 8")])
-def test_moe_training_of_mla_and_mamba_configs_raises(arch, item):
-    """DeepSeek-V2 trains through MLA, whose flash backward is not built,
-    and Jamba through Mamba, whose selective scan has no backward kernel:
-    each ``loss_fn`` raises naming its ROADMAP item."""
-    _, cfg = _configs(arch)
+@pytest.mark.parametrize("remat", [False, True])
+def test_dbrx_loss_and_gradients_match_reference(remat):
+    _loss_and_gradients("dbrx_132b", remat)
+
+
+def test_deepseek_loss_and_gradients_match_reference():
+    """DeepSeek-V2 trains through MLA (the expanded keys through the
+    training flash attention at q/k 24 and v 16), its dense prelude and the
+    MoE FFN with shared experts."""
+    _loss_and_gradients("deepseek_v2_236b", False)
+
+
+def test_moe_training_of_a_mamba_config_raises():
+    """Jamba trains through Mamba, whose selective scan has no backward
+    kernel: its ``loss_fn`` raises naming its ROADMAP item."""
+    _, cfg = _configs("jamba_1_5_large_398b")
     params = TLM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     toks = torch.zeros(1, 8, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         TLM.loss_fn(cfg, params, {"tokens": toks, "labels": toks})
 
 

@@ -15,8 +15,9 @@ difference in it moves the step by a share of ``lr``; the bound is ``lr``
 times that share's difference between the port's and the reference's
 gradients, plus 1e-6.  Cases: yi_6b at 1 and 2 microbatches with remat on and
 off; gemma_7b (tied head, GeGLU), h2o_danube_3_4b (a window of 64 inside
-128 tokens), musicgen_large (two codebooks) and qwen2_vl_7b (embeds and
-M-RoPE).
+128 tokens), musicgen_large (two codebooks), qwen2_vl_7b (embeds and
+M-RoPE), dbrx_132b (MoE), minicpm3_4b (MLA: flash at q/k 24 and v 16) and
+deepseek_v2_236b (MLA, MoE with shared experts, the dense prelude).
 
 Then the data-parallel step in 4 gloo ranks (2 pods x 2 lanes,
 ``launch/ranks.py``, the job ``torch_rank_jobs.train_step_ranks``): its
@@ -94,7 +95,8 @@ def _reference_step(jcfg, params, batch):
 @pytest.mark.parametrize("arch,micro,remat", [
     ("yi_6b", 1, False), ("yi_6b", 2, False), ("yi_6b", 1, True), ("yi_6b", 2, True),
     ("gemma_7b", 1, False), ("h2o_danube_3_4b", 1, False), ("musicgen_large", 2, False),
-    ("qwen2_vl_7b", 1, False), ("dbrx_132b", 2, False),
+    ("qwen2_vl_7b", 1, False), ("dbrx_132b", 2, False), ("minicpm3_4b", 1, False),
+    ("deepseek_v2_236b", 2, False),
 ])
 def test_train_step_matches_the_reference(arch, micro, remat):
     jcfg, tcfg = _configs(arch, microbatches=micro, remat=remat)
