@@ -101,25 +101,35 @@ Phases, each reported on its own lines:
    copies of its source (the last partial row left out of the dw sum, the
    last row's prefetch dropped, a narrow row's shuffle reaching the next
    row's lanes, the last row team left out of the CTA's dw row), which
-   must each fail that check; each timed as in phase 3, beside its plain
-   version and SDPA's (or ``F.rms_norm``'s) backward
+   must each fail that check; the selective scan's backward at
+   Falcon-Mamba's training microbatch (a/b [1, 2048, 8192, 16]), a ragged
+   S = 300, with h0 and a nonzero final-state cotangent, and at N = 8
+   (ga, gb, gc, gh0 at 1e-5; whether ga, gb and gh0 match bit for bit is
+   printed; a second call to the same bits), with faults planted in
+   copies of its source (a_t used in place of a_{t+1}, the gh_fin seed
+   dropped, the carry lost at a chunk edge, one CTA's gc partial left out
+   of the sum), which must each fail that check; each timed as in phase
+   3, beside its plain version and SDPA's (or ``F.rms_norm``'s) backward
    through autograd (the forward and backward less the forward; SDPA
-   takes Danube's window as a mask).  (b) One train step at full width and
+   takes Danube's window as a mask; no PyTorch call computes a scan's
+   gradient).  (b) One train step at full width and
    2 layers of Yi-6B, H2O-Danube3-4B (sequences of 4608, so the window
-   masks), Gemma-7B, MusicGen-Large and MiniCPM3-4B, each through the
-   kernels and through their plain versions, from the same parameters and
-   batch (8 microbatches of 1 sequence): loss, ``grad_norm``, every
-   gradient and every updated parameter must agree.  (c)
-   ``launch/train.py``'s loop at full width on Yi-6B at 16 of its 32
+   masks), Gemma-7B, MusicGen-Large, MiniCPM3-4B and Falcon-Mamba-7B, each
+   through the kernels and through their plain versions, from the same
+   parameters and batch (8 microbatches of 1 sequence): loss,
+   ``grad_norm``, every gradient and every updated parameter must agree.
+   (c) ``launch/train.py``'s loop at full width on Yi-6B at 16 of its 32
    layers for 6 steps, Gemma-7B at 10 of its 28, MiniCPM3-4B at all 62,
-   H2O-Danube3-4B at all 24 (sequences of 4608, past its window) and
-   MusicGen-Large at all 48 for 4 (the depth whose AdamW state fits the
-   card), batch 8 x 2048 in 8 microbatches with remat, one repeated batch, learning rate 3e-4 after
-   1 warmup step: the loss must fall, and each step must launch the
-   kernels as the code implies (flash forward 2LM, backward LM, RMSNorm
-   forward (2nL+1)M, backward (nL+1)M, n the norms of a layer: 2, 4 with
-   MLA's); step time, tokens/s, model FLOPs per second over the card's
-   peak and peak memory are printed.  (d) At the
+   H2O-Danube3-4B at all 24 (sequences of 4608, past its window),
+   MusicGen-Large at all 48 and Falcon-Mamba-7B at 32 of its 64 for 4 (the
+   depth whose AdamW state fits the card), batch 8 x 2048 in 8 microbatches
+   with remat, one repeated batch, learning rate 3e-4 after 1 warmup step:
+   the loss must fall, and each step must launch the kernels as the code
+   implies (flash forward 2LM, backward LM, or for Mamba layers the scan
+   forward 2LM and backward LM; RMSNorm forward (2nL+1)M, backward
+   (nL+1)M, n the norms of a layer: 2, 1 for Falcon-Mamba's, 4 with MLA's);
+   step time, tokens/s, model FLOPs per second over the card's peak and
+   peak memory are printed.  (d) At the
    smoke config's size: a run stopped at its checkpoint and resumed takes
    its next step to the loss, parameters and optimizer state of a run that
    never stopped, bit for bit.
@@ -154,8 +164,9 @@ OUT_DIR = ROOT / "build" / "chip_smoke"  # the run's full record, beside the bui
 #: satisfy |kernel - plain| <= TOL_BF16 * (|plain| + rms of its row), where the
 #: plain version computes in fp32 on the same bf16 inputs (bf16 keeps 8 bits)
 TOL_BF16 = 2e-2
-#: the same for the fp32 selective scan, whose kernel and plain version
-#: differ only in the order of the readout's sum over the state
+#: the same for the fp32 selective scan and its backward, whose kernels and
+#: plain versions differ only in the order of a sum (the readout's over the
+#: state, gc's over the channels)
 TOL_F32 = 1e-5
 #: the served logits may stray from a float32 recomputation of the same
 #: prefill by at most this many times as far (rms over all logits) as the
@@ -251,9 +262,27 @@ RMSNORM_BWD_FAULTS = {
         "for (int u = 0; u < units; ++u) s += smem[(size_t)u * d + c];  // in unit order",
         "for (int u = 0; u < units - 1; ++u) s += smem[(size_t)u * d + c];", (2049, 4096)),
 }
+#: faults planted in copies of ``csrc/mamba_scan_bwd.cu`` (name: sound line,
+#: faulty line, label of the phase-8 case it is checked at): each must fail
+#: that case's check.  ``tests/test_torch_kernels.py`` plants the same.
+MAMBA_BWD_FAULTS = {
+    "a_t_in_place_of_a_next": (
+        "g = __fadd_rn(__fmul_rn(gv[u], cv[u]), __fmul_rn(a_next, g));",
+        "g = __fadd_rn(__fmul_rn(gv[u], cv[u]), __fmul_rn(av[u], g));", "falcon train"),
+    "gh_fin_seed_dropped": (
+        "float g = gh_fin != nullptr ? gh_fin[(int64_t)bi * plane + dn] : 0.f;",
+        "float g = 0.f;", "h0, gh_fin"),
+    "carry_lost_at_a_chunk_edge": (
+        "for (int k = nc - 1; k >= 0; --k) {  // chunks, last to first",
+        "for (int k = nc - 1; k >= 0; --k) { if (k < nc - 1) g = 0.f;", "falcon train"),
+    "last_cta_partial_left_out_of_gc": (
+        "for (int j = 0; j < ctas; ++j) s += p[j * SN];  // the partials in CTA order",
+        "for (int j = 0; j < ctas - 1; ++j) s += p[j * SN];", "falcon train"),
+}
 #: every planted fault, by the kernel whose source it is planted in
 PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS,
-           "flash_attention_bwd": FLASH_BWD_FAULTS, "rmsnorm_bwd": RMSNORM_BWD_FAULTS}
+           "flash_attention_bwd": FLASH_BWD_FAULTS, "rmsnorm_bwd": RMSNORM_BWD_FAULTS,
+           "mamba_scan_bwd": MAMBA_BWD_FAULTS}
 #: phase 8's attention cases: (label, BH, g, S, hd, hd_v, window): one
 #: sequence of a model's heads (a microbatch of its train step: 2048 tokens,
 #: Danube's 4608 past its window of 4096), ragged S, window edges inside a
@@ -278,13 +307,20 @@ TRAIN_FLASH_SPECS = [
 #: Gemma, MusicGen, MiniCPM3's hidden, q_norm and kv_norm, Qwen2-VL)
 TRAIN_RMSNORM_SPECS = [(2048, 4096), (2049, 4096), (2048, 64), (2048, 3840), (2048, 3072),
                        (2048, 2048), (2048, 2560), (2048, 768), (2048, 256), (2048, 3584)]
+#: phase 8's selective-scan backward cases: (label, B, S, di, N, with h0 and
+#: gh_fin): Falcon-Mamba's training microbatch, a ragged S (no multiple of
+#: the kernel's 8-step chunk), an initial state and a nonzero final-state
+#: cotangent, the smoke config's state size
+TRAIN_SCAN_SPECS = [("falcon train", 1, 2048, 8192, 16, False),
+                    ("ragged", 1, 300, 8192, 16, False),
+                    ("h0, gh_fin", 1, 2048, 8192, 16, True), ("N 8", 1, 2048, 8192, 8, False)]
 #: phase 8's batch: 8 sequences, one a microbatch (the configs' 8), of 2048
 #: tokens (Danube's 4608, past its window of 4096)
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 #: phase 8 (b): (arch, sequence length), each at full width and 2 layers
 TRAIN_AGAINST_PLAIN = [("yi_6b", TRAIN_SEQ), ("h2o_danube_3_4b", 4608),
                        ("gemma_7b", TRAIN_SEQ), ("musicgen_large", TRAIN_SEQ),
-                       ("minicpm3_4b", TRAIN_SEQ)]
+                       ("minicpm3_4b", TRAIN_SEQ), ("falcon_mamba_7b", TRAIN_SEQ)]
 #: phase 8 (c): (arch, layers, steps, sequence length) at full width, the
 #: config's own microbatches and remat, at the depth whose AdamW state (~16
 #: B a parameter) fits one card: Yi-6B at 16 of its 32 layers (3.29 B
@@ -292,10 +328,12 @@ TRAIN_AGAINST_PLAIN = [("yi_6b", TRAIN_SEQ), ("h2o_danube_3_4b", 4608),
 #: layers are 3.55 B, ~58 GB, with ~5 GB of logits a microbatch at a
 #: vocabulary of 256,000), MiniCPM3-4B at all 62 (4.26 B, ~69 GB),
 #: H2O-Danube3-4B at all 24 (3.96 B, ~64 GB) on sequences of 4608, past its
-#: window, and MusicGen-Large at all 48 (2.45 B, ~40 GB)
+#: window, MusicGen-Large at all 48 (2.45 B, ~40 GB) and Falcon-Mamba-7B at
+#: 32 of its 64 (3.90 B, ~62 GB, and a layer's backward holds a, b, ga, gb
+#: and their products' gradients, 1.07 GB each)
 TRAIN_FULL_WIDTH = [("yi_6b", 16, 6, TRAIN_SEQ), ("gemma_7b", 10, 4, TRAIN_SEQ),
                     ("minicpm3_4b", 62, 4, TRAIN_SEQ), ("h2o_danube_3_4b", 24, 4, 4608),
-                    ("musicgen_large", 48, 4, TRAIN_SEQ)]
+                    ("musicgen_large", 48, 4, TRAIN_SEQ), ("falcon_mamba_7b", 32, 4, TRAIN_SEQ)]
 #: the loss averages 16,384 per-token terms: the kernels' bf16 rounding,
 #: which differs from the plain versions' float32 element by element,
 #: averages out in it
@@ -687,7 +725,8 @@ def plain_kernels():
     reference forward; the port itself never does this)."""
     from repro_torch.kernels import ops, ref
 
-    names = ("rmsnorm", "flash_attention", "mamba_scan", "flash_attention_bwd", "rmsnorm_bwd")
+    names = ("rmsnorm", "flash_attention", "mamba_scan", "flash_attention_bwd", "rmsnorm_bwd",
+             "mamba_scan_bwd")
     saved = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, getattr(ref, f"{n}_ref"))
@@ -1694,6 +1733,94 @@ def rmsnorm_train_cases(gen, fault_libs) -> list:
     return cases
 
 
+def scan_train_cases(gen, fault_libs) -> list:
+    """Phase 8 (a): the selective scan's backward against its plain version
+    at ``TRAIN_SCAN_SPECS``, every output (ga, gb, gc, gh0) at ``TOL_F32``,
+    a second call to the same bits, and every planted fault of
+    ``MAMBA_BWD_FAULTS``.  No PyTorch call computes a scan's gradient:
+    ``library_ms`` is None."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import mamba_scan_bwd as sb_mod
+    from repro_torch.kernels.mamba_scan_bwd import (mamba_scan_bwd_cuda,
+                                                    mamba_scan_bwd_workspace_bytes)
+    from repro_torch.kernels.ref import mamba_scan_bwd_ref, scaled_err
+
+    names = ("ga", "gb", "gc", "gh0")
+
+    def errs(got, want) -> dict:
+        return {n: scaled_err(g, w) for n, g, w in zip(names, got, want)}
+
+    def kernel(a, b, c, gy, h0=None, gh=None):
+        return mamba_scan_bwd_cuda(a, b, c, h0, gy, gh)
+
+    def plain(a, b, c, gy, h0=None, gh=None):
+        return mamba_scan_bwd_ref(a, b, c, h0, gy, gh)
+
+    faults = {}
+    for name, (_, _, label) in MAMBA_BWD_FAULTS.items():
+        faults.setdefault(label, []).append(name)
+    cases = []
+    for label, B, S, di, N, with_h0 in TRAIN_SCAN_SPECS:
+        a = torch.rand(B, S, di, N, generator=gen, device="cuda") * 0.9
+        b = torch.randn(B, S, di, N, generator=gen, device="cuda") * 0.1
+        c = torch.randn(B, S, N, generator=gen, device="cuda")
+        gy = torch.randn(B, S, di, generator=gen, device="cuda")
+        args = (a, b, c, gy)
+        if with_h0:
+            args += tuple(torch.randn(B, di, N, generator=gen, device="cuda") * 0.1
+                          for _ in range(2))
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*args)
+        err = errs(got, want)
+        if not max(err.values()) <= TOL_F32:
+            raise AssertionError(f"mamba_scan_bwd {label}: scaled err {err} > {TOL_F32}")
+        if not all(torch.equal(x, y) for x, y in zip(got, kernel(*args))):  # no atomics
+            raise AssertionError(f"mamba_scan_bwd {label}: two calls differ")
+        bitwise = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
+        planted = {}
+        for name in faults.get(label, []):
+            saved = build._LIBS["mamba_scan_bwd"]
+            try:
+                build._LIBS["mamba_scan_bwd"] = build.load(fault_libs[name], sb_mod._SIGNATURES)
+                faulty = kernel(*args)
+                torch.cuda.synchronize()
+            finally:
+                build._LIBS["mamba_scan_bwd"] = saved
+            f_err = max(errs(faulty, want).values())
+            print(f"[kernel] mamba_scan_bwd planted fault {name} at {label}: scaled err "
+                  f"{f_err:.6g} (sound {max(err.values()):.6g}, tol {TOL_F32})")
+            if f_err <= TOL_F32:  # a faulty output of NaNs fails the check too
+                raise AssertionError(f"planted fault {name} passed the check: {f_err}")
+            planted[name] = f_err if math.isfinite(f_err) else str(f_err)
+            del faulty
+        # each input read once (a, b, c, gy, h0, gh_fin), each output written
+        # once (ga, gb, gc, gh0)
+        nbytes = 4 * (sum(t.numel() for t in args) + 2 * B * S * di * N + B * S * N
+                      + B * di * N)
+        case = {
+            "shape": f"{label}: a/b[{B},{S},{di},{N}]{' h0 gh_fin' if with_h0 else ''} fp32",
+            "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
+            "scaled_err": max(err.values()), **{f"scaled_err_{n}": e for n, e in err.items()},
+            "bit_for_bit": bitwise,
+            "workspace_bytes": mamba_scan_bwd_workspace_bytes(B, S, di, N),
+            **_times(kernel, plain, None, args, iters=2),
+            "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            # per state element and step: h (mul, add), g (2 mul, add), ga
+            # (mul), gc's term (mul, add)
+            "bound_ops_ms": 8 * B * S * di * N / PEAK_FP32_FLOPS * 1e3,
+        }
+        if planted:
+            case["planted_fault_scaled_err"] = planted
+        print(f"[kernel] mamba_scan_bwd {label}: scaled err {err}; bit for bit with the plain "
+              f"version: {bitwise}")
+        cases.append(case)
+        del a, b, c, gy, args, got, want
+    return cases
+
+
 def _config(arch: str, layers: int):
     """``arch`` at its published widths and ``layers`` of its layers."""
     from repro_torch.configs import get_config
@@ -1705,13 +1832,21 @@ def _launches_per_step(cfg) -> dict:
     """The kernels' launches one train step implies, in each of its M
     microbatches: every layer's forward once, and once more in the backward
     under remat; every layer's backward once; the final norm once each way.
-    A layer has 2 norms, and MLA's q_norm (with a q_lora_rank) and kv_norm
-    beside them."""
+    An attention layer launches flash, a Mamba layer the selective scan; a
+    layer has its first norm, a second one unless its FFN is "none"
+    (Falcon-Mamba), and MLA's q_norm (with a q_lora_rank) and kv_norm."""
     L, M, a = cfg.num_layers, cfg.parallel.microbatches, cfg.attn
     r = 2 if cfg.parallel.remat else 1
-    n = 2 + (a.kind == "mla") * (1 + bool(a.q_lora_rank))
-    return {"flash_attention": r * L * M, "flash_attention_bwd": L * M,
-            "rmsnorm": (r * n * L + 1) * M, "rmsnorm_bwd": (n * L + 1) * M}
+    specs = [cfg.layer_pattern[i % len(cfg.layer_pattern)] for i in range(L)]
+    attn = sum(s.mixer == "attn" for s in specs)
+    mla = 1 + bool(a.q_lora_rank) if a is not None and a.kind == "mla" else 0
+    n = sum(1 + (s.ffn != "none") + (mla if s.mixer == "attn" else 0) for s in specs)
+    out = {}
+    if attn:
+        out.update(flash_attention=r * attn * M, flash_attention_bwd=attn * M)
+    if L - attn:
+        out.update(mamba_scan=r * (L - attn) * M, mamba_scan_bwd=(L - attn) * M)
+    return {**out, "rmsnorm": (r * n + 1) * M, "rmsnorm_bwd": (n + 1) * M}
 
 
 def _step_share(g, norm: float):
@@ -1811,23 +1946,36 @@ def train_path_against_plain(arch: str, seq: int, seed: int = 0) -> dict:
     return res
 
 
+#: Mamba's leaves that no product reads: the decay's log (an exponent), the
+#: skip and the biases (elementwise)
+_MAMBA_ELEMENTWISE = ("a_log", "d_skip", "conv_b", "dt_b")
+
+
 def _model_flops(cfg, n_params: int, batch: int, seq: int) -> float:
     """Model FLOPs of one train step: 6 per token and weight of every
     product (the embedding table is a lookup, but also the head where it is
-    tied; the norms' weights are no product), and the attention's QK^T and
-    PV over the unmasked pairs, forward and backward (3x)."""
+    tied; the norms' weights and Mamba's ``_MAMBA_ELEMENTWISE`` leaves are
+    no product; Mamba's depthwise conv is one), and the attention layers'
+    QK^T and PV over the unmasked pairs, forward and backward (3x).  The
+    selective scan is elementwise (a multiply and an add per state element
+    and step) and counts no FLOPs."""
     from repro_torch.models import lm
 
     lookup = 0
     for path, leaf in _leaf_paths(lm.model_meta(cfg)):
         name = path.rsplit("/", 1)[-1]
-        if name.endswith("norm") or (name == "embedding" and not cfg.tie_embeddings):
+        if (name.endswith("norm") or (name == "embedding" and not cfg.tie_embeddings)
+                or name in _MAMBA_ELEMENTWISE):
             lookup += math.prod(leaf.shape)
+    out = 6 * (n_params - lookup) * batch * seq
     a = cfg.attn
+    if a is None:
+        return out
     hd_qk, hd_v = (a.qk_head_dim, a.v_head_dim) if a.kind == "mla" else (a.head_dim,) * 2
     pairs = _attn_pairs(seq, seq, True, a.sliding_window)
-    attn = 6 * pairs * (hd_qk + hd_v) * a.num_heads * cfg.num_layers * batch
-    return 6 * (n_params - lookup) * batch * seq + attn
+    layers = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)].mixer == "attn"
+                 for i in range(cfg.num_layers))
+    return out + 6 * pairs * (hd_qk + hd_v) * a.num_heads * layers * batch
 
 
 def train_full_width(arch: str, layers: int, steps: int, seq: int, seed: int = 0) -> dict:
@@ -2014,9 +2162,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     fwd_train, bwd_train = flash_train_cases(gen, fault_libs)
     rms_train = rmsnorm_train_cases(gen, fault_libs)
-    for name, cases in (("flash_attention (training forward)", fwd_train),
-                        ("flash_attention_bwd", bwd_train), ("rmsnorm_bwd", rms_train)):
-        _print_cases(name, cases, TOL_BF16)
+    scan_train = scan_train_cases(gen, fault_libs)
+    for name, cases, tol in (("flash_attention (training forward)", fwd_train, TOL_BF16),
+                             ("flash_attention_bwd", bwd_train, TOL_BF16),
+                             ("rmsnorm_bwd", rms_train, TOL_BF16),
+                             ("mamba_scan_bwd", scan_train, TOL_F32)):
+        _print_cases(name, cases, tol)
     done("train kernels")
     gc.collect()
     torch.cuda.empty_cache()
@@ -2058,6 +2209,9 @@ def main() -> int:
         kernel_entry("rmsnorm_bwd", "src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
                      "src/repro/models/layers.py:40", rms_train,
                      {run: n["rmsnorm_bwd"] for run, n in runs.items()}),
+        kernel_entry("mamba_scan_bwd", "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
+                     "src/repro/models/mamba.py:112", scan_train,
+                     {run: n["mamba_scan_bwd"] for run, n in runs.items()}, tolerance=TOL_F32),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

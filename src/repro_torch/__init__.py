@@ -13,11 +13,12 @@ Two paths use them: serving (``launch/serve.py`` -> ``serving/engine.py``
 (``launch/train.py`` -> ``training/train_step.py`` -> ``models/lm.loss_fn``,
 AdamW in ``training/optimizer.py``, checkpoints in
 ``training/checkpoint.py``).  Training differentiates the flash attention
-(``models/flash.py``, the reference's custom VJP) and RMSNorm through two
-more CUDA kernels, their backwards (``csrc/flash_attention_bwd.cu``,
-``csrc/rmsnorm_bwd.cu``); on one card it syncs no gradients, in ranks
-(``launch/ranks.py``) the train step takes the reference's flat or
-full-lane (``hierarchical_psum``) data-parallel sync.
+(``models/flash.py``, the reference's custom VJP), the selective scan
+(``models/mamba.selective_scan``, the other custom VJP) and RMSNorm through
+three more CUDA kernels, their backwards (``csrc/flash_attention_bwd.cu``,
+``csrc/mamba_scan_bwd.cu``, ``csrc/rmsnorm_bwd.cu``); on one card it syncs
+no gradients, in ranks (``launch/ranks.py``) the train step takes the
+reference's flat or full-lane (``hierarchical_psum``) data-parallel sync.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``: they
 raise when CUDA is absent, unless the caller asked for ``"cpu"``.

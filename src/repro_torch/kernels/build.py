@@ -23,7 +23,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "compile_sources", "jo
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "a2a_pack", "flash_attention_bwd",
-           "rmsnorm_bwd")
+           "rmsnorm_bwd", "mamba_scan_bwd")
 # -Xptxas -v: registers, shared memory and spills of every kernel, kept in
 # BUILD_LOG for the record of a run
 NVCC_FLAGS = (

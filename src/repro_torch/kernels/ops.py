@@ -20,10 +20,12 @@ from repro_torch.kernels.a2a_pack import a2a_pack_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan_bwd import mamba_scan_bwd_cuda
 from repro_torch.kernels.ref import (
     a2a_pack_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
+    mamba_scan_bwd_ref,
     mamba_scan_ref,
     rmsnorm_bwd_ref,
     rmsnorm_ref,
@@ -31,8 +33,8 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
-__all__ = ["a2a_pack", "flash_attention", "flash_attention_bwd", "mamba_scan", "rmsnorm",
-           "rmsnorm_bwd", "add_launches", "launch_counts", "reset_launches"]
+__all__ = ["a2a_pack", "flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd",
+           "rmsnorm", "rmsnorm_bwd", "add_launches", "launch_counts", "reset_launches"]
 
 
 def _no_path(name: str, t: torch.Tensor):
@@ -108,6 +110,20 @@ def mamba_scan(a, b, c, h0=None):
     raise _no_path("mamba_scan", a)
 
 
+def mamba_scan_bwd(a, b, c, h0, gy, gh_fin=None):
+    """The gradients (ga, gb [B, S, di, N], gc [B, S, N], gh0 [B, di, N]) of
+    :func:`mamba_scan` for the cotangents ``gy`` [B, S, di] of y and
+    ``gh_fin`` [B, di, N] of h_last (None: zeros), from its inputs; h0 None
+    is zeros, all float32."""
+    if a.is_cuda:
+        out = mamba_scan_bwd_cuda(a, b, c, h0, gy, gh_fin)
+        mamba_scan_bwd.launches += 1
+        return out
+    if a.device.type == "cpu":
+        return mamba_scan_bwd_ref(a, b, c, h0, gy, gh_fin)
+    raise _no_path("mamba_scan_bwd", a)
+
+
 def a2a_pack(x: torch.Tensor) -> torch.Tensor:
     """[No, Ni, blk, d] -> [Ni, No, blk, d] (the leading two dims swapped),
     any dtype; contiguous output."""
@@ -121,7 +137,7 @@ def a2a_pack(x: torch.Tensor) -> torch.Tensor:
 
 
 _DISPATCHERS = (rmsnorm, flash_attention, mamba_scan, a2a_pack, flash_attention_bwd,
-                rmsnorm_bwd)
+                rmsnorm_bwd, mamba_scan_bwd)
 
 
 def reset_launches() -> None:

@@ -9,7 +9,7 @@ import math
 import torch
 
 __all__ = ["a2a_pack_ref", "dq_scaled_err", "flash_attention_bwd_ref", "flash_attention_ref",
-           "mamba_scan_ref", "rmsnorm_bwd_ref", "rmsnorm_ref", "scaled_err"]
+           "mamba_scan_bwd_ref", "mamba_scan_ref", "rmsnorm_bwd_ref", "rmsnorm_ref", "scaled_err"]
 
 _NEG = -1e30
 
@@ -127,6 +127,42 @@ def mamba_scan_ref(
         h = a[:, t] * h + b[:, t]
         ys.append((h * c[:, t, None, :]).sum(dim=-1))
     return torch.stack(ys, dim=1), h
+
+
+def mamba_scan_bwd_ref(
+    a: torch.Tensor,  # [B, S, di, N] decay
+    b: torch.Tensor,  # [B, S, di, N] input
+    c: torch.Tensor,  # [B, S, N] readout
+    h0: torch.Tensor | None,  # [B, di, N] initial state (None: zeros)
+    gy: torch.Tensor,  # [B, S, di] cotangent of y
+    gh_fin: torch.Tensor | None = None,  # [B, di, N] cotangent of h_last (None: zeros)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`mamba_scan_ref`, step by step as the
+    reference's ``_scan_bwd`` defines them, in float32: h recomputed by the
+    forward's recurrence, then from the last step to the first ``g_t = gy_t
+    c_t + a_{t+1} g_{t+1}``, seeded with ``gh_fin`` at ``t = S - 1``;
+    ``ga_t = g_t h_{t-1}``, ``gb_t = g_t``, ``gc_t = sum_d h_t gy_t`` and
+    ``gh0 = a_0 g_0``.  Returns (ga, gb, gc, gh0)."""
+    B, S, di, N = a.shape
+    a, b, c, gy = a.float(), b.float(), c.float(), gy.float()
+    h = (torch.zeros(B, di, N, dtype=torch.float32, device=a.device) if h0 is None
+         else h0.float())
+    hs = torch.empty(B, S + 1, di, N, dtype=torch.float32, device=a.device)  # h_{t-1} at t
+    hs[:, 0] = h
+    gc = torch.empty(B, S, N, dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs[:, t + 1] = h
+        gc[:, t] = (h * gy[:, t, :, None]).sum(dim=1)
+    g = (torch.zeros(B, di, N, dtype=torch.float32, device=a.device) if gh_fin is None
+         else gh_fin.float())
+    ga, gb = torch.empty_like(a), torch.empty_like(a)
+    for t in range(S - 1, -1, -1):
+        carry = g if t == S - 1 else a[:, t + 1] * g
+        g = gy[:, t, :, None] * c[:, t, None, :] + carry
+        ga[:, t] = g * hs[:, t]
+        gb[:, t] = g
+    return ga, gb, gc, a[:, 0] * g
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

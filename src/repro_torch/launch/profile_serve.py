@@ -42,10 +42,13 @@ step ``launch/train.py`` runs): the config's published widths, batch 8 x
 ``--seq`` (2048 by default) in the config's 8 microbatches with remat,
 AdamW; ``--layers`` cuts the depth there too, to what ``chip_smoke.py``
 trains where the state of every layer does not fit one card (Yi-6B
-``--layers 16``, Gemma-7B ``--layers 10``).  One step warms up, one is
-timed alone on the host clock (synchronised), one is profiled.
+``--layers 16``, Gemma-7B ``--layers 10``, Falcon-Mamba-7B ``--layers
+32``).  One step warms up, one is timed alone on the host clock
+(synchronised), one is profiled; the split gives the selective scan's
+forward and backward kernels apart.
 
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch yi_6b --train --layers 16
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch falcon_mamba_7b --train --layers 32
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch h2o_danube_3_4b --train --seq 4608
 
 Qwen2-VL takes embeddings, which no engine drives: its run profiles
@@ -116,7 +119,11 @@ def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
         print(f"[profile]   host   {e.self_cpu_time_total / n / 1e3:9.4f} ms/call  "
               f"x{e.count / n:<6g} {e.key[:90]}")
     split = {"flash attention": sum(_device_us(e) for e in on_device if "flash_" in e.key),
-             "rmsnorm": sum(_device_us(e) for e in on_device if "rmsnorm" in e.key)}
+             "rmsnorm": sum(_device_us(e) for e in on_device if "rmsnorm" in e.key),
+             "scan forward": sum(_device_us(e) for e in on_device
+                                 if "mamba_scan_kernel" in e.key),
+             "scan backward": sum(_device_us(e) for e in on_device
+                                  if "mamba_scan_bwd" in e.key)}
     for span in SPANS:  # a span's device time: the kernels of the operators inside it
         us = sum(e.device_time_total for e in prof.events()
                  if e.name == span and e.device_type == DeviceType.CPU)

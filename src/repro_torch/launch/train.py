@@ -6,6 +6,7 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi_6b --smoke \\
       --steps 50 --batch 8 --seq 64 --ckpt-dir /tmp/ck    # on the card
   ... --device cpu                                          # the plain path
+  ... --arch falcon_mamba_7b --layers 32 --seq 2048         # full width, 32 of 64 layers
 
 The reference's CLI, with ``--device`` added and ``--mesh`` left out (one
 card has no mesh; the data-parallel backends are reached through ranks,
@@ -13,8 +14,11 @@ card has no mesh; the data-parallel backends are reached through ranks,
 names the sync that such a step would use).  The loop is the reference's:
 resume from the latest committed checkpoint, a prefetched deterministic data
 stream, async checkpoints every ``--ckpt-every`` steps (keep-last GC), the
-straggler monitor.  ``train(cfg, opt_cfg, ...)`` runs the loop for a config
-the caller builds (``chip_smoke.py`` passes Yi-6B at 16 of its 32 layers).
+straggler monitor.  ``--layers N`` keeps the config's first N layers, at
+its published widths (a full-width model whose AdamW state at full depth
+would not fit one card).  ``train(cfg, opt_cfg, ...)`` runs the loop for a
+config the caller builds (``chip_smoke.py`` passes Yi-6B at 16 of its 32
+layers).
 
 One deliberate difference: a checkpoint saved after step N holds the state
 after N's update, and a resumed run starts at step N + 1; the reference's
@@ -26,6 +30,7 @@ of a run that never stopped.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -111,6 +116,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="reduced config (CPU-runnable)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="layers of the config to keep (default: all)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -126,6 +133,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     opt_cfg = OptConfig(learning_rate=args.lr, moment_dtype=cfg.parallel.optimizer_dtype)
     return train(cfg, opt_cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                  ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every, seed=args.seed,

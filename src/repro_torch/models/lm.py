@@ -10,8 +10,9 @@ Entry points:
 
 * ``loss_fn``      — the training forward and its cross-entropy
   (``{"tokens"}`` or ``{"embeds"}`` with ``"labels"``), differentiable in
-  the parameters through the flash and RMSNorm backward kernels, each
-  period rematerialised in the backward when ``parallel.remat``;
+  the parameters through the flash, selective-scan and RMSNorm backward
+  kernels, each period rematerialised in the backward when
+  ``parallel.remat``;
 * ``prefill``      — forward over a prompt (``{"tokens"}``, or
   ``{"embeds"}`` for a model that takes embeddings, either with optional
   ``"positions"``); last-position logits and the filled cache;
@@ -25,9 +26,10 @@ first ``first_k_dense`` layers (DeepSeek-V2's one) run before the stacked
 periods as an unrolled prelude, ``prelude<j>``, with a dense FFN, their
 parameters and caches unstacked, as in the reference; the periods stacked
 under ``blocks`` are the ``(num_layers - first_k_dense) // len(pattern)``
-that remain.  Every attention config trains (MLA through its expanded form
-and the flash kernels at its pair of head dims); Mamba training waits for
-the selective scan's backward (ROADMAP queue 1 item 8).
+that remain.  Every config trains: attention through the flash kernels
+(MLA in its expanded form, at its pair of head dims), Mamba through the
+selective scan's custom VJP (``mamba.selective_scan``, the scan's backward
+kernel), the hybrid (Jamba) through both.
 """
 
 from __future__ import annotations
@@ -134,7 +136,7 @@ def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
                                  cache_pos=cache_pos, capacity=capacity, train=train)
         mix, new_cache = res.out, res.cache
     else:
-        mix, new_cache = mamba_mod.mamba(cfg, p["mixer"], h, cache=cache)
+        mix, new_cache = mamba_mod.mamba(cfg, p["mixer"], h, cache=cache, train=train)
     x = x + mix
     if spec.ffn != "none":
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -193,10 +195,6 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, 
     ``torch.utils.checkpoint`` (non-reentrant) when ``parallel.remat``, so
     the backward recomputes its forward, as the reference's
     ``jax.checkpoint`` of the period body does; the prelude layers do not."""
-    if any(s.mixer == "mamba" for s in cfg.layer_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba training waits for the selective scan's backward kernel "
-            "(ROADMAP queue 1 item 8)")
     x, positions = _inputs(cfg, params, {k: v for k, v in batch.items() if k != "labels"})
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 

@@ -1,21 +1,22 @@
 """Mamba-1 selective-state-space mixer (the counterpart of the reference's
-``repro/models/mamba.py``), forward only.
+``repro/models/mamba.py``).
 
 Two compute paths:
 
-* prefill — the causal depthwise conv, written as the reference writes it
-  (a sum of shifted float32 scalings), the discretised scan terms
-  (``_ssm_terms``), then the selective scan through ``ops.mamba_scan`` (the
-  scan kernel on the card) from a zero state.  The reference's prefill runs
-  a chunked associative scan, which computes the same recurrence with its
-  products in another order.  Prefill returns the filled cache: the last
-  ``d_conv - 1`` conv inputs and the last state.
+* prefill and train — the causal depthwise conv, written as the reference
+  writes it (a sum of shifted float32 scalings), the discretised scan terms
+  (``_ssm_terms``), then ``selective_scan`` from a zero state: the
+  counterpart of the reference's custom VJP.  Its forward is
+  ``ops.mamba_scan`` (the scan kernel on the card) and saves only its
+  inputs; its backward is ``ops.mamba_scan_bwd`` (the backward kernel on
+  the card), which recomputes the states and runs the reverse recurrence of
+  the reference's ``_scan_bwd``.  The reference's forward runs a chunked
+  associative scan, which computes the same recurrence with its products in
+  another order.  Prefill returns the filled cache (the last ``d_conv - 1``
+  conv inputs and the last state); ``train=True`` fills none.
 * decode — the O(1) recurrent step over that cache, in plain PyTorch ops,
   as in the reference (it has no TPU kernel).  The cache is updated in
   place.
-
-The reference's ``selective_scan`` custom VJP (the training path, with the
-reverse recurrence of ``_scan_bwd``) comes with the training slice.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamMeta
 
-__all__ = ["mamba_meta", "mamba", "init_mamba_cache"]
+__all__ = ["mamba_meta", "mamba", "init_mamba_cache", "selective_scan"]
 
 
 def mamba_meta(cfg: ModelConfig) -> dict:
@@ -60,6 +61,39 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, *, device,
     }
 
 
+class _SelectiveScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, c, h0):
+        ctx.set_materialize_grads(False)  # an unused h_fin sends no zeros back
+        y, h_fin = ops.mamba_scan(a, b, c, h0)
+        ctx.save_for_backward(a, b, c, h0)
+        return y, h_fin
+
+    @staticmethod
+    def backward(ctx, gy, gh_fin):
+        a, b, c, h0 = ctx.saved_tensors
+        gy = a.new_zeros(a.shape[:3]) if gy is None else gy.contiguous()
+        ga, gb, gc, gh0 = ops.mamba_scan_bwd(
+            a, b, c, h0, gy, gh_fin.contiguous() if gh_fin is not None else None)
+        return ga, gb, gc, gh0 if h0 is not None else None
+
+
+def selective_scan(
+    a: torch.Tensor,  # [B, S, di, N] decay, float32
+    b: torch.Tensor,  # [B, S, di, N] input, float32
+    c: torch.Tensor,  # [B, S, N] readout, float32
+    h0: torch.Tensor | None,  # [B, di, N] initial state (None: zeros)
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``y_t = <h_t, c_t>``, ``h_t = a_t h_{t-1} + b_t``: returns (y [B, S,
+    di], h_fin [B, di, N]), differentiable in a, b, c and h0 through the
+    backward kernel.  The inputs must be contiguous on the card, where the
+    kernels take them as they are.  ``chunk`` only shapes the reference's
+    XLA loops: it is accepted and changes nothing."""
+    del chunk
+    return _SelectiveScan.apply(a, b, c, h0)
+
+
 def _ssm_terms(cfg: ModelConfig, p: dict, xz: torch.Tensor):
     """From the conv+silu branch activation x [B, S, di], the discretised
     scan terms a, b [B, S, di, N] (float32, contiguous) and the per-step
@@ -72,7 +106,9 @@ def _ssm_terms(cfg: ModelConfig, p: dict, xz: torch.Tensor):
     C_ssm = proj[..., r + m.d_state:]
     A = -torch.exp(p["a_log"].float())  # [di, N]
     dt32 = dt.float()
-    a = (dt32[..., None] * A).exp_()  # in place: a is 1.07 GB at the serving shape
+    # in place (autograd keeps exp's output, which the product's backward
+    # does not need): a is 1.07 GB at the serving shape
+    a = (dt32[..., None] * A).exp_()
     b = (dt32 * xz.float())[..., None] * B_ssm.float()[..., None, :]
     return a, b, C_ssm
 
@@ -83,9 +119,11 @@ def mamba(
     x: torch.Tensor,  # [B, S, D]
     *,
     cache: dict | None = None,  # decode: this layer's cache, updated in place
-) -> tuple[torch.Tensor, dict]:
+    train: bool = False,
+) -> tuple[torch.Tensor, dict | None]:
     """Prefill when ``cache`` is None (returns the filled cache), else one
-    decode step (S == 1) against ``cache``."""
+    decode step (S == 1) against ``cache``.  ``train``: the prefill branch
+    through ``selective_scan``, differentiable, and no cache (None)."""
     m = cfg.mamba
     B, S, D = x.shape
     di = m.expand * D
@@ -113,10 +151,11 @@ def mamba(
             xc = xc + xin_p[:, w:w + S].float() * p["conv_w"][w].float()
         xc = F.silu(xc + p["conv_b"].float()).to(x.dtype)
         a, b, C_ssm = _ssm_terms(cfg, p, xc)
-        y, h_last = ops.mamba_scan(a, b, C_ssm.float().contiguous())
+        y, h_last = selective_scan(a, b, C_ssm.float().contiguous(), None,
+                                   cfg.parallel.mamba_chunk)
+        new_cache = None if train else {"conv": xin_p[:, S:], "ssm": h_last}
         del a, b
         y = y + p["d_skip"].float() * xc.float()
-        new_cache = {"conv": xin_p[:, S:], "ssm": h_last}
 
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
     return y, new_cache

@@ -20,6 +20,7 @@ from repro_torch.kernels.a2a_pack import a2a_pack_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+from repro_torch.kernels.mamba_scan_bwd import mamba_scan_bwd_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
@@ -209,6 +210,22 @@ def _scan_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
             torch.randn(B, S, N, dtype=dtype))
 
 
+def _scan_bwd_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
+    """(a, b, c, h0, gy, gh_fin) as the backward takes them."""
+    a, b, c = _scan_args(B, S, di, N, dtype)
+    return a, b, c, None, torch.randn(B, S, di, dtype=dtype), None
+
+
+def test_mamba_scan_bwd_cpu_call_runs_the_plain_version_uncounted():
+    a, b, c, _, gy, _ = _scan_bwd_args(2, 9, 8, 4)
+    h0, gh = torch.randn(2, 8, 4), torch.randn(2, 8, 4)
+    before = ops.mamba_scan_bwd.launches
+    for args in ((a, b, c, None, gy, None), (a, b, c, h0, gy, gh)):
+        for g, w in zip(ops.mamba_scan_bwd(*args), ref.mamba_scan_bwd_ref(*args)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert ops.mamba_scan_bwd.launches == before
+
+
 @pytest.mark.parametrize("call,err", [
     (lambda: mamba_scan_cuda(*_scan_args()), "CUDA device"),
     (lambda: mamba_scan_cuda(*_scan_args(N=3)), "must divide 32"),
@@ -219,6 +236,19 @@ def _scan_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
     (lambda: mamba_scan_cuda(_scan_args()[0].transpose(2, 3).contiguous().transpose(2, 3),
                              *_scan_args()[1:]), "contiguous"),
     (lambda: mamba_scan_cuda(*_scan_args(), torch.zeros(2, 8)), r"h0 \[B, di, N\]"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args()), "CUDA device"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args(N=3)), "must divide 32"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args(dtype=torch.bfloat16)), "float32"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args()[:5], torch.zeros(2, 8, 4, dtype=torch.float64)),
+     "float32"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args()[:4], torch.zeros(2, 5, 4)),
+     r"gy \[B, S, di\]"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args()[:5], torch.zeros(2, 8)),
+     r"gh_fin \[B, di, N\]"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args()[:2], torch.zeros(2, 5, 8), None,
+                                 torch.zeros(2, 5, 8)), r"c \[B, S, N\]"),
+    (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args()[:4], torch.zeros(2, 8, 5).transpose(1, 2)),
+     "contiguous"),
     (lambda: a2a_pack_cuda(torch.randn(2, 4, 3, 8)), "CUDA device"),
     (lambda: a2a_pack_cuda(torch.randn(2, 4, 24)), r"want x \[No, Ni, blk, d\]"),
     (lambda: a2a_pack_cuda(torch.randn(2, 4, 0, 8)), "nonempty"),
@@ -396,6 +426,36 @@ def test_mamba_scan_kernel_on_card(cuda, B, S, di, N, with_h0):
     assert ref.scaled_err(y, want_y) <= TOL["float32"]
     assert ref.scaled_err(h, want_h) <= TOL["float32"]
     torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,with_h0", [
+    (1, 2048, 8192, 16, False),  # falcon-mamba's training microbatch
+    (1, 300, 8192, 16, False),   # ragged: no multiple of the 8-step chunk
+    (2, 128, 1024, 16, True),    # h0 and a nonzero gh_fin
+    (2, 96, 128, 8, True),       # smoke config's d_state
+    (3, 7, 5, 4, True),          # 20 state elements: a partial CTA and warp
+    (2, 33, 40, 32, True),       # N = 32, one channel per warp; 5 CTAs a row
+    (2, 1, 8, 1, False),         # one step, N = 1
+])
+def test_mamba_scan_backward_on_card(cuda, B, S, di, N, with_h0):
+    """fp32 on both sides and every update rounded alike: ga, gb and gh0 bit
+    for bit, gc to 1e-5 (the order of its sum over the channels differs);
+    the launch counted; a second call to the same bits (no atomics)."""
+    a, b, c, h0 = _scan_on_card(cuda, B, S, di, N, with_h0)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    gy = torch.randn(B, S, di, generator=gen, device=cuda)
+    gh = torch.randn(B, di, N, generator=gen, device=cuda) if with_h0 else None
+    n0 = ops.mamba_scan_bwd.launches
+    got = ops.mamba_scan_bwd(a, b, c, h0, gy, gh)
+    torch.cuda.synchronize()
+    assert ops.mamba_scan_bwd.launches == n0 + 1
+    want = ref.mamba_scan_bwd_ref(a, b, c, h0, gy, gh)
+    for g, w in zip(got, want):
+        assert ref.scaled_err(g, w) <= TOL["float32"]
+    for i in (0, 1, 3):
+        torch.testing.assert_close(got[i], want[i], rtol=0, atol=0)
+    assert all(torch.equal(x, y) for x, y in zip(got, mamba_scan_bwd_cuda(a, b, c, h0, gy, gh)))
 
 
 @pytest.mark.cuda
@@ -663,6 +723,19 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "scan_readout_last_lane_left_out": (
         "mamba_scan", "float p = __fmul_rn(h, cv[u]);",
         "float p = n == N - 1 ? 0.f : __fmul_rn(h, cv[u]);"),
+    "scan_bwd_a_t_in_place_of_a_next": (
+        "mamba_scan_bwd", "g = __fadd_rn(__fmul_rn(gv[u], cv[u]), __fmul_rn(a_next, g));",
+        "g = __fadd_rn(__fmul_rn(gv[u], cv[u]), __fmul_rn(av[u], g));"),
+    "scan_bwd_gh_fin_seed_dropped": (
+        "mamba_scan_bwd", "float g = gh_fin != nullptr ? gh_fin[(int64_t)bi * plane + dn] : 0.f;",
+        "float g = 0.f;"),
+    "scan_bwd_carry_lost_at_a_chunk_edge": (
+        "mamba_scan_bwd", "for (int k = nc - 1; k >= 0; --k) {  // chunks, last to first",
+        "for (int k = nc - 1; k >= 0; --k) { if (k < nc - 1) g = 0.f;"),
+    "scan_bwd_last_cta_partial_left_out_of_gc": (
+        "mamba_scan_bwd",
+        "for (int j = 0; j < ctas; ++j) s += p[j * SN];  // the partials in CTA order",
+        "for (int j = 0; j < ctas - 1; ++j) s += p[j * SN];"),
     "pack_tile_written_to_o_i": (
         "a2a_pack", "uint8_t* dst = out + (i * No + o) * tile_bytes;",
         "uint8_t* dst = out + t * tile_bytes;"),
@@ -753,6 +826,13 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         call = lambda: mamba_scan_cuda(a, b, c)[0]  # noqa: E731
         want = ref.mamba_scan_ref(a, b, c)[0]
         tol = TOL["float32"]
+    elif kernel == "mamba_scan_bwd":  # a ragged S with h0 and gh_fin, 512 CTAs a row
+        a, b, c, h0 = _scan_on_card(cuda, 1, 300, 8192, 16, True)
+        gy = torch.randn(1, 300, 8192, generator=gen, device=cuda)
+        gh = torch.randn(1, 8192, 16, generator=gen, device=cuda)
+        call = lambda: mamba_scan_bwd_cuda(a, b, c, h0, gy, gh)  # noqa: E731
+        want = ref.mamba_scan_bwd_ref(a, b, c, h0, gy, gh)
+        tol = TOL["float32"]
     elif kernel == "flash_attention_bwd":  # yi's heads, one sequence; dq, dk and dv; the
         # head-dim faults at danube's, gemma's and minicpm3's heads
         BH, hd, hdv, g = ((32, 120, 120, 4) if "hd120" in fault else
@@ -781,7 +861,7 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
                         build.load(faulty_libraries[fault], module._SIGNATURES))
     faulty = call()
     torch.cuda.synchronize()
-    if kernel in ("flash_attention_bwd", "rmsnorm_bwd"):  # several outputs
+    if kernel in ("flash_attention_bwd", "rmsnorm_bwd", "mamba_scan_bwd"):  # several outputs
         err = _bwd_err if kernel == "flash_attention_bwd" else (
             lambda got, want: max(ref.scaled_err(a, b) for a, b in zip(got, want)))
         errs = {name: (err(out, want), max(((a.float() - b.float()).abs().max()
