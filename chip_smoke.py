@@ -33,7 +33,16 @@ Phases, each reported on its own lines:
    Python) must give the same tokens, with the logits' difference printed
    (0 expected: the same kernels on the same inputs); the two engines are
    driven step by step in turns, so their step times compare, and each
-   engine's launches are counted over its own calls only;
+   engine's launches are counted over its own calls only.  A third engine,
+   with ``plan_mesh=(2, 8, 2)`` (2 nodes x 8 GPUs, 2 IB rails) and
+   ``plan_cost=NVLINK_IB.cost``, pins its decode-collective plans when it
+   is built and serves the same requests as a graph; a lane fault on node
+   0 injected after decode step 8 must replan them once, inside the
+   planner's deadline, and its tokens and launches must equal the engine's
+   without a planner.  The pinned and replanned algorithms (with the cost
+   model's estimates, not measurements), the host ms of the pinning (cold
+   caches) and of the replan, and a planner pinned at the paper's mesh (36
+   x 32, k = 2, Hydra's cost) are printed;
 5. full-width Falcon-Mamba-7B, H2O-Danube3-4B, Gemma-7B, MusicGen-Large and
    MiniCPM3-4B, each after the last one's weights are freed, served and
    checked the same way: every RMSNorm and every prefill selective scan or
@@ -1009,6 +1018,12 @@ SERVED = {
                     "widths": (28, 3584, 28, 4, 128, 18944, 152064, None, 1, "silu",
                                "bfloat16", (16, 24, 24))},
 }
+#: phase 4's planned engine: its decode collectives pinned for 2 nodes x 8
+#: GPUs with 2 IB rails, at the NVLink/IB cost model, and replanned once on
+#: a lane fault of node 0 after this decode step
+PLAN_MESH, FAULT_AFTER_STEP = (2, 8, 2), 8
+#: the paper's machine: 36 nodes x 32 processes, k = 2 lanes (Hydra)
+PAPER_MESH = (36, 32, 2)
 #: Qwen2-VL's prompt: text, then an image of 16 x 16 patches from token 64,
 #: then text; t is the index throughout (ROADMAP, reference caveats)
 IMAGE_SPAN = (64, 16, 16)
@@ -1033,7 +1048,8 @@ class _Driven:
     launches and the peak device memory over its own calls, the logits of
     every sampling."""
 
-    def __init__(self, cfg, params, *, cuda_graph: bool, slots: int, capacity: int):
+    def __init__(self, cfg, params, *, cuda_graph: bool, slots: int, capacity: int,
+                 **engine_kw):
         import torch
 
         from repro_torch.serving.engine import ServeEngine
@@ -1046,7 +1062,8 @@ class _Driven:
 
         t0 = time.perf_counter()
         self.eng = ServeEngine(cfg, params, num_slots=slots, capacity=capacity,
-                               sampler=sampler, device="cuda", cuda_graph=cuda_graph)
+                               sampler=sampler, device="cuda", cuda_graph=cuda_graph,
+                               **engine_kw)
         torch.cuda.synchronize()
         self.build_s = time.perf_counter() - t0
         self.launches = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan"), 0)
@@ -1145,9 +1162,12 @@ def _compare_decodes(graph: dict, eager: dict, slots: int) -> dict:
             "samplings": min(len(graph["logits"]), len(eager["logits"]))}
 
 
-def serve(arch: str, seed: int = 0) -> dict:
+def serve(arch: str, seed: int = 0, smi: str = "") -> dict:
     """Serve ``arch`` at full width through the captured decode step, check
-    its launches and logits, and hold it against the eager step."""
+    its launches and logits, and hold it against the eager step; for Yi-6B
+    (phase 4) serve the same requests again with the decode collectives
+    planned (``serve_planned``).  ``smi``: the card's name and power limit,
+    printed beside the planner's host times."""
     import numpy as np
     import torch
 
@@ -1252,6 +1272,10 @@ def serve(arch: str, seed: int = 0) -> dict:
           f"(tol {TOL_BF16}); rows released at a near tie: "
           f"{cmp['rows_released_at_near_ties'] or 'none'}")
     res["graph_vs_eager"] = cmp
+    if arch == "yi_6b":
+        res["planned"] = serve_planned(cfg, params, served, main["done"], want_launches,
+                                       slots=slots, capacity=capacity, max_new=max_new,
+                                       smi=smi)
     if "full_forward_at" in want:
         at = want["full_forward_at"]
         ctx = np.stack([np.concatenate([p, np.asarray(r.out_tokens[:at], p.dtype)])
@@ -1262,6 +1286,99 @@ def serve(arch: str, seed: int = 0) -> dict:
     tokens = torch.from_numpy(np.stack(served).astype(np.int64)).cuda()
     res.update(_prefill_against_float32(cfg, params, {"tokens": tokens}, main["logits"][0],
                                         capacity))
+    return res
+
+
+def _plan_line(plans: dict) -> str:
+    return ", ".join(f"{op} {pl.algorithm} {pl.est_us:.6g} us" for op, pl in plans.items())
+
+
+def serve_planned(cfg, params, prompts, want_done, want_launches, *, slots: int,
+                  capacity: int, max_new: int, smi: str) -> dict:
+    """Phase 4's planned engine: a graph engine with ``plan_mesh=PLAN_MESH``
+    priced at ``NVLINK_IB.cost`` serves ``prompts`` again, with a lane fault
+    on node 0 injected after decode step ``FAULT_AFTER_STEP``.  Its tokens
+    must equal ``want_done``'s (the engine without a planner), its launches
+    ``want_launches``, and it must replan once, inside its deadline.  The
+    pinning is timed cold (the planner's caches emptied first, as in a fresh
+    process), by a ``DecodePlanner`` of the engine's arguments built just
+    before the engine, which must pin the same plans.  Last, a planner is
+    pinned at the paper's mesh (``PAPER_MESH``, Hydra's cost), cold too."""
+    from repro_torch.core import schedule_ir, selector
+    from repro_torch.core.topology import NVLINK_IB, hydra_machine
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Request
+    from repro_torch.serving.planner import DecodePlanner
+    from repro_torch.training.elastic import FaultEvent
+
+    def cold_pin(mesh, cost) -> tuple:
+        schedule_ir.schedule_cache_clear()
+        selector.selector_cache_reset()
+        t0 = time.perf_counter()
+        planner = DecodePlanner(num_slots=slots, d_model=cfg.d_model,
+                                num_codebooks=cfg.num_codebooks, num_nodes=mesh[0],
+                                procs_per_node=mesh[1], k_lanes=mesh[2], cost=cost)
+        return planner, (time.perf_counter() - t0) * 1e3
+
+    cost = NVLINK_IB.cost
+    cold, pin_ms = cold_pin(PLAN_MESH, cost)
+    ops.reset_launches()
+    d = _Driven(cfg, params, cuda_graph=True, slots=slots, capacity=capacity,
+                plan_mesh=PLAN_MESH, plan_cost=cost)
+    planner = d.eng.planner
+    pinned = planner.plans()
+    if {op: pl.as_dict() for op, pl in pinned.items()} != \
+            {op: pl.as_dict() for op, pl in cold.plans().items()}:
+        raise AssertionError("the engine pinned other plans than its planner's arguments give")
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=max_new) for i, p in enumerate(prompts)]
+    d.prefill_ms = d.call(d.eng.admit, reqs) * 1e3
+    action, inject_ms = None, math.nan
+    for step in range(1, max_new):  # the prefill samples the first token
+        d.step_s.append(d.call(d.eng.step))
+        if step == FAULT_AFTER_STEP:
+            t0 = time.perf_counter()
+            action = d.eng.inject_fault(FaultEvent(kind="lane", node=0, step=step))
+            inject_ms = (time.perf_counter() - t0) * 1e3
+    d.eng.drain()
+    replan = planner.replan_reports[0] if planner.replan_reports else {}
+    replanned = planner.plans()
+    paper, paper_ms = cold_pin(PAPER_MESH, hydra_machine(PAPER_MESH[2]).cost)
+    tokens = {r.rid: r.out_tokens for r in reqs}
+    equal = sum(a == b for r in want_done for a, b in zip(r.out_tokens, tokens[r.rid]))
+    res = {"mesh": PLAN_MESH, "pinned": {op: pl.as_dict() for op, pl in pinned.items()},
+           "replanned": {op: pl.as_dict() for op, pl in replanned.items()},
+           "replan_report": replan, "action": action, "pin_ms_cold": pin_ms,
+           "replan_ms": replan.get("wall_s", math.nan) * 1e3, "inject_fault_ms": inject_ms,
+           "engine_build_ms": d.build_s * 1e3, "launches": d.launches,
+           "tokens_equal": equal, "tokens": sum(map(len, tokens.values())),
+           "paper_mesh": PAPER_MESH, "paper_pin_ms_cold": paper_ms,
+           "paper_pinned": {op: pl.as_dict() for op, pl in paper.plans().items()}}
+    print(f"[serve] planned engine, plan_mesh {PLAN_MESH} (2 nodes x 8 GPUs, 2 IB rails), "
+          f"plans priced by the NVLink/IB cost model (est_us is that model's estimate, not a "
+          f"measurement): pinned {_plan_line(pinned)}; replanned after a lane fault on node 0 "
+          f"after decode step {FAULT_AFTER_STEP} ({action}, {replan.get('outcome')}): "
+          f"{_plan_line(replanned)}")
+    print(f"[serve] planner host ms ({smi}): pin {pin_ms:.3f} (cold caches), replan "
+          f"{res['replan_ms']:.3f} (deadline {planner.replan_deadline_s * 1e3:.0f}), "
+          f"inject_fault {inject_ms:.3f}; engine build with the pin and the capture "
+          f"{res['engine_build_ms']:.1f}")
+    print(f"[serve] planner at the paper's mesh {PAPER_MESH[0]} x {PAPER_MESH[1]}, k = "
+          f"{PAPER_MESH[2]}, Hydra's cost (est_us is that model's estimate, not a "
+          f"measurement): {_plan_line(paper.plans())}; pinned in {paper_ms:.3f} host ms "
+          f"(cold caches; {smi})")
+    print(f"[serve] planned engine: {equal}/{res['tokens']} tokens equal to the engine "
+          f"without plan_mesh; launches over its calls {d.launches}")
+    if equal != res["tokens"] or sorted(tokens) != sorted(r.rid for r in want_done):
+        raise AssertionError("the planned engine's tokens differ from the engine's without "
+                             "plan_mesh")
+    if d.launches != want_launches:
+        raise AssertionError(f"planned engine: launches {d.launches} != {want_launches}")
+    if action != "warn" or planner.replan_count != 1 or replan.get("outcome") != "replanned":
+        raise AssertionError(f"planned engine: action {action!r}, {planner.replan_count} "
+                             f"replans, report {replan}")
+    if not replan["wall_s"] < planner.replan_deadline_s:
+        raise AssertionError(f"the replan took {replan['wall_s']} s, past its deadline "
+                             f"{planner.replan_deadline_s} s")
     return res
 
 
@@ -2147,7 +2264,8 @@ def main() -> int:
     for arch in SERVED:  # one model on the card at a time
         gc.collect()
         torch.cuda.empty_cache()
-        served[arch] = (serve if get_config(arch).embed_inputs else drive_embeds)(arch)
+        served[arch] = (serve(arch, smi=smi) if get_config(arch).embed_inputs
+                        else drive_embeds(arch))
         done(f"serve {arch}")
     gc.collect()
     torch.cuda.empty_cache()

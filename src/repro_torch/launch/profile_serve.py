@@ -14,9 +14,12 @@ prompts of 512 tokens (of 512 x 4 codebooks for MusicGen), a cache of 1024;
 H2O-Danube3 takes prompts of 4608 tokens into a cache of 5120, past its
 4096-token window.  Prints, for the prefill and for
 4 decode steps: host wall time without the profiler (its own cost stays
-out of it), the device's busy time (the sum of the device's own records:
-kernels, copies and memsets; this path runs on one stream, so none
-overlap), hence the device's idle share, the kernels that take most
+out of it), and from the profiled run the device's busy time (the sum of
+the device's own records: kernels, copies and memsets), its span (the first
+record's start to the last one's end) and the streams the records ran on,
+hence the device's idle share inside that run (``idle_share``: the span
+less the busy time, over the span; busy time above the span or the host
+wall is printed as such), the kernels that take most
 device time and the operators that take most host time, and the device
 time split into the attention (flash) and RMSNorm kernels, and for an MoE
 model the layer's stages by their profiler spans (``moe.SPANS``: routing,
@@ -94,19 +97,40 @@ def _device_us(evt) -> float:
 _PORT_KERNEL = re.compile(r"rmsnorm|flash_|mamba_scan|a2a_pack")
 
 
+def idle_share(span_us: float, busy_us: float, wall_us: float) -> tuple[float, str]:
+    """The device's idle share inside one profiled run: its device span (the
+    first device record's start to the last one's end) less its busy time
+    (the records' summed durations), over the span, unclamped; and a note
+    that names busy time above the span (records overlapped: more than one
+    stream) or above ``wall_us``, the host wall of the unprofiled run (the
+    two runs differ), with the excess in ms; empty when neither holds."""
+    share = (span_us - busy_us) / span_us if span_us > 0 else float("nan")
+    notes = [f"busy exceeds the {what} by {(busy_us - us) / 1e3:.3f} ms"
+             for what, us in (("device span", span_us), ("unprofiled host wall", wall_us))
+             if busy_us > us]
+    return share, "; ".join(notes)
+
+
 def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
     # device time is read from the device's own records (kernels, copies,
-    # memsets) only: an operator's entry repeats the time of its kernels
+    # memsets) only: an operator's entry repeats the time of its kernels,
+    # and a span's annotation on the device covers the kernels inside it
+    records = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.name not in SPANS]
     events = prof.key_averages()
-    on_device = [e for e in events
-                 if e.device_type == DeviceType.CUDA and e.key not in SPANS]
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA
+                 and not e.is_user_annotation and e.key not in SPANS]
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
-    busy_us = sum(_device_us(e) for e in on_device)
+    busy_us = sum(e.time_range.elapsed_us() for e in records)
+    span_us = (max(e.time_range.end for e in records)
+               - min(e.time_range.start for e in records)) if records else 0.0
     wall_us = wall_s * 1e6
-    print(f"[profile] {name}: host wall {wall_us / n / 1e3:.3f} ms, device busy "
-          f"{busy_us / n / 1e3:.3f} ms per call ({n} calls, "
-          f"{sum(e.count for e in on_device) // n} device records each); device "
-          f"idle share {max(0.0, 1 - busy_us / wall_us):.3f}")
+    share, note = idle_share(span_us, busy_us, wall_us)
+    print(f"[profile] {name}: device busy {busy_us / n / 1e3:.3f} ms, device span "
+          f"{span_us / n / 1e3:.3f} ms per call ({n} calls, {len(records) // n} device "
+          f"records each, on {len({e.device_resource_id for e in records})} streams); "
+          f"device idle share {share:.3f} of the span; unprofiled host wall "
+          f"{wall_us / n / 1e3:.3f} ms per call" + (f" ({note})" if note else ""))
     ranked = sorted(on_device, key=_device_us, reverse=True)
     for e in ranked[:top]:
         print(f"[profile]   device {_device_us(e) / n / 1e3:9.4f} ms/call  "

@@ -15,8 +15,14 @@ admission's prefill is copied into, and each ``step`` replays it.  Sampling
 stays outside the graph.  ``cuda_graph=False`` runs the step eagerly, as the
 CPU always does.
 
-The reference's decode-collective planner (``plan_mesh``,
-``plan_decode_collectives``, ``inject_fault``) comes with the planner slice.
+With ``plan_mesh=(num_nodes, procs_per_node, k_lanes)`` the engine pins its
+per-decode-step collective plans (``serving/planner.py``, through
+``api.plan_batch``) once, when it is built, and replans them only on a
+``FaultEvent`` that ``inject_fault`` reports, as the reference's engine does.
+The planner is numpy on the host, off the decode path: the step, the
+captured graph and sampling do not see it.  ``plan_cost`` (a ``CostParams``)
+prices the plans; None prices at the reference's TPU v5e costs, and a GPU
+cluster is priced at ``core.topology.NVLINK_IB.cost``.
 """
 
 from __future__ import annotations
@@ -76,6 +82,8 @@ class ServeEngine:
         seed: int = 0,
         monitor=None,
         plan_mesh: tuple[int, int, int] | None = None,
+        replan_deadline_s: float = 0.25,
+        plan_cost=None,
         device="cuda",
         cuda_graph: bool | None = None,
     ):
@@ -83,10 +91,6 @@ class ServeEngine:
         None means on for ``cuda`` and off for ``cpu``, and True on the CPU
         raises."""
         self.device = resolve_device(device)
-        if plan_mesh is not None:
-            raise NotImplementedError(
-                "plan_mesh: the decode-collective planner comes with the "
-                "planner slice (ROADMAP queue 1 item 14)")
         if not cfg.embed_inputs:  # as the reference's: embeds go through lm.prefill,
             # lm.decode_step and the captured step (DecodeGraph) themselves
             raise ValueError("serving engine drives token models")
@@ -106,11 +110,29 @@ class ServeEngine:
         self.slots: list[Request | None] = [None] * num_slots
         self.cache = None
         self.pos = 0  # synchronized cache position
-        # optional fault/straggler hook: any object with observe(seconds) ->
-        # "ok"|"warn"|"evict" (duck-typed).  run() times every decode step
+        # optional fault/straggler hook: any object with observe(seconds)
+        # and observe_fault(event) -> "ok"|"warn"|"evict" (duck-typed, as
+        # training.elastic.StragglerMonitor).  run() times every decode step
         # through it and stops decoding on "evict".
         self.monitor = monitor
+        self.fault_events: list = []
         self.monitor_actions: list[str] = []
+        # with plan_mesh set the decode-collective plans are pinned here,
+        # once, via plan_batch; thereafter they replan only on an injected
+        # FaultEvent (under the planner's backoff/deadline budget and
+        # circuit breaker)
+        self.plan_cost = plan_cost
+        self.planner = None
+        if plan_mesh is not None:
+            from repro_torch.serving.planner import DecodePlanner
+
+            nn, ppn, kl = plan_mesh
+            self.planner = DecodePlanner(
+                num_slots=num_slots, d_model=cfg.d_model,
+                num_codebooks=cfg.num_codebooks,
+                num_nodes=nn, procs_per_node=ppn, k_lanes=kl,
+                replan_deadline_s=replan_deadline_s, cost=plan_cost,
+            )
         self.graph = None
         if cuda_graph:  # its cache takes the model dtype, as a prefill's does
             self.graph = DecodeGraph(cfg, params, lm.init_cache(
@@ -178,6 +200,88 @@ class ServeEngine:
         """The sampled tokens as the next step's input, [B, 1] or [B, 1, K]."""
         return torch.from_numpy(nxt.astype(np.int64).reshape(self._tok_shape(1))).to(self.device)
 
+    def plan_decode_collectives(
+        self,
+        *,
+        num_nodes: int = 2,
+        procs_per_node: int = 8,
+        k_lanes: int = 2,
+        faults=None,
+    ):
+        """Plan the per-decode-step collectives for this engine's shapes on
+        the given collective mesh, in one :func:`repro_torch.api.plan_batch`
+        call, priced at ``plan_cost``:
+
+        * ``broadcast`` of the pending sampled-token batch (one int32 per
+          slot per codebook) from the sampling host to every proc;
+        * ``scatter`` of the activation block (``num_slots * d_model``
+          split over procs) for tensor-parallel resharding;
+        * ``alltoall`` with the per-pair block of that same activation
+          resharding (the transpose the paper's Section 5 lowers).
+
+        Returns ``{op: Plan}``.  The planning layer prices schedules, it
+        does not run them, so a monitor process can call this off the hot
+        path.  Faulted meshes flow through the selector's degradation ladder
+        via ``faults``.
+
+        With a pinned planner (``plan_mesh`` at construction) a query for
+        the pinned mesh is a dict lookup, no re-pricing; the pinned set
+        only moves on :meth:`inject_fault`.  Explicit ``faults`` or a
+        different mesh still price ad hoc."""
+        from repro_torch import api
+
+        if self.planner is not None and faults is None \
+                and (num_nodes, procs_per_node, k_lanes) == self.planner.mesh:
+            return self.planner.plans()
+
+        p = num_nodes * procs_per_node
+        bcast_elems = self.num_slots * max(1, self.cfg.num_codebooks)
+        act = self.num_slots * self.cfg.d_model
+        reqs = [
+            api.PlanRequest("broadcast", bcast_elems, num_nodes=num_nodes,
+                            procs_per_node=procs_per_node, k_lanes=k_lanes,
+                            faults=faults),
+            api.PlanRequest("scatter", max(1, act // p), num_nodes=num_nodes,
+                            procs_per_node=procs_per_node, k_lanes=k_lanes,
+                            faults=faults),
+            api.PlanRequest("alltoall", max(1, act // (p * p)),
+                            num_nodes=num_nodes,
+                            procs_per_node=procs_per_node, k_lanes=k_lanes,
+                            faults=faults),
+        ]
+        plans = api.plan_batch(reqs, cost=self.plan_cost)
+        obs_metrics.counter("engine.collective_plans").inc(len(plans))
+        if TRACER:
+            TRACER.event("engine.plan_collectives",
+                         mesh=(num_nodes, procs_per_node, k_lanes),
+                         algs={pl.op: pl.algorithm for pl in plans})
+        return {pl.op: pl for pl in plans}
+
+    def inject_fault(self, event) -> str:
+        """Report a mid-run fault (a ``training.elastic.FaultEvent``) into
+        the engine: the event is recorded and folded into the monitor's
+        warn/evict policy.  Returns the resulting action; without a monitor
+        the default policy is kind-based (node faults evict, lane faults
+        warn: lanes are survivable via schedule repair).
+
+        With a pinned planner the event also triggers exactly one
+        bounded-latency replan of the pinned decode collectives
+        (``DecodePlanner.observe_fault``)."""
+        self.fault_events.append(event)
+        if self.monitor is not None:
+            action = self.monitor.observe_fault(event)
+        else:
+            action = "evict" if getattr(event, "kind", "node") == "node" else "warn"
+        self.monitor_actions.append(action)
+        if self.planner is not None:
+            self.planner.observe_fault(event)
+        obs_metrics.counter("engine.fault_events").inc()
+        obs_metrics.counter(f"engine.fault_action.{action}").inc()
+        if TRACER:
+            TRACER.event("engine.fault", kind=getattr(event, "kind", None),
+                         action=action)
+        return action
+
     def drain(self) -> list[Request]:
         """Release finished requests from their slots."""
         out = []
@@ -191,8 +295,11 @@ class ServeEngine:
         """Convenience driver: admit everything (in waves), decode to done.
 
         With a monitor attached every decode step is timed through
-        ``monitor.observe``; an "evict" verdict stops the decode loop and
-        the finished requests so far are returned."""
+        ``monitor.observe``; an "evict" verdict (a straggling host over the
+        hard deadline ``patience`` times, or an injected node fault) stops
+        the decode loop: the finished requests so far are returned and the
+        caller remeshes (``elastic.plan_remesh_for_faults``) before
+        resuming the rest."""
         pending = list(requests)
         finished: list[Request] = []
         steps = 0

@@ -2,6 +2,11 @@
 package's (``repro.serving.engine``), on the same parameters, prompts,
 slots and capacity, and the port's serve CLI.
 
+With ``plan_mesh`` set, both engines pin and replan the same
+decode-collective plans (``test_engine_pins_and_replans_on_fault``,
+``test_engine_plans_decode_collectives``: the reference's tests, run on
+both), and the port's greedy tokens do not change with it.
+
 Float32 copies of the yi, falcon-mamba, musicgen, minicpm3 (MLA), dbrx
 (MoE) and deepseek-v2 (MoE, a dense prelude, MLA) smoke configs, so the
 logits agree to 1e-5 of their scale.  The port's engine is fed the reference's
@@ -21,13 +26,20 @@ import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import lm as JLM
+from repro.core import faults as JF
 from repro.serving import engine as JE
+from repro.training import elastic as JEL
+from repro_torch import api as t_api
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import faults as TF
+from repro_torch.core import topology as TT
 from repro_torch.launch import serve as tserve
 from repro_torch.models import lm as TLM
 from repro_torch.serving import engine as TE
+from repro_torch.serving import planner as TP
 from repro_torch.serving.decode_graph import DecodeGraph
+from repro_torch.training import elastic as TEL
 
 TOL = 1e-5
 SLOTS, CAP, MAX_NEW = 4, 48, 6
@@ -157,9 +169,114 @@ def test_engine_records_steps_and_stops_on_evict():
 
 
 def test_engine_refuses_planner_until_its_slice():
+    """The planner's slice is in: ``plan_mesh`` builds the engine's
+    ``DecodePlanner`` (pinned, no replan yet) where it was refused, and the
+    engine still refuses a CUDA graph on the CPU with it set."""
     _, tcfg, _, tp, _ = _setup()
-    with pytest.raises(NotImplementedError, match="planner"):
-        TE.ServeEngine(tcfg, tp, plan_mesh=(2, 8, 2), device="cpu")
+    eng = TE.ServeEngine(tcfg, tp, plan_mesh=(2, 8, 2), device="cpu")
+    assert isinstance(eng.planner, TP.DecodePlanner) and eng.planner.mesh == (2, 8, 2)
+    assert eng.planner.replan_count == 0 and eng.planner.cost is None
+    assert set(eng.planner.plans()) == {"broadcast", "scatter", "alltoall"}
+    with pytest.raises(ValueError, match="cuda_graph=True needs device 'cuda'"):
+        TE.ServeEngine(tcfg, tp, plan_mesh=(2, 8, 2), device="cpu", cuda_graph=True)
+
+
+def _plan_tuple(pl) -> tuple:
+    """A plan's answer: its request carries a replan's deadline budget, a
+    wall-clock reading, so plans compare by what they chose and priced."""
+    return pl.op, pl.algorithm, pl.est_us, pl.candidates
+
+
+@pytest.fixture
+def fresh_selectors():
+    from repro.core.selector import selector_cache_reset as j_reset
+    from repro_torch.core.selector import selector_cache_reset as t_reset
+
+    j_reset()
+    t_reset()
+    yield
+    j_reset()
+    t_reset()
+
+
+def test_engine_pins_and_replans_on_fault(fresh_selectors):
+    """The reference's ``test_engine_pins_and_replans_on_fault`` on both
+    engines, on yi's smoke config and the reference's params: equal pinned
+    plans, equal actions and replans on the same lane fault, equal ad hoc
+    plans on another mesh."""
+    jcfg, tcfg, jp, tp, _ = _setup()
+    out = {}
+    kw = dict(num_slots=2, capacity=64, plan_mesh=(2, 4, 2),
+              replan_deadline_s=60.0)  # never fires here: the replan races every rung
+    for name, eng in (("ref", JE.ServeEngine(jcfg, jp, **kw)),
+                      ("port", TE.ServeEngine(tcfg, tp, **kw, device="cpu"))):
+        mesh = dict(num_nodes=2, procs_per_node=4, k_lanes=2)
+        pinned = eng.plan_decode_collectives(**mesh)
+        assert set(pinned) == {"broadcast", "scatter", "alltoall"}
+        assert eng.plan_decode_collectives(**mesh) == pinned  # served verbatim
+        assert eng.planner.replan_count == 0
+        event = (JEL if name == "ref" else TEL).FaultEvent(kind="lane", node=0, step=1)
+        action = eng.inject_fault(event)
+        assert eng.planner.replan_count == 1 and len(eng.planner.replan_reports) == 1
+        other = eng.plan_decode_collectives(num_nodes=3, procs_per_node=4, k_lanes=2)
+        out[name] = ({op: pl.as_dict() for op, pl in pinned.items()}, action,
+                     eng.monitor_actions, eng.fault_events[0].kind,
+                     {op: _plan_tuple(pl) for op, pl in eng.planner.plans().items()},
+                     {k: v for k, v in eng.planner.replan_reports[0].items() if k != "wall_s"},
+                     {op: pl.as_dict() for op, pl in other.items()})
+    assert out["port"] == out["ref"]
+    assert out["port"][1] == "warn"
+
+
+def test_engine_plans_decode_collectives(fresh_selectors):
+    """The reference's ``test_engine_plans_decode_collectives`` on both
+    engines: the same plans, healthy and on a faulted mesh, each equal to
+    the per-query planner and materialising a schedule over 16 procs; and
+    an engine's fault actions under a ``StragglerMonitor``."""
+    jcfg, tcfg, jp, tp, _ = _setup()
+    jeng = JE.ServeEngine(jcfg, jp, num_slots=4, capacity=64, monitor=JEL.StragglerMonitor())
+    teng = TE.ServeEngine(tcfg, tp, num_slots=4, capacity=64, device="cpu",
+                          monitor=TEL.StragglerMonitor())
+    mesh = dict(num_nodes=2, procs_per_node=8, k_lanes=2)
+    for faults in (None, ((1, 1),)):
+        want = jeng.plan_decode_collectives(
+            **mesh, faults=faults and JF.FaultSpec(dead_lanes=faults))
+        got = teng.plan_decode_collectives(
+            **mesh, faults=faults and TF.FaultSpec(dead_lanes=faults))
+        assert {op: pl.as_dict() for op, pl in got.items()} == \
+            {op: pl.as_dict() for op, pl in want.items()}
+        for op, pl in got.items():
+            assert pl.op == op and pl == t_api.plan(pl.request)
+            assert pl.schedule().p == 16
+    actions = {}
+    for name, eng, el in (("ref", jeng, JEL), ("port", teng, TEL)):
+        actions[name] = [eng.inject_fault(el.FaultEvent(kind=k, node=n, step=i))
+                         for i, (k, n) in enumerate((("lane", 0), ("lane", 1), ("lane", 0),
+                                                     ("node", 1)))]
+    assert actions["port"] == actions["ref"] == ["warn", "warn", "evict", "evict"]
+    assert teng.monitor_actions == jeng.monitor_actions
+
+
+@pytest.mark.parametrize("plan_cost", [None, "nvlink_ib"])
+def test_engine_greedy_tokens_unchanged_by_the_planner(plan_cost, fresh_selectors):
+    """Pinning and a replan on a lane fault after decode step 3 leave the
+    greedy tokens as they are without ``plan_mesh``: the planner is off the
+    decode path."""
+    _, tcfg, _, tp, prompts = _setup()
+    cost = TT.NVLINK_IB.cost if plan_cost else None
+    runs = []
+    for kw in ({}, {"plan_mesh": (2, 8, 2), "plan_cost": cost}):
+        eng = TE.ServeEngine(tcfg, tp, num_slots=SLOTS, capacity=CAP, device="cpu", **kw)
+        reqs = _requests(TE, prompts)
+        eng.admit(reqs)
+        for step in range(1, MAX_NEW):
+            eng.step()
+            if step == 3 and eng.planner is not None:
+                assert eng.inject_fault(TEL.FaultEvent(kind="lane", node=0, step=3)) == "warn"
+        runs.append([r.out_tokens for r in reqs])
+        if eng.planner is not None:
+            assert eng.planner.replan_count == 1 and eng.planner.cost is cost
+    assert runs[1] == runs[0] and all(len(t) == MAX_NEW for t in runs[0])
 
 
 def test_engine_refuses_a_cuda_graph_on_the_cpu():

@@ -58,6 +58,7 @@ def _entry_points():
     cpu_params = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
     return {
         "ServeEngine": lambda: ServeEngine(cfg, cpu_params),
+        "ServeEngine with plan_mesh": lambda: ServeEngine(cfg, cpu_params, plan_mesh=(2, 8, 2)),
         "lm.init_model": lambda: lm.init_model(cfg, torch.Generator().manual_seed(0)),
         "lm.init_cache": lambda: lm.init_cache(cfg, 2, 8),
         "params_from_numpy": lambda: params_from_numpy(cfg, {}),
@@ -68,8 +69,8 @@ def _entry_points():
     }
 
 
-@pytest.mark.parametrize("name", ["ServeEngine", "lm.init_model", "lm.init_cache",
-                                  "params_from_numpy", "serve CLI", "ep_dispatch CLI",
+@pytest.mark.parametrize("name", ["ServeEngine", "ServeEngine with plan_mesh", "lm.init_model",
+                                  "lm.init_cache", "params_from_numpy", "serve CLI", "ep_dispatch CLI",
                                   "train CLI", "opt_state_from_numpy"])
 def test_entry_points_default_to_cuda_and_raise_without_it(name):
     if torch.cuda.is_available():
