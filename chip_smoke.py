@@ -79,13 +79,22 @@ Phases, each reported on its own lines:
    routes the EP dispatch of 1024 tokens x top-6 at d_model 5120 (bf16)
    with the flat and the full-lane alltoall, which must equal each other
    and a numpy oracle bit for bit, with 2 ``a2a_pack`` launches per
-   full-lane call; sums a 25 MiB float32 gradient bucket (and one element
-   more: the pad path) hierarchically, against the flat sum; and
-   broadcasts (full-lane; k-ported, k = 1, 2, 3) and scatters (k-ported,
-   k = 2) a 25 MiB payload, exactly.  Its times are host-clock times of
-   host-staged gloo, not interconnect numbers.  The same job then runs
-   in this process as one NCCL rank (a world of one: no peer, but the
-   transport's NCCL branch, which must stage nothing);
+   full-lane call; then differentiates the loss ``sum(w * y)`` of the
+   dispatched rows through each, whose gradients must equal each other and
+   their numpy oracle bit for bit, with 4 ``a2a_pack`` launches per
+   full-lane call with its backward; sums a 25 MiB float32 gradient bucket
+   (and one element more: the pad path) hierarchically, against the flat
+   sum; and broadcasts (full-lane; k-ported, k = 1, 2, 3) and scatters
+   (k-ported, k = 2) a 25 MiB payload, exactly.  Then the backward of
+   every other collective (both sums, at the bucket and one more, the
+   full-lane broadcast from pod 1, the k-ported broadcasts, the k-ported
+   scatter from rank 5), for seeded bf16 cotangents, against the numpy
+   oracle of its transpose: the sums in ``ref.scaled_err`` at 2e-2, the
+   scatter's gather bit for bit, exact zeros where the transpose gives
+   none.  Its times are host-clock times of host-staged gloo, not
+   interconnect numbers.  The same job then runs in this process as one
+   NCCL rank (a world of one: no peer, but the transport's NCCL branch,
+   which must stage nothing);
 8. training.  (a) The training forward's lse and the flash backward
    kernel against their plain versions at Yi's training shape (q [32,
    2048, 128], kv [4, 2048, 128], g = 8, causal), a ragged S = 300, a
@@ -141,7 +150,18 @@ Phases, each reported on its own lines:
    peak memory are printed.  (d) At the
    smoke config's size: a run stopped at its checkpoint and resumed takes
    its next step to the loss, parameters and optimizer state of a run that
-   never stopped, bit for bit.
+   never stopped, bit for bit;
+9. the dry-run (``launch/dryrun.py``).  (a) One card anchor: Yi-6B at full
+   width and 16 layers, 8 x 2048, through the dry-run at a (1, 1) mesh:
+   its predicted bytes of parameters and AdamW state must be within 1% of
+   what ``torch.cuda.memory_allocated`` grows by when they are made, and
+   its arguments plus its ``peak_bytes`` are printed beside
+   ``torch.cuda.max_memory_allocated`` over one train step.  (b)
+   ``--all --mesh both`` for the ``xla`` and ``fulllane`` backends, at
+   once, in processes that see no card: every cell ``ok`` or skipped by
+   ``cell_eligible``, no error; each train cell's cross-pod bytes per rank
+   of the gradient sync on 2 x 16 x 16, flat and full-lane, are printed.
+   The dry-run's numbers are counts from shapes, not card times.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -159,7 +179,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -819,12 +841,12 @@ def collectives_job(pods, lanes, tokens, top_k, d_model, bucket, device="cuda",
     dispatch = ep_dispatch.run_rank(mesh, tokens=tokens, top_k=top_k, d_model=d_model,
                                     dtype="bfloat16", device=device, seed=seed)
     launches = ops.launch_counts()
-    bad = [k for k in ("flat_equals_fulllane", "flat_equals_oracle",
-                       "fulllane_equals_oracle") if not dispatch[k]]
+    bad = [k for k in ep_dispatch.CHECKS if not dispatch[k]]
     if bad:
         raise AssertionError(f"rank {me}: EP dispatch fails {bad}")
     want = {**dict.fromkeys(launches, 0),
-            "a2a_pack": 2 * dispatch["fulllane_calls"] if device == "cuda" else 0}
+            "a2a_pack": (2 * dispatch["fulllane_calls"] +
+                         4 * dispatch["fulllane_calls_with_backward"]) if device == "cuda" else 0}
     if launches != want:
         raise AssertionError(f"rank {me}: launches {launches} != {want}")
 
@@ -869,8 +891,88 @@ def collectives_job(pods, lanes, tokens, top_k, d_model, bucket, device="cuda",
     for name, out in got.items():
         if not torch.equal(out, blocks[me] if "scatter" in name else payload):
             raise AssertionError(f"rank {me}: {name} did not deliver the payload")
+    backward = collectives_backward(mesh, bucket, device, seed, timed)
     return {"rank": me, "dispatch": dispatch, "launches": launches, "seconds": seconds,
-            "traffic": traffic, "transport": dispatch["transport"]}
+            "traffic": traffic, "transport": dispatch["transport"], "backward": backward}
+
+
+def collectives_backward(mesh, bucket: int, device: str, seed: int, timed) -> dict:
+    """Phase 7 (a), on one rank: the backward of every collective but the
+    alltoalls (the EP dispatch holds theirs), each the gradient of ``sum(c
+    * f(x))`` for a seeded bf16 cotangent ``c`` on each rank (numpy,
+    ``default_rng([seed, case, rank])``), against the numpy oracle of f's
+    transpose (the sums in float64), bit for bit, with exact zeros where
+    the transpose gives none.  The cotangents are multiples of 1/8 of at
+    most 15/8 in size, so every partial sum of 8 ranks' is exact in bf16
+    and a sum in any order is the oracle's to the bit (millions of normal
+    values can exceed 2e-2 in ``ref.scaled_err`` against the exact sum by
+    the order of the bf16 roundings alone).  Raises on a failed check;
+    returns each case's largest absolute error (0)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import collectives as C
+
+    me, P, lanes = mesh.world.index, mesh.world.size, mesh.lane.size
+    pod, lane = divmod(me, lanes)
+
+    def cot(case: int, r: int, n: int) -> np.ndarray:
+        """Rank ``r``'s cotangent of case ``case``: k / 8, |k| <= 15."""
+        rng = np.random.default_rng([seed, case, r])
+        return rng.integers(-15, 16, n).astype(np.float32) / 8
+
+    def grad(name, f, x, c):
+        xg = x.detach().requires_grad_()
+
+        def run():
+            (g,) = torch.autograd.grad((c * f(xg)).float().sum(), xg)
+            return g
+        run()  # warm-up, as for the timed forwards
+        g = timed(f"{name} backward", run)
+        if g.dtype != x.dtype:
+            raise AssertionError(f"rank {me}: {name}: gradient {g.dtype}, input {x.dtype}")
+        return g.float().cpu()
+
+    def held(name, g, want):
+        want = torch.from_numpy(want.astype(np.float32))
+        err = (g - want).abs().max().item()
+        if not torch.equal(g, want):
+            raise AssertionError(f"rank {me}: {name} backward differs from the transpose's "
+                                 f"oracle by up to {err}")
+        out[name] = err
+
+    out = {}
+    x = torch.zeros(bucket, dtype=torch.bfloat16, device=device)
+    for case, (name, f) in enumerate((
+            ("hierarchical_psum", lambda v: C.hierarchical_psum(v, mesh.pod, mesh.lane)),
+            ("flat_psum", lambda v: C.flat_psum(v, mesh.pod, mesh.lane)))):
+        for n in (bucket, bucket + 1):
+            c = torch.from_numpy(cot(case, me, n)).to(device, torch.bfloat16)
+            want = sum(cot(case, r, n).astype(np.float64) for r in range(P))
+            held(f"{name} {n}", grad(f"{name} {n}", f, x.new_zeros(n), c), want)
+    m, root_pod, root = bucket // lanes, 1 % mesh.pod.size, 5 % P  # roots off rank 0
+    c = torch.from_numpy(cot(2, me, bucket)).to(device, torch.bfloat16)
+    want = sum(cot(2, r, bucket).astype(np.float64) for r in range(P))
+    want = want[lane * m:(lane + 1) * m] if pod == root_pod else np.zeros(m)
+    held("fulllane_broadcast root=1", grad(
+        "fulllane_broadcast root=1",
+        lambda v: C.fulllane_broadcast(v, mesh.pod, mesh.lane, root=root_pod), x[:m], c),
+        want)
+    for k in (1, 2, 3):
+        c = torch.from_numpy(cot(3 + k, me, bucket)).to(device, torch.bfloat16)
+        want = (sum(cot(3 + k, r, bucket).astype(np.float64) for r in range(P)) if me == 0
+                else np.zeros(bucket))
+        held(f"kported_broadcast k={k}", grad(
+            f"kported_broadcast k={k}",
+            lambda v, k=k: C.kported_broadcast_ppermute(v, mesh.world, k=k), x, c), want)
+    n = bucket // P
+    c = torch.from_numpy(cot(7, me, n)).to(device, torch.bfloat16)
+    want = (np.stack([cot(7, r, n) for r in range(P)]) if me == root else np.zeros((P, n)))
+    held("kported_scatter k=2 root=5", grad(
+        "kported_scatter k=2 root=5",
+        lambda v: C.kported_scatter_ppermute(v, mesh.world, k=2, root=root), x.view(P, n), c),
+        want)
+    return out
 
 
 def collectives_phase() -> list:
@@ -890,11 +992,19 @@ def collectives_phase() -> list:
     print(f"[collectives] EP dispatch: {d0['rows_per_destination']} rows x "
           f"{COLLECTIVES['d_model']} bf16 per destination, "
           f"{d0['bytes_per_rank'] / 1e6:.1f} MB per rank: flat == fulllane == numpy oracle, "
-          f"bit for bit, on all {world} ranks; a2a_pack launches by rank "
+          f"bit for bit, on all {world} ranks; its gradient (the loss sum(w * y), w a "
+          f"seeded bf16 cotangent) flat == fulllane == numpy oracle, bit for bit, on all "
+          f"{world} ranks; a2a_pack launches by rank "
           f"{[r['launches']['a2a_pack'] for r in results]} (2 per fulllane_all_to_all call, "
-          f"{d0['fulllane_calls']} calls)")
-    times = {"ep_dispatch flat": [r["dispatch"]["seconds"]["flat"] for r in results],
-             "ep_dispatch fulllane": [r["dispatch"]["seconds"]["fulllane"] for r in results]}
+          f"{d0['fulllane_calls']} calls; 4 per call with its backward, "
+          f"{d0['fulllane_calls_with_backward']} call)")
+    worst = {name: max(r["backward"][name] for r in results) for name in results[0]["backward"]}
+    print(f"[collectives] backward of every collective on all {world} ranks, bf16 cotangents "
+          f"on a grid where every sum is exact, against the numpy oracle of its transpose: "
+          f"bit for bit (largest error over ranks "
+          + ", ".join(f"{n} {e:g}" for n, e in worst.items()) + ")")
+    times = {f"ep_dispatch {k}": [r["dispatch"]["seconds"][k] for r in results]
+             for k in results[0]["dispatch"]["seconds"]}
     for name in results[0]["seconds"]:
         times[name] = [r["seconds"][name] for r in results]
     for name, ts in times.items():
@@ -2206,6 +2316,113 @@ def train_checkpoint(seed: int = 0) -> dict:
     return {"losses": losses, "resumed_at": 3, "state_equal": True}
 
 
+def dryrun_phase(smi: str) -> dict:
+    """Phase 9 (b): ``python -m repro_torch.launch.dryrun --all --mesh
+    both`` for each backend, both at once, each in a process of its own
+    that sees no card (the dry-run runs on the meta device).  Every cell
+    must be ``ok`` or ``skipped`` by ``cell_eligible``: an error fails the
+    phase.  Returns, by backend, the counts by status and the seconds, and
+    each train cell's cross-pod bytes per rank of the gradient sync on the
+    multi-pod mesh."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    procs, dirs = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for backend in ("xla", "fulllane"):
+            dirs[backend] = OUT_DIR / f"dryrun_{backend}"
+            shutil.rmtree(dirs[backend], ignore_errors=True)
+            procs[backend] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
+                 "--backend", backend, "--out-dir", str(dirs[backend])],
+                env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs = {b: p.communicate(timeout=900)[0] for b, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    out = {}
+    for backend, d in dirs.items():
+        recs = [json.loads(f.read_text()) for f in sorted(d.glob("*.json"))]
+        status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
+        (OUT_DIR / f"dryrun_{backend}.log").write_text(logs[backend])
+        if procs[backend].returncode or status["error"] or len(recs) != 80:
+            raise AssertionError(f"dryrun --backend {backend}: exit {procs[backend].returncode}, "
+                                 f"{len(recs)} records, {status}; log in build/chip_smoke")
+        cross = {r["arch"]: r["dp_sync_sent_per_device"]["cross_pod_bytes"] for r in recs
+                 if r["status"] == "ok" and r["shape"] == "train_4k" and r["mesh"] == "multi"}
+        out[backend] = {"status": status, "cross_pod_bytes_train_4k_multi": cross}
+        print(f"[dryrun] --all --mesh both --backend {backend}: {status['ok']} cells ok, "
+              f"{status['skipped']} skipped by cell_eligible, {status['error']} errors "
+              f"(both backends at once in {seconds:.1f} s, on the host: counts from shapes on "
+              f"the meta device, not card numbers; {smi})")
+    for arch, flat in out["xla"]["cross_pod_bytes_train_4k_multi"].items():
+        full = out["fulllane"]["cross_pod_bytes_train_4k_multi"][arch]
+        print(f"[dryrun] {arch} train_4k on 2 x 16 x 16: the gradient sync sends {flat / 2**20:.1f}"
+              f" MiB across pods per rank flat, {full / 2**20:.1f} MiB full-lane "
+              f"({full / flat:.4f} of it; the paper's count, direct algorithms)")
+    out["seconds"] = seconds
+    return out
+
+
+def dryrun_anchor(smi: str, seed: int = 0) -> dict:
+    """Phase 9 (a): a cell the card trains, Yi-6B at full width and 16
+    layers on ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens, through the dry-run at
+    a (1, 1) mesh, against the card: its predicted argument bytes of the
+    parameters and the AdamW state must be within 1% of what
+    ``torch.cuda.memory_allocated`` grows by when they are made; its
+    arguments plus its ``peak_bytes`` are printed beside
+    ``torch.cuda.max_memory_allocated`` over one train step, as a ratio
+    (no bound)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    cfg = _config("yi_6b", 16)
+    rec = dryrun.measure_cell(cfg, ShapeSpec("card anchor", "train", TRAIN_SEQ, TRAIN_BATCH),
+                              make_test_mesh((1, 1), ("data", "model")))
+    parts = rec["memory"]["argument_bytes_by_part"]
+    predicted = parts["params"] + parts["opt_state"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    opt_cfg = OptConfig(learning_rate=3e-4, warmup_steps=1)
+    params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    state = init_opt_state(params, opt_cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=seed, step=0)
+    torch.cuda.reset_peak_memory_stats()
+    make_train_step(cfg, opt_cfg)(params, state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    ratio = predicted / held
+    pass_peak = predicted + parts["batch"] + rec["memory"]["peak_bytes"]
+    res = {"config": "yi_6b, 16 layers, full width", "batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "predicted_param_and_opt_bytes": predicted, "memory_allocated_after_init": held,
+           "ratio": ratio, "predicted_step_bytes": pass_peak,
+           "max_memory_allocated_over_a_step": peak, "step_ratio": pass_peak / peak,
+           "flops_per_device": rec["flops_per_device"], "card": smi}
+    print(f"[dryrun] card anchor, Yi-6B at full width and 16 layers, {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, a (1, 1) mesh: predicted parameter and AdamW bytes {predicted:,} "
+          f"against torch.cuda.memory_allocated {held:,} after init ({ratio:.6f}; bound 1%); "
+          f"predicted arguments + peak_bytes {pass_peak:,} against max_memory_allocated "
+          f"{peak:,} over one step ({pass_peak / peak:.4f}; printed, no bound); {smi}")
+    if abs(ratio - 1) > 0.01:
+        raise AssertionError(f"card anchor: predicted {predicted} bytes, held {held}")
+    return res
+
+
 def _leaf_paths(tree, path=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -2301,6 +2518,12 @@ def main() -> int:
         done(f"train full width {arch}")
     train["checkpoint"] = train_checkpoint()
     done("train checkpoint")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dry = {"anchor": dryrun_anchor(smi)}
+    done("dryrun anchor")
+    dry.update(dryrun_phase(smi))
+    done("dryrun")
     runs = {run: r["launches"] for run, r in train["full_width"].items()}
 
     def by_model(k):
@@ -2334,7 +2557,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "serve": served, "collectives": ranks,
-         "train": train}, indent=1))
+         "train": train, "dryrun": dry}, indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + ")")
     print(smi)

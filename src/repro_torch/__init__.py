@@ -33,7 +33,9 @@ __all__ = ["resolve_device"]
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """The ``torch.device`` an entry point runs on.  Raises rather than
-    falling back to the CPU when CUDA is asked for and absent."""
+    falling back to the CPU when CUDA is asked for and absent.  ``"meta"``
+    gives shapes and dtypes only, with no storage (the dry-run's pass,
+    ``launch/dryrun.py``)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -41,6 +43,6 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
                 "CUDA is not available; pass device='cpu' to run the plain "
                 "PyTorch path on the CPU"
             )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}: use 'cuda', 'cpu' or 'meta'")
     return dev

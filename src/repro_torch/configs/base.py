@@ -1,5 +1,5 @@
 """Model / parallelism configuration system (the port's own copy of the
-reference's ``repro/configs/base.py``, without the dry-run shapes).
+reference's ``repro/configs/base.py``).
 
 Every assigned architecture is expressed as a :class:`ModelConfig`; hybrid
 stacks (Jamba) use a repeating ``layer_pattern`` of :class:`LayerSpec`s, and
@@ -19,6 +19,8 @@ __all__ = [
     "LayerSpec",
     "ModelConfig",
     "ParallelConfig",
+    "ShapeSpec",
+    "SHAPES",
 ]
 
 
@@ -222,3 +224,24 @@ class ModelConfig:
         p = (n_e + e.num_shared_experts) * 3 * d * e.d_ff_expert
         p += d * e.num_experts  # router
         return p
+
+
+# ---------------------------------------------------------------------------
+# Assigned input shapes (the dry-run's cells: ``launch/dryrun.py``).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: Literal["train", "prefill", "decode"]
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524288, 1),
+}

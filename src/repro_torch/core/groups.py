@@ -30,6 +30,14 @@ reduce-scatter over ``n`` ranks sends ``1/n`` of the input to each of the
 reduce-scatter and an all-gather, a point-to-point send one message.  The
 backend's own algorithm may move the bytes another way; the count is the
 paper's, per rank, and splits off what crosses pods.
+
+:class:`RecordingMesh` gives the same axes with no process group: each
+operation exchanges nothing and records its operand bytes per rank by the
+reference's HLO kind names (``all-reduce``, ``reduce-scatter``,
+``all-gather``, ``all-to-all``, ``collective-permute``), the convention of
+the reference's dry-run (``repro/launch/hloanalysis.py``), not
+:class:`Traffic`'s bytes sent to peers.  The dry-run
+(``launch/dryrun.py``) runs the gradient sync on meta tensors over one.
 """
 
 from __future__ import annotations
@@ -39,7 +47,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-__all__ = ["Axis", "Mesh2D", "Traffic"]
+__all__ = ["Axis", "Mesh2D", "RecordingAxis", "RecordingMesh", "Traffic"]
 
 # the non-deprecated name where this PyTorch has one; the same collectives
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
@@ -76,7 +84,7 @@ class Axis:
     group: dist.ProcessGroup
     ranks: tuple[int, ...]
     index: int
-    mesh: "Mesh2D"
+    mesh: "Mesh2D | RecordingMesh"
 
     @property
     def size(self) -> int:
@@ -206,6 +214,48 @@ class Mesh2D:
         self.lane = Axis("lane", lane_groups[pod], lane_ranks[pod], lane, self)
         self.pod = Axis("pod", pod_groups[lane], pod_ranks[lane], pod, self)
         self.world = Axis("world", dist.group.WORLD, tuple(range(world)), rank, self)
+
+    def pod_of(self, rank: int) -> int:
+        return rank // self.lanes
+
+
+_KINDS = {"all_reduce": "all-reduce", "reduce_scatter": "reduce-scatter",
+          "all_gather": "all-gather", "all_to_all": "all-to-all"}
+
+
+class RecordingAxis(Axis):
+    """An :class:`Axis` with no group, seen from rank 0: each operation is
+    counted in the mesh's :class:`Traffic`, as on a real axis, and adds its
+    operand bytes to the mesh's ``collective_bytes`` under the reference's
+    kind name; nothing is exchanged and no output is written."""
+
+    def _run(self, op: str, call, out: torch.Tensor, inp: torch.Tensor) -> None:
+        c = self.mesh.collective_bytes
+        c[_KINDS[op]] = c.get(_KINDS[op], 0) + _nbytes(inp)
+
+    def exchange(self, sends: list[tuple[torch.Tensor, int]],
+                 recvs: list[tuple[torch.Tensor, int]]) -> None:
+        if not sends and not recvs:
+            return
+        self._count("send", [(p, _nbytes(t)) for t, p in sends])
+        c = self.mesh.collective_bytes
+        c["collective-permute"] = c.get("collective-permute", 0) + sum(
+            _nbytes(t) for t, _ in sends)
+
+
+class RecordingMesh:
+    """The (pod, lane) mesh of :class:`Mesh2D` as :class:`RecordingAxis`
+    objects, seen from rank 0: no process group.  ``collective_bytes``
+    holds the operand bytes the collectives run on it recorded, by kind;
+    ``traffic`` what rank 0 would send, as on a real mesh."""
+
+    def __init__(self, pods: int, lanes: int):
+        self.pods, self.lanes = pods, lanes
+        self.traffic = Traffic()
+        self.collective_bytes: dict[str, int] = {}
+        self.lane = RecordingAxis("lane", None, tuple(range(lanes)), 0, self)
+        self.pod = RecordingAxis("pod", None, tuple(q * lanes for q in range(pods)), 0, self)
+        self.world = RecordingAxis("world", None, tuple(range(pods * lanes)), 0, self)
 
     def pod_of(self, rank: int) -> int:
         return rank // self.lanes

@@ -10,9 +10,24 @@ attribute, so a run can show that its main path went through the kernels;
 CPU calls are not counted.  A call made while a CUDA graph is captured
 launches nothing: the graph's owner takes those counts back and adds them
 again at every replay (``add_launches``).
+
+A tensor on the meta device (the dry-run's shape pass, ``launch/dryrun.py``)
+gets outputs of the right shape and dtype on the meta device and computes
+nothing: no kernel, no plain version (the plain scan's Python loop over S
+alone would take minutes at the dry-run's sizes).  Each such call adds the
+FLOPs of the matrix products its kernel does to every counter that
+``count_meta_flops`` has open, in the reference's dot-only measure
+(``repro/launch/hloanalysis.py``): attention counts its score and value
+products over the 64 x 64 (query, key) tiles inside the causal or window
+frontier, as the reference's chunked attention skips the chunks outside it;
+the scan counts its readout ``y_t = sum_n h_t c_t`` (an einsum in the
+reference) and its backward the readout's contraction for ``gc``; RMSNorm
+and ``a2a_pack`` count none.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -34,11 +49,48 @@ from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
 __all__ = ["a2a_pack", "flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd",
-           "rmsnorm", "rmsnorm_bwd", "add_launches", "launch_counts", "reset_launches"]
+           "rmsnorm", "rmsnorm_bwd", "add_launches", "launch_counts", "reset_launches",
+           "count_meta_flops", "attention_tile_pairs"]
+
+#: the (query, key) tile of the meta FLOP count
+META_TILE = 64
+_meta_counters: list[dict[str, float]] = []
 
 
 def _no_path(name: str, t: torch.Tensor):
     return ValueError(f"{name}: no implementation for device {t.device}")
+
+
+@contextlib.contextmanager
+def count_meta_flops():
+    """Inside the block, every dispatcher call on meta tensors adds its
+    kernel's matrix-product FLOPs to the dict yielded, by dispatcher name."""
+    counts = {fn.__name__: 0.0 for fn in _DISPATCHERS}
+    _meta_counters.append(counts)
+    try:
+        yield counts
+    finally:  # by identity: two open counters may hold equal counts
+        _meta_counters[:] = [c for c in _meta_counters if c is not counts]
+
+
+def _meta(name: str, flops: float) -> None:
+    for counts in _meta_counters:
+        counts[name] += flops
+
+
+def attention_tile_pairs(Sq: int, Skv: int, causal: bool, window: int | None,
+                         tile: int = META_TILE) -> int:
+    """The (query, key) pairs of one head in the ``tile`` x ``tile`` tiles
+    that are not wholly masked (query ``i`` sees key ``j <= i`` when causal,
+    ``j > i - window`` under a window)."""
+    n = 0
+    for q0 in range(0, Sq, tile):
+        q1 = min(q0 + tile, Sq)
+        hi = min(Skv, q1) if causal else Skv  # keys below the tile's last row + 1
+        lo = max(0, q0 - window + 1) if window is not None else 0
+        lo, hi = lo // tile * tile, min(Skv, -(-hi // tile) * tile)
+        n += (q1 - q0) * max(0, hi - lo)
+    return n
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -50,6 +102,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
         return out.reshape(shape)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps=eps)
+    if x.is_meta:
+        return torch.empty_like(x)
     raise _no_path("rmsnorm", x)
 
 
@@ -64,6 +118,8 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
         return dx.reshape(shape), dw
     if x.device.type == "cpu":
         return rmsnorm_bwd_ref(x, w, dy, eps=eps)
+    if x.is_meta:
+        return torch.empty_like(x), torch.empty_like(w)
     raise _no_path("rmsnorm_bwd", x)
 
 
@@ -80,6 +136,13 @@ def flash_attention(q, k, v, *, group_size=1, causal=True, window=None, scale=No
         return out
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, **kw)
+    if q.is_meta:
+        BH, Sq, hd = q.shape
+        hdv = v.shape[-1]
+        _meta("flash_attention", 2 * (hd + hdv) * BH * attention_tile_pairs(
+            Sq, k.shape[1], causal, window))
+        out = q.new_empty((BH, Sq, hdv))
+        return (out, q.new_empty((BH, Sq), dtype=torch.float32)) if return_lse else out
     raise _no_path("flash_attention", q)
 
 
@@ -95,6 +158,14 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, group_size=1, causal=True, windo
         return dq, dk, dv
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    if q.is_meta:
+        BH, Sq, hd = q.shape
+        hdv = v.shape[-1]
+        # the scores again, dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q,
+        # and delta = rowsum(dO * O)
+        _meta("flash_attention_bwd", 2 * (3 * hd + 2 * hdv) * BH * attention_tile_pairs(
+            Sq, k.shape[1], causal, window) + 2 * BH * Sq * hdv)
+        return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     raise _no_path("flash_attention_bwd", q)
 
 
@@ -107,6 +178,11 @@ def mamba_scan(a, b, c, h0=None):
         return out
     if a.device.type == "cpu":
         return mamba_scan_ref(a, b, c, h0)
+    if a.is_meta:
+        B, S, di, N = a.shape
+        _meta("mamba_scan", 2 * B * S * di * N)
+        return (a.new_empty((B, S, di), dtype=torch.float32),
+                a.new_empty((B, di, N), dtype=torch.float32))
     raise _no_path("mamba_scan", a)
 
 
@@ -121,6 +197,13 @@ def mamba_scan_bwd(a, b, c, h0, gy, gh_fin=None):
         return out
     if a.device.type == "cpu":
         return mamba_scan_bwd_ref(a, b, c, h0, gy, gh_fin)
+    if a.is_meta:
+        B, S, di, N = a.shape
+        # gc_t = sum_d h_t gy_t (the readout's cotangent into the state,
+        # gy_t c_t, is an outer product, no contraction)
+        _meta("mamba_scan_bwd", 2 * B * S * di * N)
+        return (torch.empty_like(a), torch.empty_like(b), torch.empty_like(c),
+                a.new_empty((B, di, N)))
     raise _no_path("mamba_scan_bwd", a)
 
 
@@ -133,6 +216,8 @@ def a2a_pack(x: torch.Tensor) -> torch.Tensor:
         return out
     if x.device.type == "cpu":
         return a2a_pack_ref(x)
+    if x.is_meta:
+        return x.new_empty((x.shape[1], x.shape[0]) + tuple(x.shape[2:]))
     raise _no_path("a2a_pack", x)
 
 

@@ -1,0 +1,49 @@
+"""Device-free mesh shapes (the counterpart of the reference's
+``repro/launch/mesh.py``).
+
+The reference builds ``jax.sharding.Mesh`` objects over real or fake
+devices: a pod is 16 x 16 = 256 chips, and the multi-pod mesh adds a
+leading ``pod`` axis (2 pods = 512 chips for the dry-run).  The port's
+dry-run (``launch/dryrun.py``) needs only the axes' names and sizes, so a
+:class:`MeshShape` holds those and no devices: nothing here touches a
+device or a process group.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+__all__ = ["MeshShape", "make_production_mesh", "make_test_mesh"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, in order (no devices)."""
+
+    axis_names: tuple[str, ...]
+    shape: tuple[int, ...]
+
+    def __post_init__(self):
+        if len(self.axis_names) != len(self.shape):
+            raise ValueError(f"axes {self.axis_names} vs shape {self.shape}")
+
+    @property
+    def size(self) -> int:
+        """The number of devices."""
+        return math.prod(self.shape)
+
+    @property
+    def axis_sizes(self) -> dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def make_test_mesh(shape=(2, 2, 2), axes=("pod", "data", "model")) -> MeshShape:
+    """The small mesh of the reference's 8-device CPU tests."""
+    return MeshShape(tuple(axes), tuple(shape))

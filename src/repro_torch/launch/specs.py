@@ -1,0 +1,125 @@
+"""The dry-run's inputs and their shardings for every (arch x shape) cell
+(the counterpart of the reference's ``repro/launch/specs.py``).
+
+Inputs are tensors on the meta device (the reference's
+``ShapeDtypeStruct``s: shapes and dtypes, no storage), for the function
+the shape's kind runs:
+
+  train_4k     -> the train step (params, opt_state, batch)
+  prefill_32k  -> lm.prefill(params, batch)
+  decode_32k / long_500k -> lm.decode_step(params, tokens, cache, cache_pos)
+
+A spec is a tuple with one entry per dim (a mesh-axis name, a tuple of
+them, or None), trailing Nones dropped, over a device-free
+``launch/mesh.MeshShape``.  The reference's ``named`` (specs bound to a
+device mesh as ``NamedSharding``s) has no counterpart: nothing here
+partitions a tensor.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.models.params import map_tree, torch_dtype
+from repro_torch.training.train_step import dim_spec, dp_axes, mesh_axis_sizes
+
+__all__ = [
+    "batch_structs",
+    "decode_token_struct",
+    "cache_pspecs",
+    "batch_pspecs",
+    "cell_eligible",
+]
+
+
+def _struct(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_structs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """A training or prefill batch on the meta device (integers as int32,
+    as the reference's)."""
+    if cfg.embed_inputs:
+        shape = (batch, seq, cfg.num_codebooks) if cfg.num_codebooks > 1 else (batch, seq)
+        return {"tokens": _struct(shape, torch.int32), "labels": _struct(shape, torch.int32)}
+    out = {"embeds": _struct((batch, seq, cfg.d_model), torch_dtype(cfg.dtype)),
+           "labels": _struct((batch, seq), torch.int32)}
+    if cfg.attn is not None and cfg.attn.mrope_sections is not None:
+        out["positions"] = _struct((batch, seq, 3), torch.int32)
+    return out
+
+
+def decode_token_struct(cfg: ModelConfig, batch: int) -> torch.Tensor:
+    if cfg.embed_inputs:
+        shape = (batch, 1, cfg.num_codebooks) if cfg.num_codebooks > 1 else (batch, 1)
+        return _struct(shape, torch.int32)
+    return _struct((batch, 1, cfg.d_model), torch_dtype(cfg.dtype))
+
+
+def _dp_or_none(mesh, dim: int):
+    dp = dp_axes(mesh)
+    n = math.prod(mesh_axis_sizes(mesh)[a] for a in dp)
+    return dim_spec(dp) if dim % n == 0 and dim > 0 else None
+
+
+def batch_pspecs(mesh, tree):
+    """The leading (batch) dim of every leaf over the DP axes when divisible
+    (long_500k's batch of 1 stays replicated).  ``tree``: a tensor or a
+    dict of them."""
+    def spec(_, leaf):
+        dp = _dp_or_none(mesh, leaf.shape[0])
+        return (dp,) if dp else ()
+    return map_tree(spec, tree)
+
+
+def cache_pspecs(cfg: ModelConfig, mesh, cache_struct: dict) -> dict:
+    """Specs for decode caches.
+
+    Rules (the reference's): the batch dim over the DP axes when divisible;
+    the ``model`` axis on kv-heads when divisible (comm-free decode), else
+    on the cache sequence dim (a distributed softmax); Mamba states shard
+    d_inner over ``model``."""
+    m = mesh_axis_sizes(mesh).get("model", 1)
+
+    def spec(path: str, leaf: torch.Tensor) -> tuple:
+        keys = path.split("/")
+        name = keys[-1]
+        specs: list = [None] * leaf.dim()
+        b_idx = 1 if keys[0] == "blocks" else 0  # blocks/<slot>/<name>: [periods, B, ...]
+        dp = _dp_or_none(mesh, leaf.shape[b_idx])
+        if dp:
+            specs[b_idx] = dp
+        if name in ("k", "v"):
+            # [..., B, C, Hkv, hd]
+            if leaf.shape[-2] % m == 0:
+                specs[-2] = "model"
+            elif leaf.shape[-3] % m == 0:
+                specs[-3] = "model"
+        elif name in ("ckv", "krope"):
+            # [..., B, C, r]: shard the cache sequence dim
+            if leaf.shape[-2] % m == 0:
+                specs[-2] = "model"
+        elif name == "conv":
+            if leaf.shape[-1] % m == 0:
+                specs[-1] = "model"
+        elif name == "ssm":
+            if leaf.shape[-2] % m == 0:
+                specs[-2] = "model"
+        while specs and specs[-1] is None:
+            specs.pop()
+        return tuple(specs)
+
+    return map_tree(spec, cache_struct)
+
+
+def cell_eligible(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """long_500k requires sub-quadratic attention (SSM / hybrid / SWA)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, (
+            "skipped: pure full-attention arch; 524288-token dense KV decode "
+            "is excluded per the assignment (DESIGN.md §4)"
+        )
+    return True, ""

@@ -45,10 +45,10 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.params import ParamMeta, init_params, map_tree, torch_dtype
+from repro_torch.models.params import abstract_params, init_params, map_tree, torch_dtype
 
-__all__ = ["model_meta", "init_model", "init_cache", "loss_fn", "prefill", "decode_step",
-           "check_position", "scanned_periods"]
+__all__ = ["model_meta", "init_model", "abstract_model", "init_cache", "abstract_cache",
+           "loss_fn", "prefill", "decode_step", "check_position", "scanned_periods"]
 
 
 def _slot_meta(cfg: ModelConfig, spec: LayerSpec) -> dict:
@@ -101,6 +101,12 @@ def init_model(cfg: ModelConfig, generator: torch.Generator, *, device="cuda") -
                        dtype=torch_dtype(cfg.dtype))
 
 
+def abstract_model(cfg: ModelConfig) -> dict:
+    """The parameters on the meta device: the reference's shapes and dtype,
+    no storage."""
+    return abstract_params(model_meta(cfg), dtype=torch_dtype(cfg.dtype))
+
+
 def _slot_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, capacity: int,
                 device, dtype) -> dict:
     if spec.mixer == "attn":
@@ -124,6 +130,11 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int, *, device="cuda",
     return {"blocks": blocks,
             **{name: _slot_cache(cfg, spec, batch, capacity, device, dtype)
                for name, spec in _prelude(cfg)}}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, capacity: int) -> dict:
+    """``init_cache`` on the meta device: every cache's shape and dtype."""
+    return init_cache(cfg, batch, capacity, device="meta")
 
 
 def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,

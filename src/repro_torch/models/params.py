@@ -3,8 +3,15 @@ reference's ``repro/models/params.py``).
 
 A parameter tree is a nested dict with the reference's keys; its leaves are
 :class:`ParamMeta` before :func:`init_params` and tensors after it.  The
-reference's ``partition_specs`` (GSPMD sharding rules) has no one-GPU
-counterpart and is not ported.
+metadata is consumed three ways, as in the reference:
+
+* ``init_params``     — materialise tensors;
+* ``abstract_params`` — tensors on the meta device (shapes and dtypes, no
+  storage): the dry-run's inputs (``launch/dryrun.py``);
+* ``partition_specs`` — the reference's sharding rules, each spec a tuple
+  of mesh-axis names or None per dim, trailing Nones dropped (what the
+  reference's ``PartitionSpec`` holds).  No GSPMD partitions a tensor
+  here: the dry-run reads the specs for the bytes each device would hold.
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["ParamMeta", "init_params", "map_tree", "torch_dtype"]
+__all__ = ["ParamMeta", "init_params", "abstract_params", "partition_specs", "map_tree",
+           "torch_dtype", "TP_RULES", "FSDP_RULES"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -91,3 +99,58 @@ def init_params(meta_tree, generator: torch.Generator, device, dtype=torch.bfloa
     if generator.device.type != device.type:
         raise ValueError(f"generator on {generator.device}, params on {device}")
     return map_tree(lambda _, m: _init_one(m, generator, device, dtype), meta_tree)
+
+
+def abstract_params(meta_tree, dtype=torch.bfloat16):
+    """The parameter tree as tensors on the meta device: no storage."""
+    return map_tree(lambda _, m: torch.empty(m.shape, dtype=dtype, device="meta"), meta_tree)
+
+
+# Logical-axis -> mesh-axis preferences, in priority order per axis.
+# "model" = tensor-parallel axis; "data" = FSDP axis (params only).
+TP_RULES: dict[str, tuple[str, ...]] = {
+    "vocab": ("model",),
+    "heads_flat": ("model",),  # flattened num_heads*head_dim projections
+    "ff": ("model",),
+    "experts": ("model",),
+    "d_inner": ("model",),
+    "lora": (),
+    "d_model": (),
+    "layers": (),  # stacked period dim never sharded
+}
+
+FSDP_RULES: dict[str, tuple[str, ...]] = {
+    **TP_RULES,
+    "d_model": ("data",),
+    "lora": ("data",),
+}
+
+
+def _spec_for(meta: ParamMeta, rules: dict, mesh_axis_sizes: dict) -> tuple:
+    """A mesh axis is used at most once per parameter, first come first
+    served, and only on a dim it divides."""
+    used: set[str] = set()
+    out: list[str | None] = []
+    for dim, axis in zip(meta.shape, meta.axes):
+        chosen = None
+        for mesh_axis in rules.get(axis, ()) if axis else ():
+            size = mesh_axis_sizes.get(mesh_axis)
+            if size and mesh_axis not in used and dim % size == 0:
+                chosen = mesh_axis
+                used.add(mesh_axis)
+                break
+        out.append(chosen)
+    while out and out[-1] is None:
+        out.pop()
+    return tuple(out)
+
+
+def partition_specs(meta_tree, mesh_axis_sizes: dict[str, int], *, fsdp: bool = True):
+    """The spec tree of the parameter tree.
+
+    ``mesh_axis_sizes`` maps mesh axis name -> size, e.g. {"data": 16,
+    "model": 16} (the "pod" axis never shards parameters: pods are pure DP
+    replicas, which is what makes the paper's cross-pod collectives the
+    interesting traffic)."""
+    rules = FSDP_RULES if fsdp else TP_RULES
+    return map_tree(lambda _, m: _spec_for(m, rules, mesh_axis_sizes), meta_tree)

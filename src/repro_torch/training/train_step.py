@@ -19,8 +19,15 @@
 * one AdamW update (``training/optimizer.py``), whose ``grad_norm`` and
   ``lr`` join the metrics.
 
-GSPMD sharding (the reference's ``make_train_step_pjit``, ``param_pspecs``,
-``make_act_shard``) has no one-GPU counterpart and is not ported.
+The reference's sharding specs are ported for the dry-run
+(``launch/dryrun.py``), over a device-free ``launch/mesh.MeshShape``:
+``dp_axes``, ``mesh_axis_sizes``, ``batch_pspec``, ``param_pspecs`` and
+``opt_pspecs`` (ZeRO-1: the moments always under the FSDP rules).  A spec
+is a tuple of mesh-axis names (or tuples of them) or None per dim, as
+``models/params.partition_specs`` gives it.  The reference's GSPMD
+machinery, ``make_train_step_pjit``, ``make_act_shard`` and
+``launch/specs.named``, has no one-card counterpart: nothing here
+partitions a tensor by a spec.
 """
 
 from __future__ import annotations
@@ -30,10 +37,11 @@ import torch
 
 from repro_torch.core import collectives as C
 from repro_torch.models import lm
-from repro_torch.models.params import map_tree, torch_dtype
+from repro_torch.models.params import map_tree, partition_specs, torch_dtype
 from repro_torch.training.optimizer import OptConfig, adamw_update, leaves
 
-__all__ = ["batch_to", "grad_and_metrics", "make_train_step", "sync"]
+__all__ = ["batch_to", "grad_and_metrics", "make_train_step", "sync", "dp_axes",
+           "mesh_axis_sizes", "dim_spec", "batch_pspec", "param_pspecs", "opt_pspecs"]
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -44,6 +52,38 @@ def batch_to(batch: dict, device) -> dict:
         t = torch.from_numpy(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
         out[k] = t.to(device=device, dtype=torch.int64 if not t.is_floating_point() else None)
     return out
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes of ``mesh`` (a ``launch/mesh.MeshShape``)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def mesh_axis_sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def dim_spec(axes: tuple[str, ...]):
+    """One dim's entry of a spec sharded over ``axes``: a tuple of names, or
+    the one name alone (as the reference's ``PartitionSpec`` holds it)."""
+    return axes[0] if len(axes) == 1 else axes
+
+
+def batch_pspec(mesh, batch_tree) -> dict:
+    """Every batch leaf's leading (batch) dim over the DP axes."""
+    dp = dim_spec(dp_axes(mesh))
+    return map_tree(lambda _, __: (dp,), batch_tree)
+
+
+def param_pspecs(cfg, mesh):
+    return partition_specs(lm.model_meta(cfg), mesh_axis_sizes(mesh), fsdp=cfg.parallel.fsdp)
+
+
+def opt_pspecs(cfg, mesh) -> dict:
+    """ZeRO-1: the moments always use the FSDP rules, whatever the
+    parameters' ``fsdp``."""
+    mom = partition_specs(lm.model_meta(cfg), mesh_axis_sizes(mesh), fsdp=True)
+    return {"m": mom, "v": mom, "step": ()}
 
 
 def _pieces(params: dict) -> dict:

@@ -180,10 +180,20 @@ def test_mixer_train_gradients_match_reference():
         assert err <= MIXER_TOL * np.abs(want).max(), (name, err, np.abs(want).max())
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device with no implementation (this build of
+    PyTorch has no third device to put one on)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_dispatcher_raises_for_another_device():
-    """CUDA goes to the kernel, the CPU to the plain version, and any other
+    """CUDA goes to the kernel, the CPU to the plain version, meta tensors
+    to the shape pass (``tests/test_torch_dryrun.py``), and any other
     device raises: nothing falls back."""
-    a = torch.empty(1, 4, 2, 4, device="meta")
-    c, gy = torch.empty(1, 4, 4, device="meta"), torch.empty(1, 4, 2, device="meta")
-    with pytest.raises(ValueError, match="no implementation for device meta"):
+    a = torch.Tensor._make_subclass(_Elsewhere, torch.empty(1, 4, 2, 4))
+    c, gy = torch.empty(1, 4, 4), torch.empty(1, 4, 2)
+    with pytest.raises(ValueError, match="no implementation for device xpu"):
         ops.mamba_scan_bwd(a, a, c, None, gy)

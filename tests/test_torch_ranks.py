@@ -60,6 +60,9 @@ def test_ep_dispatch_flat_equals_fulllane_and_the_oracle(capsys, pods, lanes, dt
     for r in results:
         assert r["flat_equals_fulllane"] and r["flat_equals_oracle"]
         assert r["fulllane_equals_oracle"]
+        assert all(r[k] for k in ep_dispatch.CHECKS) and r["grad_dtype"] == dtype
+        # the backward of a full-lane alltoall is a second one
+        assert r["traffic"]["fulllane with backward"]["all_to_all/pod"]["calls"] == 2
         assert r["rows_per_destination"] == 32 * 2 // P
         block = r["rows_per_destination"] * 24 * size
         flat = r["traffic"]["flat"]["all_to_all/world"]
@@ -88,4 +91,11 @@ def test_chip_smoke_collectives_job_on_cpu(monkeypatch):
         assert sorted(r["seconds"]) == sorted(
             ["hierarchical_psum 4096", "flat_psum 4096", "hierarchical_psum 4097",
              "flat_psum 4097", "fulllane_broadcast", "kported_broadcast k=1",
-             "kported_broadcast k=2", "kported_broadcast k=3", "kported_scatter k=2"])
+             "kported_broadcast k=2", "kported_broadcast k=3", "kported_scatter k=2",
+             *(f"{name} backward" for name in (
+                 "hierarchical_psum 4096", "flat_psum 4096", "hierarchical_psum 4097",
+                 "flat_psum 4097", "fulllane_broadcast root=1", "kported_broadcast k=1",
+                 "kported_broadcast k=2", "kported_broadcast k=3",
+                 "kported_scatter k=2 root=5"))])
+        assert sorted(r["backward"]) == sorted(
+            n.removesuffix(" backward") for n in r["seconds"] if n.endswith(" backward"))

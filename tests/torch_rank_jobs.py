@@ -119,6 +119,77 @@ def run_cases() -> dict:
     return out
 
 
+#: name: (mesh, input, dtype, collective, keywords) for ``run_grad_cases``:
+#: the gradient of every rank's loss ``sum(c * f(x))``, ``c`` a seeded
+#: cotangent of f's output on each rank: the adjoint of f applied to c.  Collectives: the public functions
+#: of ``core/collectives.py``, the k-ported ones on the world axis.
+GRAD_CASES = {
+    **{f"hierarchical_psum_{dt}": ((2, 4), lambda: _randn(10, 8, 33, 5), dt,
+                                   "hierarchical_psum", {})
+       for dt in ("float32", "bfloat16")},
+    "fulllane_psum_4x2": ((4, 2), lambda: _randn(11, 8, 13), "float32", "fulllane_psum", {}),
+    **{f"flat_psum_{dt}": ((2, 4), lambda: _randn(12, 8, 16), dt, "flat_psum", {})
+       for dt in ("float32", "bfloat16")},
+    **{f"fulllane_all_to_all_{dt}": ((2, 4), lambda: _randn(13, 8, 8, 3), dt,
+                                     "fulllane_all_to_all", {})
+       for dt in ("float32", "bfloat16")},
+    "fulllane_all_to_all_4x2": ((4, 2), lambda: _randn(14, 8, 8, 5), "float32",
+                                "fulllane_all_to_all", {}),
+    "flat_all_to_all": ((2, 4), lambda: _randn(15, 8, 8, 3), "float32", "flat_all_to_all", {}),
+    **{f"fulllane_broadcast_root{r}_{dt}": ((2, 4), lambda: _randn(16, 8, 6, 2), dt,
+                                            "fulllane_broadcast", {"root": r})
+       for r in (0, 1) for dt in ("float32", "bfloat16")},
+    **{f"kported_broadcast_k{k}": ((2, 4), lambda: _randn(17, 8, 5), "float32",
+                                   "kported_broadcast_ppermute", {"k": k, "root": 0})
+       for k in (1, 2, 3, 5)},
+    "kported_broadcast_root5_bfloat16": ((2, 4), lambda: _randn(18, 8, 4), "bfloat16",
+                                         "kported_broadcast_ppermute", {"k": 2, "root": 5}),
+    **{f"kported_scatter_k{k}": ((2, 4), lambda: _randn(19, 8, 8, 2), "float32",
+                                 "kported_scatter_ppermute", {"k": k, "root": 0})
+       for k in (1, 2, 4)},
+    "kported_scatter_root5": ((2, 4), lambda: _randn(20, 8, 8, 2), "float32",
+                              "kported_scatter_ppermute", {"k": 2, "root": 5}),
+}
+
+
+def grad_cotangent(name: str, out_shape: tuple) -> np.ndarray:
+    """The seeded cotangent of case ``name``: [8, *out_shape], row r rank r's."""
+    return _randn(100 + list(GRAD_CASES).index(name), WORLD, *out_shape)
+
+
+def run_grad_cases() -> dict:
+    """Every case of ``GRAD_CASES`` on this rank, one mesh at a time.
+    Returns, by case, this rank's gradient ``[1, ...]`` as float32
+    (``"grad"``), its dtype, the output's shape and whether the input was
+    left unchanged."""
+    import torch
+
+    from repro_torch.core import collectives as C
+    from repro_torch.core.groups import Mesh2D
+
+    meshes = {}
+    out = {}
+    for name, (shape, make, dtype, fn, kw) in GRAD_CASES.items():
+        if shape not in meshes:
+            meshes[shape] = Mesh2D(*shape)
+        mesh = meshes[shape]
+        me = mesh.world.index
+        dt = getattr(torch, dtype)
+        x = torch.from_numpy(make()[me]).to(dt).requires_grad_()
+        f = getattr(C, fn)
+        if fn.startswith("kported"):
+            y = f(x, mesh.world, **kw)
+        else:
+            y = f(x, mesh.pod, mesh.lane, **kw)
+        c = torch.from_numpy(grad_cotangent(name, tuple(y.shape))[me]).to(dt)
+        (g,) = torch.autograd.grad((c * y).sum(), x)
+        out[name] = {"grad": g.float()[None], "dtype": str(g.dtype).removeprefix("torch."),
+                     "out_shape": list(y.shape),
+                     "input_unchanged": torch.equal(x.detach(),
+                                                    torch.from_numpy(make()[me]).to(dt))}
+    return out
+
+
 def fail_on_rank(rank: int, how: str = "raise") -> int:
     """Fail on ``rank``, by raising or (``how="kill"``) by a SIGKILL that no
     Python handler sees; the others wait for it in a collective."""
