@@ -157,11 +157,45 @@ Phases, each reported on its own lines:
    what ``torch.cuda.memory_allocated`` grows by when they are made, and
    its arguments plus its ``peak_bytes`` are printed beside
    ``torch.cuda.max_memory_allocated`` over one train step.  (b)
-   ``--all --mesh both`` for the ``xla`` and ``fulllane`` backends, at
-   once, in processes that see no card: every cell ``ok`` or skipped by
+   ``--all --mesh both`` for the ``xla`` and ``fulllane`` backends, one
+   process for each backend and mesh, all four at once, none of them seeing
+   the card: every cell ``ok`` or skipped by
    ``cell_eligible``, no error; each train cell's cross-pod bytes per rank
    of the gradient sync on 2 x 16 x 16, flat and full-lane, are printed.
-   The dry-run's numbers are counts from shapes, not card times.
+   The dry-run's numbers are counts from shapes, not card times;
+10. sharded training (``training/train_step.make_train_step_sharded``
+   and the shard_map step with TP) on this card, in 8 ranks over gloo as a
+   (pod 2, data 2, model 2) ``DeviceMesh`` whose groups stage every
+   collective through pinned host memory (``core/groups.StagedGroup``;
+   NCCL admits no two ranks on one device).  (a) In a process of its own,
+   the one-rank step through the kernels (phase 8 (b)'s) of full-width
+   Yi-6B and Falcon-Mamba-7B at 2 layers on 16 x 2048 tokens in 4
+   microbatches, and two readings of it that place (b)'s limits: the same
+   step in 16 microbatches of one row, a data-parallel rank's rows at a
+   time (another summation order) must pass (b)'s checks
+   with room (first moments within half their limit), and the step without
+   one data-parallel rank's rows must fail them (first moments at twice
+   their limit or more, parameters over their allowance).
+   (b) In the ranks, from the same seeded parameters and batch, one step of
+   the sharded step (FSDP and TP parameters, ZeRO-1 moments) and one of the
+   ``fulllane`` shard_map step (TP parameters): loss and ``grad_norm``
+   within 2e-2 (relative) of the one-rank step's, every first moment
+   within 5e-2 (rms over its leaf, as phase 8 (b) holds gradients) and
+   every updated parameter within 2e-2 in its scale, or, where the
+   one-rank step's own first moment lies within half its leaf's rms of
+   zero, within a sign flip of the first AdamW step
+   (``_param_check``), each element checked on the rank that holds it;
+   each rank's launches
+   those of the one-rank step, every kernel wrapper's input at
+   the rank's shard (its rows, its heads, its channels); per rank, the
+   parameter and AdamW bytes (at most 1.05 times 1/(data model) of a
+   replica's for the sharded step, 1/model for the parameters of the TP
+   step), peak memory, the collectives by op (``CommDebugMode``), the
+   bytes staged through the host and the step's host-clock seconds
+   (host-staged gloo time, not an interconnect number); which c10d ops
+   gloo takes on CUDA tensors is printed.  (c) ``launch/train.py --mesh
+   2,2,2`` on Yi-6B at 2 layers for 4 steps on one repeated batch: the
+   loss must fall.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -374,6 +408,40 @@ LOSS_TOL = 1e-3
 COLLECTIVES = {"pods": 2, "lanes": 4, "tokens": 1024, "top_k": 6, "d_model": 5120,
                "bucket": 25 * 2**20 // 4}
 HOST_STAGED = "gloo, host-staged, 8 ranks on one card: not an interconnect number"
+
+
+#: phase 10: the sharded train step on this card, in 8 ranks over gloo as a
+#: (pod 2, data 2, model 2) mesh: full-width Yi-6B and Falcon-Mamba-7B at 2
+#: layers, 16 x 2048 tokens in 4 microbatches (a global microbatch of 4
+#: rows, 1 on each data-parallel rank: the one-rank step's Falcon layer
+#: then holds a, b and their gradients of 4.3 GB each), the config's
+#: remat, phase 8's learning rate
+SHARDED_MESH = (2, 2, 2)
+SHARDED_ARCHS = ("yi_6b", "falcon_mamba_7b")
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_MICRO, SHARDED_LR = 16, 2048, 4, 3e-4
+#: phase 10's limits on a step against the one-rank step, each checked by
+#: phase 10 (a) to lie between two readings of the one-rank step itself: in
+#: another summation order (``SHARDED_ORDER_MICRO`` microbatches of one
+#: row: the rows a data-parallel rank of the mesh takes at a time), which
+#: must pass with room, and without the rows of one data-parallel rank,
+#: which must fail.  The first moments: rms of the error over each leaf,
+#: relative to the leaf's rms.  An updated parameter: ``TOL_BF16`` in
+#: ``ref.scaled_err``'s scale, or a first step's sign flip (2 lr) where the
+#: one-rank step's own first moment lies within ``SHARDED_NEAR_ZERO`` of its
+#: leaf's rms of zero (``_param_check``)
+SHARDED_M_TOL, SHARDED_NEAR_ZERO, SHARDED_ORDER_MICRO = 5e-2, 0.5, 16
+#: phase 10's CLI run: ``launch/train.py`` over the mesh, 4 steps on one
+#: repeated batch of 16 x 256 in one microbatch (the config's 8 would not
+#: split 16 rows over 4 data-parallel ranks; one microbatch gathers the
+#: FSDP parameters once a step, not once a microbatch; 4 rows of 256 a
+#: rank keep its peak below the phase's 1 x 2048)
+SHARDED_CLI = ["--arch", "yi_6b", "--layers", "2", "--mesh", "2,2,2", "--steps", "4",
+               "--batch", "16", "--seq", "256", "--microbatches", "1", "--corpus-size", "1",
+               "--lr", "3e-4", "--log-every", "1"]
+#: the c10d collectives DTensor and the paper's sums issue, each tried on
+#: CUDA tensors over the gloo world by phase 10
+GLOO_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
+            "all_to_all_single")
 
 
 def _graph_ms(calls) -> float:
@@ -2317,13 +2385,13 @@ def train_checkpoint(seed: int = 0) -> dict:
 
 
 def dryrun_phase(smi: str) -> dict:
-    """Phase 9 (b): ``python -m repro_torch.launch.dryrun --all --mesh
-    both`` for each backend, both at once, each in a process of its own
-    that sees no card (the dry-run runs on the meta device).  Every cell
-    must be ``ok`` or ``skipped`` by ``cell_eligible``: an error fails the
-    phase.  Returns, by backend, the counts by status and the seconds, and
-    each train cell's cross-pod bytes per rank of the gradient sync on the
-    multi-pod mesh."""
+    """Phase 9 (b): ``python -m repro_torch.launch.dryrun --all`` on both
+    meshes for each backend, the four (backend, mesh) runs at once, each in
+    a process of its own that sees no card (the dry-run runs on the meta
+    device).  Every cell must be ``ok`` or ``skipped`` by
+    ``cell_eligible``: an error fails the phase.  Returns, by backend, the
+    counts by status and the seconds, and each train cell's cross-pod bytes
+    per rank of the gradient sync on the multi-pod mesh."""
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
     procs, dirs = {}, {}
     t0 = time.perf_counter()
@@ -2331,11 +2399,13 @@ def dryrun_phase(smi: str) -> dict:
         for backend in ("xla", "fulllane"):
             dirs[backend] = OUT_DIR / f"dryrun_{backend}"
             shutil.rmtree(dirs[backend], ignore_errors=True)
-            procs[backend] = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
-                 "--backend", backend, "--out-dir", str(dirs[backend])],
-                env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        logs = {b: p.communicate(timeout=900)[0] for b, p in procs.items()}
+            for mesh in ("single", "multi"):  # independent host processes
+                procs[backend, mesh] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", mesh,
+                     "--backend", backend, "--out-dir", str(dirs[backend])],
+                    env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+        logs = {k: p.communicate(timeout=900)[0] for k, p in procs.items()}
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -2346,16 +2416,19 @@ def dryrun_phase(smi: str) -> dict:
     for backend, d in dirs.items():
         recs = [json.loads(f.read_text()) for f in sorted(d.glob("*.json"))]
         status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
-        (OUT_DIR / f"dryrun_{backend}.log").write_text(logs[backend])
-        if procs[backend].returncode or status["error"] or len(recs) != 80:
-            raise AssertionError(f"dryrun --backend {backend}: exit {procs[backend].returncode}, "
-                                 f"{len(recs)} records, {status}; log in build/chip_smoke")
+        rcs = {}
+        for mesh in ("single", "multi"):
+            (OUT_DIR / f"dryrun_{backend}_{mesh}.log").write_text(logs[backend, mesh])
+            rcs[mesh] = procs[backend, mesh].returncode
+        if any(rcs.values()) or status["error"] or len(recs) != 80:
+            raise AssertionError(f"dryrun --backend {backend}: exit {rcs}, "
+                                 f"{len(recs)} records, {status}; logs in build/chip_smoke")
         cross = {r["arch"]: r["dp_sync_sent_per_device"]["cross_pod_bytes"] for r in recs
                  if r["status"] == "ok" and r["shape"] == "train_4k" and r["mesh"] == "multi"}
         out[backend] = {"status": status, "cross_pod_bytes_train_4k_multi": cross}
         print(f"[dryrun] --all --mesh both --backend {backend}: {status['ok']} cells ok, "
               f"{status['skipped']} skipped by cell_eligible, {status['error']} errors "
-              f"(both backends at once in {seconds:.1f} s, on the host: counts from shapes on "
+              f"(four processes at once in {seconds:.1f} s, on the host: counts from shapes on "
               f"the meta device, not card numbers; {smi})")
     for arch, flat in out["xla"]["cross_pod_bytes_train_4k_multi"].items():
         full = out["fulllane"]["cross_pod_bytes_train_4k_multi"][arch]
@@ -2421,6 +2494,487 @@ def dryrun_anchor(smi: str, seed: int = 0) -> dict:
     if abs(ratio - 1) > 0.01:
         raise AssertionError(f"card anchor: predicted {predicted} bytes, held {held}")
     return res
+
+
+def _sharded_config(arch: str):
+    """Phase 10's config: ``arch`` at full width, 2 layers, ``SHARDED_MICRO``
+    microbatches."""
+    cfg = _config(arch, 2)
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel,
+                                                                 microbatches=SHARDED_MICRO))
+
+
+def sharded_reference(arch: str, path: Path, seed: int = 0) -> dict:
+    """Phase 10 (a), in this process: phase 8 (b)'s one-rank step through the
+    kernels (``grad_and_metrics`` and ``adamw_update``) on phase 10's
+    config and batch; the updated parameters, first moments and each first
+    moment's rms over its leaf saved to ``path`` (by key, on the host) for
+    the ranks to compare with.  Then the two readings that place phase
+    10's limits (``SHARDED_M_TOL``, ``_param_check``): the same step in
+    ``SHARDED_ORDER_MICRO`` microbatches (another summation order of the
+    same sums) and the step without the last data-parallel rank's rows (a
+    fault), each held to the first by the checks the ranks make."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, adamw_update, init_opt_state
+    from repro_torch.training.train_step import batch_to, grad_and_metrics
+
+    cfg = _sharded_config(arch)
+    opt_cfg = OptConfig(learning_rate=SHARDED_LR, warmup_steps=1)
+    batch = batch_to(make_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, seed=seed), "cuda")
+
+    def one_step(cfg, batch):
+        params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grads, metrics = grad_and_metrics(cfg, params, batch)
+        params, opt, info = adamw_update(grads, init_opt_state(params, opt_cfg), params,
+                                         opt_cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del grads
+        return params, opt["m"], {"loss": float(metrics["loss"]),
+                                  "grad_norm": float(info["grad_norm"]), "seconds": secs}
+
+    params, m, out = one_step(cfg, batch)
+    want = {"params": {k: t.cpu() for k, t in _leaf_paths(params)},
+            "m": {k: t.cpu() for k, t in _leaf_paths(m)},
+            "m_rms": {k: t.float().square().mean().sqrt().item() for k, t in _leaf_paths(m)}}
+    torch.save(want, path)
+    del params, m
+    pods, data, _ = SHARDED_MESH
+    readings = {
+        "order": (dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, microbatches=SHARDED_ORDER_MICRO)), batch),
+        "fault": (cfg, {k: v[:SHARDED_BATCH - SHARDED_BATCH // (pods * data)]
+                        for k, v in batch.items()})}
+    for name, (c, b) in readings.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        params, m, info = one_step(c, b)
+        errs = {}
+        for (k, pt), (_, mt) in zip(_leaf_paths(params), _leaf_paths(m)):
+            wp = want["params"][k].to("cuda").float()
+            wm = want["m"][k].to("cuda").float()
+            rms = wp.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+            ratio, need = _param_check(pt, wp, wm, rms, want["m_rms"][k])
+            errs[k] = (ratio, need, ((mt.float() - wm).square().sum() /
+                                     wm.square().sum().clamp_min(1e-30)).sqrt().item())
+        out[name] = {"loss": info["loss"], "grad_norm": info["grad_norm"],
+                     "param_ratio": max(e[0] for e in errs.values()),
+                     "near_zero_needed": max(e[1] for e in errs.values()),
+                     "m_err": max(e[2] for e in errs.values())}
+        del params, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_references(archs: list, ref_dir: str) -> dict:
+    """Phase 10 (a) in a rank of its own: ``sharded_reference`` of each of
+    ``archs`` into ``<ref_dir>/<arch>.pt``."""
+    import torch
+
+    torch.cuda.set_device(0)
+    out = {}
+    for arch in archs:
+        out[arch] = sharded_reference(arch, Path(ref_dir) / f"{arch}.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gloo_ops() -> dict:
+    """Which of ``GLOO_OPS`` the world's gloo takes on CUDA tensors, each
+    checked for its value: "ok", "wrong values", or what it raised (a
+    report: the mesh stages every op through the host whatever it says)."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.full((4 * n,), float(r + 1), device="cuda")
+    each = torch.arange(1.0, n + 1, device="cuda")  # rank r's value at index r
+    total = float(n * (n + 1) // 2)
+
+    def call(name: str) -> bool:
+        if name == "all_reduce":
+            y = x.clone()
+            dist.all_reduce(y)
+            return bool(y.eq(total).all())
+        if name == "broadcast":
+            y = x.clone()
+            dist.broadcast(y, 0)
+            return bool(y.eq(1.0).all())
+        if name == "all_gather_into_tensor":
+            y = x.new_empty(4 * n * n)
+            dist.all_gather_into_tensor(y, x)
+            return bool(y.view(n, -1)[:, 0].eq(each).all())
+        if name == "reduce_scatter_tensor":
+            y = x.new_empty(4)
+            dist.reduce_scatter_tensor(y, x)
+            return bool(y.eq(total).all())
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        return bool(y.view(n, -1)[:, 0].eq(each).all())
+
+    out = {}
+    for name in GLOO_OPS:
+        try:  # what the backend takes is reported, never chosen by it
+            out[name] = "ok" if call(name) else "wrong values"
+        except RuntimeError as e:
+            out[name] = f"{type(e).__name__}: {str(e)[:160]}"
+        dist.barrier()
+    return out
+
+
+def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
+    """Phase 10 (b), the body of one rank of the (pod 2, data 2, model 2)
+    mesh on this card: for each of ``archs``, the sharded step
+    (``make_train_step_sharded``) and the shard_map step with TP
+    (``make_train_step(mesh=)``, ``"fulllane"``, ``fsdp=False``), each from
+    phase 10's seeded parameters and batch; each rank measures its shards
+    of every updated parameter and first moment against the same elements
+    of the one-rank step's in ``<ref_dir>/<arch>.pt`` (``_shard_errs``; the
+    caller takes the worst over ranks).  Each kernel wrapper's input shapes
+    are recorded (they must be the rank's shards), the launches counted
+    over each step, the collectives counted by ``CommDebugMode``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.core.groups import MeshAxes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import scaled_err
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import shard_params
+    from repro_torch.training import train_step as T
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state, leaves
+
+    torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    gloo = _gloo_ops()
+    mesh = make_device_mesh(SHARDED_MESH, ("pod", "data", "model"), "cuda")
+    view = MeshAxes(mesh)
+    wrappers = ("rmsnorm_cuda", "rmsnorm_bwd_cuda", "flash_attention_cuda",
+                "flash_attention_bwd_cuda", "mamba_scan_cuda", "mamba_scan_bwd_cuda")
+    shapes = []
+
+    def recording(name, fn):
+        def wrapped(*args, **kw):
+            shapes.append((name, tuple(args[0].shape)))
+            return fn(*args, **kw)
+        return wrapped
+
+    saved = {n: getattr(ops, n) for n in wrappers}
+    out = {"gloo": gloo, "rank": rank}
+    if any(v != "ok" for v in gloo.values()):
+        print(f"rank {rank}: gloo on CUDA tensors: {gloo}", file=sys.stderr)
+    try:
+        for n, fn in saved.items():
+            setattr(ops, n, recording(n, fn))
+        for arch in archs:
+            for backend in ("xla", "fulllane"):
+                print(f"[sharded] rank {rank}: {arch} {backend}, "
+                      f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+                      f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free on the card",
+                      file=sys.stderr, flush=True)
+                cfg = _sharded_config(arch)
+                if backend != "xla":
+                    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+                        cfg.parallel, fsdp=False))
+                opt_cfg = OptConfig(learning_rate=SHARDED_LR, warmup_steps=1)
+                full = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
+                replica = sum(t.numel() for t in leaves(full))  # a replica's elements
+                if backend == "xla":
+                    step, (pspec, _) = T.make_train_step_sharded(cfg, mesh, opt_cfg)
+                else:
+                    step = T.make_train_step(cfg, opt_cfg, backend=backend, mesh=mesh)
+                    pspec = T.param_pspecs(cfg, mesh)
+                params = shard_params(full, pspec, mesh)
+                del full
+                opt = init_opt_state(params, opt_cfg, T.opt_placements(cfg, mesh))
+                batch = make_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, seed=seed)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                mine = {k: sum(t.to_local().numel() * t.to_local().element_size()
+                               for t in leaves(tree))
+                        for k, tree in (("params", params), ("m", opt["m"]), ("v", opt["v"]))}
+                staged0 = view.staged_bytes()
+                shapes.clear()
+                ops.reset_launches()  # this run's counts start here
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with CommDebugMode() as comm:
+                    params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                launches = ops.launch_counts()
+                peak = torch.cuda.max_memory_allocated()
+                staged = {k: v - staged0.get(k, 0) for k, v in view.staged_bytes().items()}
+                res = {"metrics": {k: float(v) for k, v in metrics.items()}, "seconds": secs,
+                       "launches": launches, "kernel_shapes": sorted(set(shapes)),
+                       "bytes": mine, "replica_elements": replica, "peak_bytes": peak,
+                       "collectives": {str(k): v for k, v in comm.get_comm_counts().items()},
+                       "staged_bytes": staged,
+                       "dp_traffic": view.traffic.snapshot()}
+                view.traffic.reset()
+                # each rank holds the elements it owns to the same elements of the
+                # one-rank step's: every element of every leaf is compared, none is
+                # gathered (eight ranks share the card and its host link)
+                gc.collect()
+                torch.cuda.empty_cache()
+                want = torch.load(Path(ref_dir) / f"{arch}.pt", mmap=True)
+                res["errs"] = {k: _shard_errs(pt, want["params"][k], mt, want["m"][k],
+                                              want["m_rms"][k])
+                               for (k, pt), (_, mt) in zip(_leaf_paths(params),
+                                                           _leaf_paths(opt["m"]))}
+                del params, opt, want
+                gc.collect()
+                torch.cuda.empty_cache()
+                out[f"{arch} {backend}"] = res
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)
+    return out
+
+
+def _param_check(p, want, want_m, rms, m_rms: float) -> tuple[float, float]:
+    """Updated parameters of one leaf (or of a shard of it) after phase 10's
+    first AdamW step against the one-rank step's (``want``), judged from
+    the one-rank step's side alone: (the largest ``|p - want|`` over its
+    allowance, the largest ``|want_m| / m_rms`` of an element off by more
+    than ``TOL_BF16`` in its scale).  The allowance is ``TOL_BF16`` in
+    ``ref.scaled_err``'s scale (``|want| + rms``, ``rms`` that of ``want``'s
+    whole row), and where the one-rank step's first moment ``want_m`` lies
+    within ``SHARDED_NEAR_ZERO`` of its leaf's rms ``m_rms`` of zero, at
+    least a sign flip of the first step (``2 lr``) plus one bf16 unit in
+    the last place: a gradient within rounding of zero may take another
+    sign in another summation order, and a first AdamW step moves each
+    element by ``lr`` times the sign of its gradient (a zero-initialised
+    bias, Falcon's ``conv_b``, is then ``+-lr`` apart, 1 in
+    ``scaled_err``)."""
+    import torch
+
+    want, p, want_m = want.float(), p.float(), want_m.float()
+    big = torch.maximum(p.abs(), want.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    scale = TOL_BF16 * (want.abs() + rms)
+    near = want_m.abs() <= SHARDED_NEAR_ZERO * m_rms
+    allow = torch.where(near, torch.maximum(scale, 2 * SHARDED_LR + ulp), scale)
+    diff = (p - want).abs()
+    off = diff > scale
+    need = want_m.abs()[off].max().item() / max(m_rms, 1e-30) if off.any() else 0.0
+    return (diff / allow).max().item(), need
+
+
+def _local_slices(t) -> tuple:
+    """Where the DTensor ``t``'s local shard sits in the whole tensor, a
+    slice per dim (even shards, a dim split in mesh-dim order, as
+    ``models/params.shard_tensor`` cuts them)."""
+    start, size = [0] * t.ndim, list(t.shape)
+    coord = t.device_mesh.get_coordinate()
+    for d, p in enumerate(t.placements):
+        if p.is_shard():
+            size[p.dim] //= t.device_mesh.size(d)
+            start[p.dim] += coord[d] * size[p.dim]
+    return tuple(slice(a, a + n) for a, n in zip(start, size))
+
+
+def _shard_errs(p, want_p, m, want_m, m_rms: float) -> tuple:
+    """This rank's shard of an updated parameter ``p`` and of its first
+    moment ``m`` (DTensors) against the same elements of the one-rank
+    step's (``want_p``, ``want_m``: whole tensors on the host; ``m_rms``
+    the rms of ``want_m``): (``_param_check``'s two numbers, each over the
+    shard with its rows' whole rms, ``ref.scaled_err``, and ``sum (m -
+    want_m)^2``, ``sum want_m^2`` over the moment's shard, 0 on all but the
+    first rank of each replica, so that the sums over ranks count each
+    element once)."""
+    local = p.to_local()
+    sl = _local_slices(p)
+    rows = want_p[sl[:-1]].to(local.device).float()  # whole rows, for their rms
+    rms = rows.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+    wp = rows[..., sl[-1]]
+    ratio, need = _param_check(local, wp, want_m[sl].to(local.device), rms, m_rms)
+    err = ((local.float() - wp).abs() / (wp.abs() + rms)).max().item()
+    first = all(c == 0 for c, q in zip(m.device_mesh.get_coordinate(), m.placements)
+                if not q.is_shard())
+    if not first:
+        return ratio, need, err, 0.0, 0.0
+    wms = want_m[_local_slices(m)].to(local.device).float()
+    return (ratio, need, err, (m.to_local().float() - wms).square().sum().item(),
+            wms.square().sum().item())
+
+
+def _local_shapes(cfg, shapes: list) -> list:
+    """The wrapper calls of ``shapes`` that are not at a rank's shard of
+    phase 10's step: RMSNorm at the rank's rows (``rows * S`` flattened
+    rows), attention at ``rows * H / model`` kernel rows, the scan at
+    ``d_inner / model`` channels, ``rows`` a microbatch's rows on one
+    data-parallel rank."""
+    pods, data, model = SHARDED_MESH
+    rows = SHARDED_BATCH // (pods * data) // SHARDED_MICRO
+    bad = []
+    for name, shape in shapes:
+        if name.startswith("rmsnorm"):
+            ok = shape[0] == rows * SHARDED_SEQ
+        elif name.startswith("flash"):
+            ok = shape[:2] == (rows * cfg.attn.num_heads // model, SHARDED_SEQ)
+        else:
+            ok = shape[:3] == (rows, SHARDED_SEQ, cfg.mamba.expand * cfg.d_model // model)
+        if not ok:
+            bad.append((name, shape))
+    return bad
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """Ranks started inside get CUDA memory in segments that grow in place:
+    8 ranks share the card's memory, and fixed segments strand a share of
+    it between allocations."""
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+
+
+def sharded_phase(smi: str) -> dict:
+    """Phase 10: the sharded train step on this card.  (a) the one-rank
+    step of each model of ``SHARDED_ARCHS`` through the kernels, in a
+    process of its own; (b)
+    ``sharded_job`` in 8 ranks; (c) ``launch/train.py --mesh 2,2,2`` for 4
+    steps on one repeated batch, whose loss must fall.  Each sharded and
+    TP step within 2e-2 of the one-rank step (loss and ``grad_norm``
+    relative), every first moment's rms over its leaf within
+    ``SHARDED_M_TOL``, every updated parameter by ``_param_check``, each on
+    the ranks that hold it; its launches those the one-rank step makes on
+    each rank, every wrapper call at the rank's shard.  The limits must
+    part (a)'s two readings."""
+    import torch
+
+    from repro_torch.launch import ranks
+    from repro_torch.launch import train as train_cli
+
+    d = OUT_DIR / "sharded"
+    d.mkdir(parents=True, exist_ok=True)
+    pods, data, model = SHARDED_MESH
+    # the one-rank steps in a process of their own, which returns the card's
+    # memory whole when it exits: the 8 ranks need all of it
+    t0 = time.perf_counter()
+    (one,) = ranks.run("chip_smoke:sharded_references", 1, timeout_s=600,
+                       kwargs={"archs": list(SHARDED_ARCHS), "ref_dir": str(d)})
+    for arch, r in one.items():
+        print(f"[sharded] the one-rank step of {arch} through the kernels: loss "
+              f"{r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, {r['seconds']:.2f} s")
+        o, f = r["order"], r["fault"]
+        print(f"[sharded] {arch}, the checks' two readings against that step: in "
+              f"{SHARDED_ORDER_MICRO} microbatches (another order) first moments {o['m_err']:.4g}"
+              f" (tol {SHARDED_M_TOL}), parameters {o['param_ratio']:.4g} of their allowance "
+              f"(near zero needed {o['near_zero_needed']:.4g}, given {SHARDED_NEAR_ZERO}); "
+              f"without a data-parallel rank's rows (a fault) first moments {f['m_err']:.4g}, "
+              f"parameters {f['param_ratio']:.4g} of their allowance")
+        # the limits lie between the readings: another order passes with room, the fault fails
+        if not (o["m_err"] <= SHARDED_M_TOL / 2 and o["param_ratio"] <= 1.0
+                and f["m_err"] >= 2 * SHARDED_M_TOL and f["param_ratio"] > 1.0):
+            raise AssertionError(f"{arch}: phase 10's limits do not part a correct order "
+                                 f"{o} from a fault {f}")
+    print(f"[sharded] one-rank steps in {time.perf_counter() - t0:.1f} s (start-up included); "
+          f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free on the card")
+    world = math.prod(SHARDED_MESH)
+    t0 = time.perf_counter()
+    with _expandable_segments():
+        got = ranks.run("chip_smoke:sharded_job", world, timeout_s=900,
+                        kwargs={"archs": list(SHARDED_ARCHS), "ref_dir": str(d)})
+    job_s = time.perf_counter() - t0
+    print(f"[sharded] {world} ranks on cuda:0 as a (pod, data, model) = {SHARDED_MESH} mesh "
+          f"over gloo, in {job_s:.1f} s (start-up included); gloo takes CUDA tensors for "
+          f"{got[0]['gloo']}; the mesh's groups stage through pinned host memory "
+          f"(core/groups.StagedGroup); {smi}")
+    out = {"one_rank": one, "ranks": {}, "job_seconds": job_s}
+    for arch in SHARDED_ARCHS:
+        cfg = _sharded_config(arch)
+        want = {**dict.fromkeys(got[0][f"{arch} xla"]["launches"], 0), **_launches_per_step(cfg)}
+        for backend in ("xla", "fulllane"):
+            key = f"{arch} {backend}"
+            r0 = got[0][key]
+            leaves = r0["errs"]
+            ratio = {k: max(r[key]["errs"][k][0] for r in got) for k in leaves}
+            need = max(max(r[key]["errs"][k][1] for r in got) for k in leaves)
+            err = max(max(r[key]["errs"][k][2] for r in got) for k in leaves)
+            m_err = {k: math.sqrt(sum(r[key]["errs"][k][3] for r in got) /
+                                  max(sum(r[key]["errs"][k][4] for r in got), 1e-30))
+                     for k in leaves}
+            worst = sorted(ratio, key=lambda k: -ratio[k])[:3]
+            r0 = {**r0, "param_ratio": max(ratio.values()), "param_err": err,
+                  "near_zero_needed": need, "m_err": max(m_err.values()),
+                  "param_worst": [(k, [ratio[k], m_err[k]]) for k in worst]}
+            loss_rel = abs(r0["metrics"]["loss"] - one[arch]["loss"]) / abs(one[arch]["loss"])
+            gn_rel = abs(r0["metrics"]["grad_norm"] - one[arch]["grad_norm"]) / one[arch][
+                "grad_norm"]
+            bad_shapes = {r["rank"]: _local_shapes(cfg, r[key]["kernel_shapes"]) for r in got}
+            bad_launches = {r["rank"]: r[key]["launches"] for r in got
+                            if r[key]["launches"] != want}
+            # a replica's parameters in the model dtype, its moments in float32
+            n = r0["replica_elements"]
+            p_share = max(r[key]["bytes"]["params"] for r in got) / (2 * n)
+            m_share = max(r[key]["bytes"]["m"] + r[key]["bytes"]["v"] for r in got) / (8 * n)
+            p_want = 1 / (data * model) if backend == "xla" else 1 / model
+            print(f"[sharded] {key}: loss {r0['metrics']['loss']:.6f} against the one-rank "
+                  f"step's {one[arch]['loss']:.6f} (rel {loss_rel:.3g}), grad_norm "
+                  f"{r0['metrics']['grad_norm']:.6f} against {one[arch]['grad_norm']:.6f} (rel "
+                  f"{gn_rel:.3g}); every first moment: rms over its leaf "
+                  f"{r0['m_err']:.4g} (tol {SHARDED_M_TOL}); every updated parameter: over "
+                  f"its allowance {r0['param_ratio']:.4g} (tol 1; plain scaled err "
+                  f"{r0['param_err']:.3g}; near zero needed {need:.4g}, given "
+                  f"{SHARDED_NEAR_ZERO}; "
+                  f"worst leaves {[(k, [round(x, 5) for x in e]) for k, e in r0['param_worst']]})"
+                  f"; launches per rank {r0['launches']} "
+                  f"(the one-rank step's); wrapper shapes {r0['kernel_shapes']}")
+            mem = [r[key]["peak_bytes"] / 1e9 for r in got]
+            print(f"[sharded] {key}: per rank, parameters {r0['bytes']['params'] / 1e9:.3f} GB "
+                  f"({p_share:.4f} of a replica's {2 * n / 1e9:.3f} GB; 1/{round(1 / p_want)} "
+                  f"where a leaf divides), AdamW m + v "
+                  f"{(r0['bytes']['m'] + r0['bytes']['v']) / 1e9:.3f} GB ({m_share:.4f} of a "
+                  f"replica's, ZeRO-1); peak memory over the step {min(mem):.2f}-{max(mem):.2f} "
+                  f"GB; collectives (CommDebugMode) {r0['collectives']}; staged through the "
+                  f"host {r0['staged_bytes']}; step {r0['seconds']:.2f} s on rank 0 (host "
+                  f"clock, {HOST_STAGED}); {smi}")
+            if not (p_share <= 1.05 * p_want and m_share <= 1.05 / (data * model)):
+                raise AssertionError(f"{key}: a rank holds {p_share} of the parameters "
+                                     f"(want {p_want}), {m_share} of the moments")
+            if not (loss_rel <= TOL_BF16 and gn_rel <= TOL_BF16 and r0["m_err"] <= SHARDED_M_TOL
+                    and r0["param_ratio"] <= 1.0 and not any(bad_shapes.values())
+                    and not bad_launches):
+                raise AssertionError(f"{key}: loss rel {loss_rel}, grad_norm rel {gn_rel}, "
+                                     f"moments {r0['m_err']}, params {r0['param_worst']}, "
+                                     f"shapes off the shards "
+                                     f"{bad_shapes}, launches {bad_launches} (want {want})")
+        out["ranks"][arch] = {key: [r[key] for r in got] for key in got[0] if
+                              key.startswith(arch)}
+    shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with _expandable_segments():
+        cli = train_cli.main(SHARDED_CLI)
+    losses = [h["loss"] for h in cli["history"]]
+    print(f"[sharded] launch/train.py {' '.join(SHARDED_CLI)}: losses {losses}, "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start-up; step seconds "
+          f"{[round(h['seconds'], 2) for h in cli['history']]} ({HOST_STAGED})")
+    if not (len(losses) == 4 and all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the meshed CLI's loss did not fall: {losses}")
+    out["cli"] = {"argv": SHARDED_CLI, "losses": losses,
+                  "step_s": [h["seconds"] for h in cli["history"]]}
+    return out
 
 
 def _leaf_paths(tree, path=""):
@@ -2524,7 +3078,13 @@ def main() -> int:
     done("dryrun anchor")
     dry.update(dryrun_phase(smi))
     done("dryrun")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(smi)
+    done("sharded")
     runs = {run: r["launches"] for run, r in train["full_width"].items()}
+    for arch, by_key in sharded["ranks"].items():  # rank 0's; each rank's are equal
+        runs.update({f"{key} rank 0": rs[0]["launches"] for key, rs in by_key.items()})
 
     def by_model(k):
         return {**{a: r["launches"][k] for a, r in served.items()},
@@ -2557,7 +3117,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "serve": served, "collectives": ranks,
-         "train": train, "dryrun": dry}, indent=1))
+         "train": train, "dryrun": dry, "sharded": sharded}, indent=1))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()) + ")")
     print(smi)

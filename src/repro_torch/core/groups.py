@@ -31,6 +31,24 @@ reduce-scatter and an all-gather, a point-to-point send one message.  The
 backend's own algorithm may move the bytes another way; the count is the
 paper's, per rank, and splits off what crosses pods.
 
+:class:`MeshAxes` gives the data-parallel axes of a ``DeviceMesh`` (the
+sharded train step's ``(pod, data, model)`` mesh, ``launch/mesh.
+make_device_mesh``) as :class:`Axis` objects over the mesh's own dim
+groups, ``pod`` outer and ``data`` inner, so the paper's sums run over
+them with the same transport and :class:`Traffic` counts as over a
+:class:`Mesh2D`.
+
+A DeviceMesh's DTensors issue their collectives straight to the mesh's
+groups (``mesh_groups``), not through an :class:`Axis`.  Where several
+ranks share one card the world runs on gloo (NCCL admits no two ranks on
+one device), and the mesh's groups for tensors on the card are
+:class:`StagedGroup` groups (backend ``"gloo_staged"``): process groups
+whose every collective copies its CUDA operands into pinned host memory,
+runs on an inner gloo group there and copies the results back, counting
+the copies in ``staged_bytes``, as an :class:`Axis` stages its own.  The
+choice is made by backend when the groups are built, never by catching an
+error; the compute stays on the card.
+
 :class:`RecordingMesh` gives the same axes with no process group: each
 operation exchanges nothing and records its operand bytes per rank by the
 reference's HLO kind names (``all-reduce``, ``reduce-scatter``,
@@ -43,11 +61,17 @@ the reference's dry-run (``repro/launch/hloanalysis.py``), not
 from __future__ import annotations
 
 import dataclasses
+import datetime
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Axis", "Mesh2D", "RecordingAxis", "RecordingMesh", "Traffic"]
+__all__ = ["Axis", "Mesh2D", "MeshAxes", "RecordingAxis", "RecordingMesh", "StagedGroup",
+           "Traffic", "group_backend", "mesh_groups", "register_staged", "STAGED"]
+
+#: the backend name of :class:`StagedGroup`
+STAGED = "gloo_staged"
 
 # the non-deprecated name where this PyTorch has one; the same collectives
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
@@ -95,7 +119,10 @@ class Axis:
         return str(dist.get_backend(self.group))
 
     def _staged(self, t: torch.Tensor) -> bool:
-        """Whether ``t`` goes through a pinned host buffer on this group."""
+        """Whether ``t`` goes through a pinned host buffer on this group (a
+        :class:`StagedGroup` stages, and counts, for itself)."""
+        if self.backend == STAGED:
+            return False
         if self.backend == "nccl":
             if not t.is_cuda:
                 raise ValueError(f"axis {self.name}: NCCL takes CUDA tensors, got {t.device}")
@@ -106,8 +133,8 @@ class Axis:
 
     def transport(self, t: torch.Tensor) -> str:
         """How a tensor like ``t`` travels on this axis."""
-        return (f"{self.backend}, staged through pinned host memory" if self._staged(t)
-                else self.backend)
+        staged = self._staged(t) or (self.backend == STAGED and t.is_cuda)
+        return f"{self.backend}, staged through pinned host memory" if staged else self.backend
 
     def _count(self, op: str, per_peer: list[tuple[int, int]]) -> None:
         """Count one call that sends ``nbytes`` to each ``(peer index,
@@ -217,6 +244,212 @@ class Mesh2D:
 
     def pod_of(self, rank: int) -> int:
         return rank // self.lanes
+
+
+class StagedGroup(dist.ProcessGroup):
+    """A process group on gloo for tensors on the card: each collective
+    copies its CUDA operands into pinned host buffers, runs on an inner
+    gloo group over them, waits, and copies the results back (CPU operands
+    go to gloo as they are).  ``staged_bytes`` counts the copies by op.
+    It has the collectives DTensor and :class:`Axis` call (all-reduce,
+    all-gather to a list or a tensor, reduce-scatter, all-to-all, their
+    coalesced forms, broadcast, barrier), each under the names both
+    PyTorch's current and older bindings call it by.  Registered as the backend ``"gloo_staged"`` by
+    ``register_staged``."""
+
+    def __init__(self, store, rank: int, size: int, timeout: datetime.timedelta):
+        super().__init__(rank, size)
+        self._gloo = dist.ProcessGroupGloo(store, rank, size, timeout)
+        self.staged_bytes: dict[str, int] = {}
+
+    def getBackendName(self) -> str:
+        return STAGED
+
+    @property
+    def group_name(self) -> str:
+        """The name c10d registered this group under (a Python group is not
+        told it)."""
+        return dist.distributed_c10d._world.pg_names[self]
+
+    def _staged(self, op: str, outs: list, ins: list, call):
+        """``call(host outs, host ins)`` -> gloo work, on host copies of the
+        CUDA tensors among ``outs`` and ``ins`` (an output that is also an
+        input shares its copy), then the outputs copied back."""
+        host = {}
+
+        def h(t):
+            if not t.is_cuda:
+                return t
+            if id(t) not in host:
+                host[id(t)] = (t, torch.empty(t.shape, dtype=t.dtype, pin_memory=True))
+            return host[id(t)][1]
+
+        h_ins = [h(t) for t in ins]
+        for t, c in host.values():
+            c.copy_(t)
+        h_outs = [h(t) for t in outs]
+        call(h_outs, h_ins).wait()
+        for t in outs:
+            if t.is_cuda:
+                t.copy_(host[id(t)][1])
+        if host:
+            self.staged_bytes[op] = self.staged_bytes.get(op, 0) + sum(
+                _nbytes(t) for t, _ in host.values())
+        return _done()
+
+    def allreduce(self, tensors, opts=None):
+        opts = opts or dist.AllreduceOptions()
+        return self._staged("allreduce", tensors, tensors,
+                            lambda o, i: self._gloo.allreduce(o, opts))
+
+    def broadcast(self, tensors, opts=None):
+        opts = opts or dist.BroadcastOptions()
+        return self._staged("broadcast", tensors, tensors,
+                            lambda o, i: self._gloo.broadcast(o, opts))
+
+    def allgather(self, output_lists, inputs, opts=None):
+        n = len(output_lists[0])
+
+        def call(o, i):
+            return self._gloo.allgather([o[k * n:(k + 1) * n] for k in range(len(i))], i)
+        return self._staged("allgather", [t for lst in output_lists for t in lst], inputs, call)
+
+    def all_gather_single(self, output, input, opts=None):
+        return self._staged("all_gather", [output], [input],
+                            lambda o, i: self._gloo._allgather_base(o[0], i[0]))
+
+    def reduce_scatter_single(self, output, input, opts=None):
+        opts = opts or dist.ReduceScatterOptions()
+        return self._staged("reduce_scatter", [output], [input],
+                            lambda o, i: self._gloo._reduce_scatter_base(o[0], i[0], opts))
+
+    def all_to_all_single(self, output, input, output_split_sizes=None,
+                          input_split_sizes=None, opts=None):
+        opts = opts or dist.AllToAllOptions()
+        return self._staged("all_to_all", [output], [input],
+                            lambda o, i: self._gloo.alltoall_base(
+                                o[0], i[0], list(output_split_sizes or []),
+                                list(input_split_sizes or []), opts))
+
+    def allgather_into_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self.all_gather_single(o, i)
+        return _done()
+
+    def reduce_scatter_tensor_coalesced(self, outputs, inputs, opts=None):
+        for o, i in zip(outputs, inputs):
+            self.reduce_scatter_single(o, i, opts)
+        return _done()
+
+    def barrier(self, opts=None):
+        self._gloo.barrier(opts or dist.BarrierOptions()).wait()
+        return _done()
+
+    _allgather_base = all_gather_single
+    _reduce_scatter_base = reduce_scatter_single
+    alltoall_base = all_to_all_single
+
+
+def _done():
+    """A finished work (the staged collectives return after the copy back)."""
+    fut = torch.futures.Future()
+    fut.set_result(None)
+    return torch._C._distributed_c10d._create_work_from_future(fut)
+
+
+def _create_staged(store, rank, size, timeout):
+    return StagedGroup(store, rank, size, timeout)
+
+
+def register_staged() -> None:
+    """Register :class:`StagedGroup` as the backend :data:`STAGED` (once a
+    process)."""
+    if not hasattr(dist.Backend, STAGED.upper()):
+        dist.Backend.register_backend(STAGED, _create_staged, devices=["cpu", "cuda"])
+
+
+def group_backend(device) -> str | None:
+    """The backend of the mesh groups for tensors on ``device``: the
+    world's (None), except :data:`STAGED` for the card under a gloo world."""
+    if torch.device(device).type != "cuda" or dist.get_backend() != "gloo":
+        return None
+    register_staged()
+    return STAGED
+
+
+def mesh_groups(shape: tuple[int, ...], backend: str | None = None) -> list:
+    """This rank's group along each dim of the row-major mesh of ``shape``
+    over the world (rank ``r`` at ``np.unravel_index(r, shape)``, as
+    ``jax.make_mesh`` lays devices out).  Every group of every dim is
+    created, in one order on every rank, as ``dist.new_group`` requires,
+    on ``backend`` (None: the world's; ``group_backend`` chooses)."""
+    if not dist.is_initialized():
+        raise RuntimeError("mesh_groups: init torch.distributed first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh {tuple(shape)} != world size {world}")
+    ranks = np.arange(world).reshape(shape)
+    mine = []
+    for d in range(len(shape)):
+        for line in np.moveaxis(ranks, d, -1).reshape(-1, shape[d]).tolist():
+            g = dist.new_group(line, backend=backend)
+            if rank in line:
+                mine.append(g)
+    return mine
+
+
+class MeshAxes:
+    """The data-parallel axes of a ``DeviceMesh`` with ``"data"`` (and
+    ``"pod"``) dims as :class:`Axis` objects: ``pod`` (outer) and ``data``
+    (inner) on the mesh's own dim groups, and ``world``, both of them
+    pod-major (the ranks that share this rank's other coordinates), on a
+    group of its own.  A mesh without a ``"pod"`` dim gets a pod axis of
+    one rank, so ``(pod, data)`` always names the sync's two axes.  The
+    groups this view adds run on the mesh's backend; every rank creates
+    every one, in one order.  ``traffic`` counts what the axes' calls
+    send (and stage through the host), as :class:`Mesh2D`'s does."""
+
+    def __init__(self, mesh):
+        names = mesh.mesh_dim_names
+        coord = mesh.get_coordinate()
+        rank = dist.get_rank()
+        backend = str(dist.get_backend(mesh.get_group("data")))
+        self.traffic = Traffic()
+        self.device_mesh = mesh
+        ranks = mesh.mesh.numpy()
+        if "pod" not in names:  # a pod dim of one
+            ranks, names = ranks[None], ("pod",) + tuple(names)
+            coord = [0] + list(coord)
+        dp = [names.index("pod"), names.index("data")]
+        rest = [d for d in range(len(names)) if d not in dp]
+        lines = np.transpose(ranks, rest + dp).reshape(-1, *(ranks.shape[d] for d in dp))
+        groups = {}
+        for block in lines:  # every rank: every (other coordinates) block's groups
+            for key, members in [("world", block.reshape(-1))] + [
+                    (("pod", j), block[:, j]) for j in range(block.shape[1])] + [
+                    (("data", i), block[i]) for i in range(block.shape[0])]:
+                g = dist.new_group(members.tolist(), backend=backend)
+                if rank in members:
+                    groups[key if key == "world" else key[0]] = (g, tuple(members.tolist()))
+        index = {"pod": coord[dp[0]], "data": coord[dp[1]]}
+        self.pod, self.data = (Axis(a, *groups[a], index[a], self) for a in ("pod", "data"))
+        w = groups["world"]
+        self.world = Axis("world", *w, w[1].index(rank), self)
+        self.lanes = self.data.size
+
+    def pod_of(self, rank: int) -> int:
+        """The pod index of a rank of this rank's ``world`` axis."""
+        return self.world.ranks.index(rank) // self.lanes
+
+    def staged_bytes(self) -> dict[str, int]:
+        """The bytes the mesh's and this view's :class:`StagedGroup` groups
+        staged through the host, by op."""
+        out: dict[str, int] = {}
+        groups = [self.device_mesh.get_group(n) for n in self.device_mesh.mesh_dim_names]
+        for g in groups + [self.pod.group, self.data.group, self.world.group]:
+            for op, n in getattr(g, "staged_bytes", {}).items():
+                out[op] = out.get(op, 0) + n
+        return out
 
 
 _KINDS = {"all_reduce": "all-reduce", "reduce_scatter": "reduce-scatter",

@@ -23,6 +23,18 @@ frontier, as the reference's chunked attention skips the chunks outside it;
 the scan counts its readout ``y_t = sum_n h_t c_t`` (an einsum in the
 reference) and its backward the readout's contraction for ``gc``; RMSNorm
 and ``a2a_pack`` count none.
+
+A ``DTensor`` (a tensor sharded over a ``DeviceMesh``, the sharded train
+step's) goes to the same dispatcher shard by shard: ``on_shards`` runs the
+call through ``local_map`` on each rank's local tensors, which stay on
+their device, and wraps the outputs with the placements the kernel gives
+them.  Each operand is first redistributed to the placements its kernel
+can take on local rows: the dims the kernel treats as independent rows or
+channels keep their shards (``rows``), every other dim, and any pending
+sum (``Partial``), is gathered.  A gradient that each rank computes over
+its own rows only (RMSNorm's ``dw``, the scan's ``gc`` over a rank's
+channels) comes back ``Partial`` over those mesh dims, never as if it were
+the whole sum.
 """
 
 from __future__ import annotations
@@ -30,6 +42,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Placement, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.a2a_pack import a2a_pack_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -50,7 +64,8 @@ from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
 __all__ = ["a2a_pack", "flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd",
            "rmsnorm", "rmsnorm_bwd", "add_launches", "launch_counts", "reset_launches",
-           "count_meta_flops", "attention_tile_pairs"]
+           "count_meta_flops", "attention_tile_pairs", "on_shards", "rows", "moved",
+           "summed_over", "scan_placements"]
 
 #: the (query, key) tile of the meta FLOP count
 META_TILE = 64
@@ -71,6 +86,59 @@ def count_meta_flops():
         yield counts
     finally:  # by identity: two open counters may hold equal counts
         _meta_counters[:] = [c for c in _meta_counters if c is not counts]
+
+
+def rows(t: DTensor, *dims: int) -> tuple:
+    """``t``'s placements with the shards of ``dims`` kept (negative dims
+    count from the end) and every other shard, and every ``Partial``, as
+    ``Replicate``: what a kernel that treats ``dims`` as independent rows
+    can take shard by shard."""
+    keep = {d % t.ndim for d in dims}
+    return tuple(p if isinstance(p, Shard) and p.dim % t.ndim in keep else Replicate()
+                 for p in t.placements)
+
+
+def moved(placements: tuple, where: dict) -> tuple:
+    """``placements`` with each ``Shard(d)`` moved to ``Shard(where[d])``
+    (a dim not in ``where`` is dropped: ``Replicate``)."""
+    return tuple(Shard(where[p.dim]) if isinstance(p, Shard) and p.dim in where else Replicate()
+                 for p in placements)
+
+
+def scan_placements(a: DTensor) -> tuple:
+    """The selective scan's placements from ``a`` [B, S, di, N]: (a's and
+    b's and y's and gy's, each rank's batch rows and channels; c's [B, S,
+    N], the rows; h's [B, di, N], the rows and channels; c's gradient,
+    ``Partial`` over the mesh dims that shard the channels, since each rank
+    sums ``gc`` over its own)."""
+    ap = rows(a, 0, 2)
+    cp = moved(ap, {0: 0})
+    gc = tuple(Partial() if isinstance(p, Shard) and p.dim == 2 else q for p, q in zip(ap, cp))
+    return ap, cp, moved(ap, {0: 0, 2: 1}), gc
+
+
+def summed_over(placements: tuple, *dims: int) -> tuple:
+    """``Partial`` on every mesh dim that shards one of ``dims``, else
+    ``Replicate``: the placements of a value each rank sums over its own
+    rows (or channels) of those dims."""
+    return tuple(Partial() if isinstance(p, Shard) and p.dim in dims else Replicate()
+                 for p in placements)
+
+
+def on_shards(fn, args: tuple, in_placements: tuple, out_placements, grad_placements=None):
+    """``fn(*local args)`` on each rank's shards (``local_map``): the
+    DTensor arguments redistributed to ``in_placements`` (None for a
+    non-tensor argument), the outputs wrapped with ``out_placements`` and,
+    under autograd, each input's gradient with ``grad_placements`` (default:
+    its ``in_placements``)."""
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    if all(isinstance(p, Placement) for p in out_placements):  # one output: a list
+        out_placements = list(out_placements)
+    else:
+        out_placements = tuple(list(p) for p in out_placements)
+    return local_map(fn, out_placements=out_placements, in_placements=in_placements,
+                     in_grad_placements=grad_placements, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
 
 
 def _meta(name: str, flops: float) -> None:
@@ -95,6 +163,10 @@ def attention_tile_pairs(Sq: int, Skv: int, causal: bool, window: int | None,
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last dim of ``x`` (any leading shape)."""
+    if isinstance(x, DTensor):
+        xp = rows(x, *range(x.ndim - 1))
+        return on_shards(lambda xl, wl: rmsnorm(xl, wl, eps=eps), (x, w),
+                         (xp, (Replicate(),) * len(xp)), xp)
     if x.is_cuda:
         shape = x.shape
         out = rmsnorm_cuda(x.reshape(-1, shape[-1]), w, eps)
@@ -111,6 +183,11 @@ def rmsnorm_bwd(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
     """The gradients (dx like ``x``, dw like ``w``) of :func:`rmsnorm` for the
     output's cotangent ``dy``."""
+    if isinstance(x, DTensor):
+        xp = rows(x, *range(x.ndim - 1))
+        return on_shards(lambda xl, wl, dl: rmsnorm_bwd(xl, wl, dl, eps=eps), (x, w, dy),
+                         (xp, (Replicate(),) * len(xp), xp),
+                         (xp, summed_over(xp, *range(x.ndim - 1))))
     if x.is_cuda:
         shape = x.shape
         dx, dw = rmsnorm_bwd_cuda(x.reshape(-1, shape[-1]), w, dy.reshape(-1, shape[-1]), eps)
@@ -130,6 +207,10 @@ def flash_attention(q, k, v, *, group_size=1, causal=True, window=None, scale=No
     row's logsumexp [BH, Sq] float32 (the training forward)."""
     kw = dict(group_size=group_size, causal=causal, window=window, scale=scale,
               return_lse=return_lse)
+    if isinstance(q, DTensor):  # rows of heads: kv row = q row // group_size on each shard
+        qp = rows(q, 0)
+        return on_shards(lambda *t: flash_attention(*t, **kw), (q, k, v), (qp,) * 3,
+                         (qp, qp) if return_lse else qp)
     if q.is_cuda:
         out = flash_attention_cuda(q, k, v, **kw)
         flash_attention.launches += 1
@@ -152,6 +233,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, group_size=1, causal=True, windo
     keys of one length, from its output ``o``, its ``lse`` and the output's
     cotangent ``do``."""
     kw = dict(group_size=group_size, causal=causal, window=window, scale=scale)
+    if isinstance(q, DTensor):
+        qp = rows(q, 0)
+        return on_shards(lambda *t: flash_attention_bwd(*t, **kw), (q, k, v, o, lse, do),
+                         (qp,) * 6, (qp,) * 3)
     if q.is_cuda:
         dq, dk, dv, _ = flash_attention_bwd_cuda(q, k, v, o, lse, do, **kw)
         flash_attention_bwd.launches += 1
@@ -172,6 +257,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, group_size=1, causal=True, windo
 def mamba_scan(a, b, c, h0=None):
     """a/b [B, S, di, N], c [B, S, N], h0 [B, di, N] or None (zeros), all
     float32; returns (y [B, S, di], h_last [B, di, N])."""
+    if isinstance(a, DTensor):
+        ap, cp, hp, _ = scan_placements(a)
+        return on_shards(mamba_scan, (a, b, c, h0), (ap, ap, cp, None if h0 is None else hp),
+                         (ap, hp))
     if a.is_cuda:
         out = mamba_scan_cuda(a, b, c, h0)
         mamba_scan.launches += 1
@@ -191,6 +280,11 @@ def mamba_scan_bwd(a, b, c, h0, gy, gh_fin=None):
     :func:`mamba_scan` for the cotangents ``gy`` [B, S, di] of y and
     ``gh_fin`` [B, di, N] of h_last (None: zeros), from its inputs; h0 None
     is zeros, all float32."""
+    if isinstance(a, DTensor):
+        ap, cp, hp, gc = scan_placements(a)
+        return on_shards(mamba_scan_bwd, (a, b, c, h0, gy, gh_fin),
+                         (ap, ap, cp, None if h0 is None else hp, ap,
+                          None if gh_fin is None else hp), (ap, ap, gc, hp))
     if a.is_cuda:
         out = mamba_scan_bwd_cuda(a, b, c, h0, gy, gh_fin)
         mamba_scan_bwd.launches += 1
@@ -210,6 +304,10 @@ def mamba_scan_bwd(a, b, c, h0, gy, gh_fin=None):
 def a2a_pack(x: torch.Tensor) -> torch.Tensor:
     """[No, Ni, blk, d] -> [Ni, No, blk, d] (the leading two dims swapped),
     any dtype; contiguous output."""
+    if isinstance(x, DTensor):
+        xp = rows(x, *range(x.ndim))
+        return on_shards(a2a_pack, (x,), (xp,), moved(xp, {0: 1, 1: 0, **{
+            d: d for d in range(2, x.ndim)}}))
     if x.is_cuda:
         out = a2a_pack_cuda(x)
         a2a_pack.launches += 1

@@ -5,8 +5,12 @@ The reference builds ``jax.sharding.Mesh`` objects over real or fake
 devices: a pod is 16 x 16 = 256 chips, and the multi-pod mesh adds a
 leading ``pod`` axis (2 pods = 512 chips for the dry-run).  The port's
 dry-run (``launch/dryrun.py``) needs only the axes' names and sizes, so a
-:class:`MeshShape` holds those and no devices: nothing here touches a
-device or a process group.
+:class:`MeshShape` holds those and no devices.
+
+``make_device_mesh`` is the counterpart of ``make_test_mesh`` /
+``make_production_mesh`` over real ranks: a ``DeviceMesh`` of the world's
+ranks, row-major as ``jax.make_mesh`` lays devices out, with the axes as
+its ``mesh_dim_names`` (the sharded train step's mesh).
 """
 
 from __future__ import annotations
@@ -14,7 +18,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
-__all__ = ["MeshShape", "make_production_mesh", "make_test_mesh"]
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from repro_torch.core.groups import group_backend, mesh_groups
+
+__all__ = ["MeshShape", "make_device_mesh", "make_production_mesh", "make_test_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,3 +56,19 @@ def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
 def make_test_mesh(shape=(2, 2, 2), axes=("pod", "data", "model")) -> MeshShape:
     """The small mesh of the reference's 8-device CPU tests."""
     return MeshShape(tuple(axes), tuple(shape))
+
+
+def make_device_mesh(shape=(2, 2, 2), axes=("pod", "data", "model"), device="cpu") -> DeviceMesh:
+    """A ``DeviceMesh`` of the world's ranks (``torch.distributed`` set up
+    by the caller, one rank a device or a share of one) of ``shape``, rank
+    ``r`` at ``np.unravel_index(r, shape)``, its dims named ``axes``, for
+    tensors on ``device``.  Its dim groups come from
+    ``core.groups.mesh_groups``: on the world's backend, or host-staged
+    gloo groups for the card under a gloo world (``group_backend``)."""
+    if len(shape) != len(axes):
+        raise ValueError(f"axes {tuple(axes)} vs shape {tuple(shape)}")
+    device = torch.device(device)
+    world = torch.arange(math.prod(shape)).reshape(tuple(shape))
+    groups = mesh_groups(tuple(shape), group_backend(device))
+    return DeviceMesh.from_group(groups, device.type, mesh=world,
+                                 mesh_dim_names=tuple(axes))

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import faulthandler
 import importlib
 import json
 import os
@@ -173,6 +174,7 @@ def main(argv=None) -> None:
     import torch
     import torch.distributed as dist
 
+    faulthandler.enable()  # a rank killed by a signal leaves its Python stack
     torch.set_num_threads(1)
     tmp = Path(args.dir)
     try:

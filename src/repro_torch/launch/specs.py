@@ -11,9 +11,10 @@ the shape's kind runs:
 
 A spec is a tuple with one entry per dim (a mesh-axis name, a tuple of
 them, or None), trailing Nones dropped, over a device-free
-``launch/mesh.MeshShape``.  The reference's ``named`` (specs bound to a
-device mesh as ``NamedSharding``s) has no counterpart: nothing here
-partitions a tensor.
+``launch/mesh.MeshShape``.  ``placements`` (``models/params.py``, where
+the specs are made) binds a spec to a ``DeviceMesh`` as DTensor
+placements, the counterpart of the reference's ``named`` (specs bound to a
+device mesh as ``NamedSharding``s).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models.params import map_tree, torch_dtype
+from repro_torch.models.params import map_tree, placements, torch_dtype
 from repro_torch.training.train_step import dim_spec, dp_axes, mesh_axis_sizes
 
 __all__ = [
@@ -32,6 +33,7 @@ __all__ = [
     "cache_pspecs",
     "batch_pspecs",
     "cell_eligible",
+    "placements",
 ]
 
 

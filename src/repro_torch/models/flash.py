@@ -11,11 +11,19 @@ kernels on the card (``ops.flash_attention(return_lse=True)`` and
 reference's chunk sizes and causal skip only shape its XLA loops: they are
 accepted here and do not change the result (the kernels tile by 64 and
 skip what the mask removes).
+
+On DTensors (the sharded train step) the whole custom VJP runs on each
+rank's shards (``ops.on_shards``): its batch rows and its kv heads, with
+the groups of query heads that read them.  The flatten to the kernels'
+``[B * H, S, hd]`` rows merges a dim sharded over the data-parallel mesh
+dims with one sharded over ``model``, which a DTensor can only express by
+gathering, so it happens inside, on local tensors.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 
@@ -69,4 +77,8 @@ def flash_attention_train(
     if k.shape[1] != q.shape[1]:
         raise ValueError(f"flash_attention_train: the training layout has Skv == Sq, got "
                          f"{k.shape[1]} and {q.shape[1]}")
+    if isinstance(q, DTensor):  # batch rows and kv heads (dims 0 and 2 of all three)
+        qp = ops.rows(q, 0, 2)
+        return ops.on_shards(_FlashTrain.apply, (q, k, v, scale, window),
+                             (qp, qp, qp, None, None), qp)
     return _FlashTrain.apply(q, k, v, scale, window)

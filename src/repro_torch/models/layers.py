@@ -5,13 +5,19 @@ embeddings, M-RoPE's included (the counterpart of the reference's
 Each block has a ``*_meta`` builder (see :mod:`repro_torch.models.params`)
 and a forward function on tensors.  ``rms_norm`` runs on the RMSNorm kernel
 on the card, and where a gradient is wanted its backward runs on the RMSNorm
-backward kernel; the other blocks are differentiated by autograd.
+backward kernel; the other blocks are differentiated by autograd.  On
+DTensors (the sharded train step) every block runs on DTensor's sharding
+propagation, and ``rms_norm`` runs shard by shard: each rank's rows of
+``x`` through the kernels, ``w`` gathered, and ``w``'s gradient ``Partial``
+over the mesh dims that shard the rows (each rank's ``dw`` sums its own
+rows only).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -52,7 +58,12 @@ class _RMSNorm(torch.autograd.Function):
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * w`` over the last dim, in float32, cast
     to ``x.dtype``.  Differentiable in x and w (through the backward kernel)
-    when autograd records; serving calls the forward kernel alone."""
+    when autograd records; serving calls the forward kernel alone.  A
+    DTensor ``x`` is normalised on each rank's rows (``ops.on_shards``)."""
+    if isinstance(x, DTensor):
+        xp = ops.rows(x, *range(x.ndim - 1))
+        return ops.on_shards(rms_norm, (x, w, eps), (xp, (Replicate(),) * len(xp), None), xp,
+                             (xp, ops.summed_over(xp, *range(x.ndim - 1)), None))
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RMSNorm.apply(x, w, eps)
     return ops.rmsnorm(x, w, eps=eps)
@@ -98,8 +109,18 @@ def embed(cfg: ModelConfig, p: dict, tokens: torch.Tensor) -> torch.Tensor:
     """tokens [B, S] integer, or [B, S, K] for K codebooks -> [B, S, D].  A
     gather: the reference's one-hot matmul picks exactly one row, so the
     two agree bit for bit.  K codebooks' embeddings are summed in codebook
-    order (MusicGen's parallel pattern), as in the reference."""
+    order (MusicGen's parallel pattern), as in the reference.  A DTensor
+    table is gathered and each rank picks its own tokens' rows
+    (``ops.on_shards``), the table's gradient ``Partial`` over the mesh
+    dims that shard the tokens."""
     emb = p["embedding"]
+    if isinstance(emb, DTensor):
+        rep = (Replicate(),) * emb.device_mesh.ndim
+        tp = ops.rows(tokens, *range(tokens.ndim)) if isinstance(tokens, DTensor) else None
+        xp = rep if tp is None else ops.moved(tp, {0: 0, 1: 1})
+        dw = rep if tp is None else ops.summed_over(tp, 0, 1)
+        return ops.on_shards(lambda e, t: embed(cfg, {"embedding": e}, t), (emb, tokens),
+                             (rep, tp), xp, (dw, tp))
     if cfg.num_codebooks > 1:
         x = emb[0][tokens[..., 0]]
         for k in range(1, cfg.num_codebooks):

@@ -38,9 +38,11 @@ import dataclasses
 
 import torch
 import torch.utils.checkpoint
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
@@ -138,7 +140,7 @@ def abstract_cache(cfg: ModelConfig, batch: int, capacity: int) -> dict:
 
 
 def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
-                capacity=None, train=False):
+                capacity=None, train=False, act_shard=None):
     """One layer: (x, its filled or updated cache, its MoE aux loss or None)."""
     aux = None
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
@@ -154,7 +156,7 @@ def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
         if spec.ffn == "dense":
             f = L.mlp(p["ffn"], h2, cfg.act)
         else:
-            f, aux = moe_mod.moe(cfg, p["ffn"], h2)
+            f, aux = moe_mod.moe(cfg, p["ffn"], h2, act_shard=act_shard)
         x = x + f
     return x, new_cache, aux
 
@@ -193,7 +195,8 @@ def _inputs(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, 
     return x, positions.to(x.device)
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            act_shard=None) -> tuple[torch.Tensor, dict]:
     """Cross-entropy training objective of a batch ``{"tokens": [B, S]}``
     (``[B, S, K]`` for K codebooks) or ``{"embeds": [B, S, D]}``, with
     ``"labels"`` of the tokens' shape (integers) and optional
@@ -205,19 +208,30 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, 
     layer order (0 without MoE), and ``loss = nll + aux``.  Each period runs under
     ``torch.utils.checkpoint`` (non-reentrant) when ``parallel.remat``, so
     the backward recomputes its forward, as the reference's
-    ``jax.checkpoint`` of the period body does; the prelude layers do not."""
+    ``jax.checkpoint`` of the period body does; the prelude layers do not.
+
+    ``act_shard`` (``training/train_step.make_act_shard``; DTensor
+    parameters and batch) pins the residual stream's batch dim to the
+    data-parallel mesh dims at the backbone's entry and at the start of
+    every period, as the reference's hook does."""
     x, positions = _inputs(cfg, params, {k: v for k, v in batch.items() if k != "labels"})
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=positions.device)
+    if act_shard is not None:
+        x = act_shard(x)
 
     def period(x: torch.Tensor, aux: torch.Tensor, pp: dict):
+        if act_shard is not None:
+            x = act_shard(x)
         for j, spec in enumerate(cfg.layer_pattern):
-            x, _, a = _apply_slot(cfg, spec, pp[f"slot{j}"], x, positions, train=True)
+            x, _, a = _apply_slot(cfg, spec, pp[f"slot{j}"], x, positions, train=True,
+                                  act_shard=act_shard)
             if a is not None:
                 aux = aux + a
         return x, aux
 
     for name, spec in _prelude(cfg):
-        x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, train=True)
+        x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, train=True,
+                              act_shard=act_shard)
     for i in range(scanned_periods(cfg)):
         pp = _period(params["blocks"], i)
         if cfg.parallel.remat:
@@ -227,11 +241,31 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict) -> tuple[torch.Tensor, 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(cfg, params, x)
     labels = batch["labels"].to(device=lg.device, dtype=torch.int64)
-    lse = torch.logsumexp(lg.float(), dim=-1)
-    ll = lg.gather(-1, labels[..., None])[..., 0].float()
-    nll = (lse - ll).mean()
+    if isinstance(lg, DTensor):
+        nll = _sharded_nll(lg, labels)
+    else:
+        nll = _token_nll(lg, labels).mean()
     loss = nll + aux
     return loss, {"loss": loss, "nll": nll, "aux": aux}
+
+
+def _token_nll(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each label's ``logsumexp(logits) - logits[label]``, float32."""
+    lse = torch.logsumexp(lg.float(), dim=-1)
+    return lse - lg.gather(-1, labels[..., None])[..., 0].float()
+
+
+def _sharded_nll(lg: DTensor, labels) -> DTensor:
+    """The mean of ``_token_nll`` over DTensor logits: each rank's rows,
+    with the whole vocabulary gathered, summed on the rank
+    (``ops.on_shards``; ``Partial`` over the mesh dims that shard the rows),
+    then divided by the number of labels.  ``labels``: a DTensor placed
+    like the rows, or each rank's own rows."""
+    lp = ops.rows(lg, *range(lg.ndim - 1))
+    total = ops.on_shards(lambda lgl, lbl: _token_nll(lgl, lbl).sum(), (lg, labels),
+                          (lp, lp if isinstance(labels, DTensor) else None),
+                          ops.summed_over(lp, *range(lg.ndim - 1)))
+    return total / labels.numel()
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None):

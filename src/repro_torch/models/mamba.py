@@ -17,12 +17,21 @@ Two compute paths:
 * decode — the O(1) recurrent step over that cache, in plain PyTorch ops,
   as in the reference (it has no TPU kernel).  The cache is updated in
   place.
+
+On DTensors (the sharded train step, ``d_inner`` over ``model``) the conv,
+``_ssm_terms`` and the scan run on each rank's channels: the two halves of
+``in_proj``'s output are pinned to their channel shards (``in_proj`` is
+sharded as one ``[D, 2 * di]`` matrix, so a rank's columns hold one half
+or the other), and ``selective_scan``'s custom VJP runs shard by shard
+(``ops.on_shards``), ``c``'s gradient ``Partial`` over ``model`` (each
+rank sums its channels' share).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -91,7 +100,23 @@ def selective_scan(
     kernels take them as they are.  ``chunk`` only shapes the reference's
     XLA loops: it is accepted and changes nothing."""
     del chunk
+    if isinstance(a, DTensor):
+        ap, cp, hp, gc = ops.scan_placements(a)
+        h0p = None if h0 is None else hp
+        return ops.on_shards(_SelectiveScan.apply, (a, b, c, h0), (ap, ap, cp, h0p), (ap, hp),
+                             (ap, ap, gc, h0p))
     return _SelectiveScan.apply(a, b, c, h0)
+
+
+def _channels(t: DTensor, x: DTensor, like: DTensor) -> DTensor:
+    """``t`` [B, S, di] with its batch rows placed as ``x``'s [B, S, D] are
+    (the data-parallel shards the activation hook pinned) and its channels
+    as ``like`` [di] places them (``d_inner`` over ``model`` where it
+    divides)."""
+    pl = tuple(Shard(2) if isinstance(w, Shard) else
+               (Shard(0) if isinstance(b, Shard) and b.dim == 0 else Replicate())
+               for b, w in zip(x.placements, like.placements))
+    return t.redistribute(t.device_mesh, pl)
 
 
 def _ssm_terms(cfg: ModelConfig, p: dict, xz: torch.Tensor):
@@ -101,6 +126,8 @@ def _ssm_terms(cfg: ModelConfig, p: dict, xz: torch.Tensor):
     m = cfg.mamba
     r = m.resolved_dt_rank(cfg.d_model)
     proj = xz @ p["x_proj"]  # [B, S, r + 2N]
+    if isinstance(proj, DTensor):  # summed over the channels' shards, once, here
+        proj = proj.redistribute(proj.device_mesh, ops.rows(proj, 0, 1))
     dt = F.softplus(proj[..., :r] @ p["dt_w"] + p["dt_b"])  # [B, S, di], model dtype
     B_ssm = proj[..., r:r + m.d_state]
     C_ssm = proj[..., r + m.d_state:]
@@ -129,6 +156,8 @@ def mamba(
     di = m.expand * D
     xz = x @ p["in_proj"]  # [B, S, 2*di]
     xin, z = xz[..., :di], xz[..., di:]
+    if isinstance(xz, DTensor):
+        xin, z = (_channels(t, x, p["conv_b"]) for t in (xin, z))
 
     if cache is not None:
         # ---------- O(1) decode step ----------

@@ -29,9 +29,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.params import ParamMeta
 
 __all__ = ["SPANS", "moe_meta", "moe", "dense_ffn_flops", "route", "slots"]
@@ -90,8 +92,25 @@ def slots(gate_i: torch.Tensor, num_experts: int, capacity: int):
     return torch.where(keep, slot, 0), keep
 
 
-def moe(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, D] -> (out [B, S, D] in x's dtype, aux loss, float32 0-d)."""
+def moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
+        act_shard=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, D] -> (out [B, S, D] in x's dtype, aux loss, float32 0-d).
+    ``act_shard`` is accepted and not called, as in the reference (whose
+    docstring names the ``[G, E, C, D]`` buffers' spec, G over the
+    data-parallel axes and E over ``model``, but whose body never applies
+    it).
+
+    On DTensors (the sharded train step) the layer runs whole on every
+    rank: its input gathered over the data-parallel dims and its weights
+    over ``model`` (``ops.on_shards`` with everything replicated), so each
+    group's routing sees the group's tokens, as the reference's values
+    require, and each rank's gradients are the whole ones."""
+    del act_shard
+    if isinstance(x, DTensor):
+        keys = sorted(p)
+        rep = (Replicate(),) * x.device_mesh.ndim
+        return ops.on_shards(lambda xl, *w: moe(cfg, dict(zip(keys, w)), xl),
+                             (x, *(p[k] for k in keys)), (rep,) * (1 + len(keys)), (rep, rep))
     e = cfg.moe
     B, S, D = x.shape
     T = B * S

@@ -10,8 +10,10 @@ metadata is consumed three ways, as in the reference:
   storage): the dry-run's inputs (``launch/dryrun.py``);
 * ``partition_specs`` — the reference's sharding rules, each spec a tuple
   of mesh-axis names or None per dim, trailing Nones dropped (what the
-  reference's ``PartitionSpec`` holds).  No GSPMD partitions a tensor
-  here: the dry-run reads the specs for the bytes each device would hold.
+  reference's ``PartitionSpec`` holds).  The dry-run reads the specs for
+  the bytes each device would hold; ``shard_params`` places a tree of full
+  tensors on a ``DeviceMesh`` by them, as DTensors (each rank keeping its
+  own shard), and ``full_params`` gathers a placed tree back.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 __all__ = ["ParamMeta", "init_params", "abstract_params", "partition_specs", "map_tree",
-           "torch_dtype", "TP_RULES", "FSDP_RULES"]
+           "torch_dtype", "TP_RULES", "FSDP_RULES", "shard_tensor", "shard_params",
+           "full_params", "placements"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -154,3 +158,64 @@ def partition_specs(meta_tree, mesh_axis_sizes: dict[str, int], *, fsdp: bool = 
     interesting traffic)."""
     rules = FSDP_RULES if fsdp else TP_RULES
     return map_tree(lambda _, m: _spec_for(m, rules, mesh_axis_sizes), meta_tree)
+
+
+def placements(spec: tuple, mesh) -> tuple:
+    """The DTensor placements, one per dim of the ``DeviceMesh`` ``mesh``,
+    of a reference spec (per tensor dim a mesh-axis name, a tuple of names,
+    or None): a dim over ``"model"`` is ``Shard(dim)`` on the ``model`` mesh
+    dim; a dim over ``("pod", "data")`` is ``Shard(dim)`` on both, the
+    tensor dim split by ``pod`` first, then by ``data``; a mesh dim the spec
+    does not name is ``Replicate()``.  A tuple must list its axes in mesh
+    order, the order in which DTensor splits one dim over two (another
+    order would need a strided shard); a mesh axis may shard one dim only."""
+    names = tuple(mesh.mesh_dim_names)
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        unknown = [a for a in axes if a not in names]
+        if unknown:
+            raise ValueError(f"spec {spec}: axes {unknown} not in the mesh's {names}")
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {dim} lists {axes} out of the mesh's order "
+                             f"{names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"spec {spec}: axis {names[i]!r} shards two dims")
+            out[i] = Shard(dim)
+    return tuple(out)
+
+
+def shard_tensor(t: torch.Tensor, mesh, pl: tuple) -> DTensor:
+    """The DTensor of the full tensor ``t`` (the same on every rank) placed
+    on ``mesh`` by the placements ``pl``: this rank's shard, cut locally (no
+    communication) and copied, so the full tensor can be freed.  Every
+    shard must be even."""
+    local = t
+    coord = mesh.get_coordinate()
+    for d, p in enumerate(pl):
+        if isinstance(p, Shard):
+            n = mesh.size(d)
+            if local.shape[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not split into {n} "
+                                 f"(mesh dim {d})")
+            local = local.chunk(n, p.dim)[coord[d]]
+    return DTensor.from_local(local.clone(memory_format=torch.contiguous_format), mesh, pl,
+                              run_check=False)
+
+
+def shard_params(params: dict, specs: dict, mesh) -> dict:
+    """``params`` (full tensors, as ``init_params`` or
+    ``convert.params_from_numpy`` give them) as DTensors on ``mesh``, each
+    placed by its spec in ``specs`` (``partition_specs``' tree)."""
+    return map_tree(lambda _, t, spec: shard_tensor(t, mesh, placements(spec, mesh)),
+                    params, specs)
+
+
+def full_params(tree: dict) -> dict:
+    """A tree of DTensors as full tensors on every rank (a collective: every
+    rank calls it); plain tensors pass as they are."""
+    return map_tree(lambda _, t: t.full_tensor() if isinstance(t, DTensor) else t, tree)

@@ -17,8 +17,11 @@ checkpoint; ``latest_step`` considers committed checkpoints only;
 ``keep_last`` removes old steps after a commit; ``AsyncCheckpointer`` copies
 the tensors to the host synchronously and writes the files on a thread,
 with the reference's error contract (see ``AsyncCheckpointer``).  One process writes
-whole tensors: the reference's multihost shards have no one-GPU
-counterpart.
+whole tensors, in the one-card layout: a tree of DTensors (the sharded
+train step's state) is gathered first, every rank taking part, and only
+rank 0 writes.  ``restore`` into a tree of DTensors places each leaf as its
+like leaf is placed, on any mesh, so a checkpoint crosses between the
+one-card loop, the meshed loop and the reference both ways.
 """
 
 from __future__ import annotations
@@ -30,8 +33,10 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.models.params import map_tree
+from repro_torch.models.params import map_tree, shard_tensor
 
 __all__ = ["save", "restore", "latest_step", "committed_steps", "AsyncCheckpointer"]
 
@@ -53,10 +58,18 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:09d}")
 
 
+def _writer() -> bool:
+    """Whether this process writes: the one process, or rank 0 of ranks."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(leaf) -> tuple[np.ndarray, str]:
-    """(the array to store, its true dtype's name)."""
+    """(the array to store, its true dtype's name).  A DTensor is gathered
+    whole (a collective: every rank calls this)."""
     if isinstance(leaf, np.ndarray):
         return leaf, str(leaf.dtype)
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)  # a copy: the caller updates its tensors in place
     if t.dtype == torch.bfloat16:  # the raw bits, as the reference stores them
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -69,15 +82,19 @@ def save(ckpt_dir: str, step: int, tree, *, extra: dict | None = None,
          keep_last: int | None = None) -> str:
     """Synchronous atomic save of a tree of tensors (or of host arrays, as
     ``AsyncCheckpointer`` hands them over).  Returns the committed
-    directory."""
+    directory.  Under ``torch.distributed`` every rank calls it (DTensor
+    leaves are gathered) and rank 0 alone writes."""
     final = _step_dir(ckpt_dir, step)
+    host = {key: leaf if isinstance(leaf, tuple) else _to_host(leaf)
+            for key, leaf in _flatten(tree).items()}
+    if not _writer():
+        return final
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(os.path.join(tmp, "arrays"), exist_ok=True)
     manifest = {"step": step, "keys": [], "extra": extra or {}}
-    for key, leaf in _flatten(tree).items():
-        arr, true_dtype = leaf if isinstance(leaf, tuple) else _to_host(leaf)
+    for key, (arr, true_dtype) in host.items():
         fname = key.replace("/", "__") + ".npy"
         np.save(os.path.join(tmp, "arrays", fname), arr)
         manifest["keys"].append({"key": key, "file": fname, "shape": list(arr.shape),
@@ -119,8 +136,10 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
     """Restore into the structure of ``like_tree`` (a tree of tensors, or of
     anything with ``shape`` and ``dtype``): each leaf in the checkpoint's
-    dtype, on ``device`` (default: the like leaf's, or the CPU).  Raises
-    ``ValueError`` where a shape differs.  Returns ``(tree, extra)``."""
+    dtype, on ``device`` (default: the like leaf's, or the CPU).  Where the
+    like leaf is a DTensor, the leaf is placed as it is, on its mesh (each
+    rank reads the whole array and keeps its shard).  Raises ``ValueError``
+    where a shape differs.  Returns ``(tree, extra)``."""
     d = _step_dir(ckpt_dir, step)
     if not os.path.exists(os.path.join(d, _COMMIT)):
         raise FileNotFoundError(f"no committed checkpoint at {d}")
@@ -139,6 +158,8 @@ def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
         else:
             t = torch.from_numpy(arr)
         dev = device if device is not None else getattr(like, "device", "cpu")
+        if isinstance(like, DTensor):
+            return shard_tensor(t.to(device=dev), like.device_mesh, like.placements)
         return t.to(device=dev)
 
     return map_tree(one, like_tree), manifest["extra"]
@@ -146,7 +167,9 @@ def restore(ckpt_dir: str, step: int, like_tree, *, device=None):
 
 class AsyncCheckpointer:
     """Double-buffered background writer: the device-to-host copy is
-    synchronous, the file IO overlaps the next steps.
+    synchronous, the file IO overlaps the next steps.  Under
+    ``torch.distributed`` every rank calls ``save`` (DTensor leaves are
+    gathered) and rank 0 alone writes.
 
     Error contract: background-write failures are queued (never clobbered:
     two failed writes surface as two errors) and raised one per
@@ -178,6 +201,8 @@ class AsyncCheckpointer:
         # the next call, not this one
         prior_errors = len(self._errors)
         host_tree = map_tree(lambda _, t: _to_host(t), tree)
+        if not _writer():
+            return
 
         def work():
             try:

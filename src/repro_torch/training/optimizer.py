@@ -10,8 +10,18 @@ moments in place, leaf by leaf and in slices of the leading dim, so a
 full-width update needs float32 temporaries of one slice rather than of the
 whole tree.  The slices change no value: the update is elementwise, and the
 global norm sums each row of the leading dim on its own (a slice holds whole
-rows) before one sum over all rows of all leaves.  ZeRO-1 sharding of the
-moments has no one-GPU counterpart.
+rows) before one sum over all rows of all leaves.
+
+On DTensors (the sharded train step) the moments may be placed otherwise
+than the parameters: ZeRO-1 places them by the FSDP rules whatever the
+parameters' (``init_opt_state(placements=)``).  Each leaf's update then
+runs on the moments' shards: the gradient and the parameter are
+redistributed to the moments' placements (a pending sum reduce-scattered,
+a replicated tensor cut locally), the update is the one above on each
+rank's local shards, and the new parameter is redistributed back to its
+own placement.  The global norm sums each leaf's squares over its shards
+(DTensor's reduction: every element counted once) and all leaves in the
+reference's order, so it is the one-card norm up to the order of a sum.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.params import map_tree, torch_dtype
 
@@ -61,13 +72,24 @@ def _slices(*ts: torch.Tensor):
         yield tuple(t[i:i + step] for t in ts)
 
 
-def init_opt_state(params: dict, cfg: OptConfig) -> dict:
+def init_opt_state(params: dict, cfg: OptConfig, placements: dict | None = None) -> dict:
+    """Zero moments in ``moment_dtype`` shaped like ``params`` and the step
+    0.  For DTensor parameters, ``placements`` (a tree of placement tuples on
+    their mesh) places the moments; by default they take the parameters'."""
     dt = torch_dtype(cfg.moment_dtype)
 
-    def zeros(_, p):
+    def zeros(path, p):
+        if isinstance(p, DTensor):
+            z = torch.zeros_like(p, dtype=dt)
+            return z if placements is None else z.redistribute(p.device_mesh, by_path[path])
         return torch.zeros(p.shape, dtype=dt, device=p.device)
 
-    step = torch.zeros((), dtype=torch.int32, device=leaves(params)[0].device)
+    by_path = {}
+    if placements is not None:
+        map_tree(lambda path, pl: by_path.__setitem__(path, pl), placements)
+    first = leaves(params)[0]
+    device = first.to_local().device if isinstance(first, DTensor) else first.device
+    step = torch.zeros((), dtype=torch.int32, device=device)
     return {"m": map_tree(zeros, params), "v": map_tree(zeros, params), "step": step}
 
 
@@ -79,7 +101,12 @@ def global_norm(tree) -> torch.Tensor:
     on how ``_SLICE`` cuts a leaf, as long as a row's sum has the same bits
     however many rows the call holds.  PyTorch does not promise that; the
     tests check it on the CPU and, on the card, at Yi's embedding and at a
-    stacked [4, 4096, 11008] leaf in one-row slices."""
+    stacked [4, 4096, 11008] leaf in one-row slices.  DTensor leaves are
+    summed by DTensor's reductions, each leaf whole, and the norm comes
+    back as a plain tensor, the same on every rank."""
+    if isinstance(leaves(tree)[0], DTensor):
+        total = sum(leaf.float().square().sum() for leaf in leaves(tree))
+        return torch.sqrt(total.full_tensor())
     rows = []
     for leaf in leaves(tree):
         for (s,) in _slices(leaf):
@@ -108,6 +135,11 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: OptConfig):
     mdt = torch_dtype(cfg.moment_dtype)
     for p, g, m, v in zip(leaves(params), leaves(grads), leaves(state["m"]),
                           leaves(state["v"])):
+        home = None
+        if isinstance(p, DTensor):  # the update on the moments' shards
+            home, mesh, pl = p, m.device_mesh, m.placements
+            p, g = (t.redistribute(mesh, pl).to_local() for t in (p, g))
+            m, v = m.to_local(), v.to_local()
         for ps, gs, ms, vs in _slices(p, g, m, v):
             g32 = gs.float() * clip
             m32 = ms.float() * b1 + g32 * (1 - b1)
@@ -116,5 +148,8 @@ def adamw_update(grads: dict, state: dict, params: dict, cfg: OptConfig):
             ps.copy_((ps.float() - lr * delta).to(ps.dtype))
             ms.copy_(m32.to(mdt))
             vs.copy_(v32.to(mdt))
+        if home is not None:
+            new = DTensor.from_local(p, mesh, pl, run_check=False)
+            home.to_local().copy_(new.redistribute(mesh, home.placements).to_local())
     return params, {"m": state["m"], "v": state["v"], "step": step}, {"grad_norm": gnorm,
                                                                         "lr": lr}
