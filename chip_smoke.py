@@ -195,7 +195,21 @@ Phases, each reported on its own lines:
    (host-staged gloo time, not an interconnect number); which c10d ops
    gloo takes on CUDA tensors is printed.  (c) ``launch/train.py --mesh
    2,2,2`` on Yi-6B at 2 layers for 4 steps on one repeated batch: the
-   loss must fall.
+   loss must fall.  (d) The expert-parallel MoE layer alone at full width
+   (``moe_layer_phase``): DBRX at ``moe_groups`` 2 and 1 and DeepSeek-V2 at
+   2, x [8, 1024, D] bf16, in 8 ranks as a (pod 1, data 2, model 4) mesh,
+   each rank drawing its own shards from per-expert seeds; every rank's
+   output rows, x's gradient and its shards of the experts', shared
+   experts' and router's gradients within ``MOE_LAYER_TOL`` in
+   ``ref.scaled_err`` of the one-rank layer's (run first in a process of
+   its own), a limit that must part two readings of the one-rank layer
+   (its sums in the ranks' partition, another order, and with a ``model``
+   partial dropped); each rank's peak memory printed beside the bytes of
+   the replicated layer.  (e) DBRX's and DeepSeek-V2's smoke configs go
+   through (a) and (b) beside Yi and Falcon (the sharded step alone),
+   each row of a microbatch a dispatch group (``moe_groups`` 4, the
+   data-parallel world), their routed leaves' first moments at
+   ``SHARDED_MOE_M_TOL``.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -438,6 +452,49 @@ SHARDED_M_TOL, SHARDED_NEAR_ZERO, SHARDED_ORDER_MICRO = 5e-2, 0.5, 16
 SHARDED_CLI = ["--arch", "yi_6b", "--layers", "2", "--mesh", "2,2,2", "--steps", "4",
                "--batch", "16", "--seq", "256", "--microbatches", "1", "--corpus-size", "1",
                "--lr", "3e-4", "--log-every", "1"]
+#: phase 10 (d): the expert-parallel MoE layer alone at full width
+#: (``models/moe.moe`` on DTensors), in 8 ranks as a (pod 1, data 2, model
+#: 4) mesh, its weights placed by the FSDP rules: (label, arch,
+#: moe_groups), x [MOE_LAYER_BATCH, MOE_LAYER_SEQ, D] bf16 over the
+#: data-parallel dims.  At 2 groups each data-parallel rank routes its own
+#: group; at 1 the tokens are gathered
+MOE_LAYER_MESH = (1, 2, 4)
+MOE_LAYER_CASES = [("dbrx g2", "dbrx_132b", 2), ("dbrx g1", "dbrx_132b", 1),
+                   ("deepseek g2", "deepseek_v2_236b", 2)]
+MOE_LAYER_BATCH, MOE_LAYER_SEQ = 8, 1024
+#: phase 10 (d)'s limit on every quantity of every rank, in
+#: ``ref.scaled_err``, checked to lie between two readings of the one-rank
+#: layer: its sums in another order (bf16 partials over the data-parallel
+#: shares and the ``model`` ranks, each rounded to a unit in the last place
+#: of 2^-8, must pass within half of it) and with one ``model`` rank's
+#: partial dropped (which must fail by twice it).  On the H100 the first
+#: reads up to 0.024 (DeepSeek-V2's x gradient), the second 2.4
+MOE_LAYER_TOL = 6e-2
+#: the tensors of phase 10 (d)'s layer, each drawn from a seed of its own
+#: (an expert-stacked weight one expert at a time): the inputs and the
+#: cotangent ``c`` of the loss ``sum(c * out) + aux``
+MOE_LAYER_KEYS = ("router", "w_gate", "w_up", "w_down", "shared_gate", "shared_up",
+                  "shared_down", "x", "c")
+#: phase 10 (e): the sharded step on the MoE configs at their smoke widths,
+#: each row of a microbatch a dispatch group (``moe_groups`` 4 = the
+#: data-parallel world: each rank routes its own), beside ``SHARDED_ARCHS``
+#: in (a) and (b) (the sharded step alone: the shard_map step's groups are
+#: the rank's rows', another function)
+SHARDED_MOE_ARCHS = ("dbrx_132b", "deepseek_v2_236b")
+#: (e)'s learning rate: at the smoke widths a weight is ~1/8, and a first
+#: AdamW step must move it by more than ``_param_check``'s allowance
+#: (``TOL_BF16`` in its scale) for a wrong gradient's sign to show
+SHARDED_MOE_LR = 1e-2
+#: (e)'s limit on the first moments of the leaves that follow the routing
+#: (the router and the experts, ``_m_tols``), in place of
+#: ``SHARDED_M_TOL``: where a token's k-th and (k+1)-th router
+#: probabilities tie within bf16 rounding, a rounding elsewhere upstream
+#: (the sharded step's sums over ``model``) may flip its choice, which
+#: moves its gradient to another expert and the slots of later tokens.
+#: Checked to lie between (a)'s readings: the one-rank step through the
+#: plain versions (whose attention and norms round otherwise) must pass
+#: within half of it
+SHARDED_MOE_M_TOL = 0.2
 #: the c10d collectives DTensor and the paper's sums issue, each tried on
 #: CUDA tensors over the gloo world by phase 10
 GLOO_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
@@ -2496,12 +2553,22 @@ def dryrun_anchor(smi: str, seed: int = 0) -> dict:
     return res
 
 
-def _sharded_config(arch: str):
-    """Phase 10's config: ``arch`` at full width, 2 layers, ``SHARDED_MICRO``
-    microbatches."""
-    cfg = _config(arch, 2)
+def _sharded_config(arch: str, micro: int = SHARDED_MICRO, rows: int = SHARDED_BATCH):
+    """Phase 10's config of ``arch`` for a batch of ``rows`` in ``micro``
+    microbatches: at full width and 2 layers, or, for an MoE config of
+    ``SHARDED_MOE_ARCHS`` (phase 10 (e)), at its smoke widths with each row
+    of a microbatch a dispatch group (``moe_groups``), so that the groups,
+    and with them the routing, are the same in every reading."""
+    from repro_torch.configs import get_smoke_config
+
+    if arch in SHARDED_MOE_ARCHS:
+        cfg = get_smoke_config(arch)
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel,
+                                                                    moe_groups=rows // micro))
+    else:
+        cfg = _config(arch, 2)
     return dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel,
-                                                                 microbatches=SHARDED_MICRO))
+                                                                 microbatches=micro))
 
 
 def sharded_reference(arch: str, path: Path, seed: int = 0) -> dict:
@@ -2512,8 +2579,11 @@ def sharded_reference(arch: str, path: Path, seed: int = 0) -> dict:
     the ranks to compare with.  Then the two readings that place phase
     10's limits (``SHARDED_M_TOL``, ``_param_check``): the same step in
     ``SHARDED_ORDER_MICRO`` microbatches (another summation order of the
-    same sums) and the step without the last data-parallel rank's rows (a
-    fault), each held to the first by the checks the ranks make."""
+    same sums; for an MoE config of (e), whose aux loss is a product of
+    means over a microbatch, the step through the plain versions) and the
+    step without the last data-parallel rank's rows (a fault), each held
+    to the first by the checks the ranks make, the first moments leaf by
+    leaf at ``_m_tols``' limits."""
     import torch
 
     from repro_torch.models import lm
@@ -2522,14 +2592,16 @@ def sharded_reference(arch: str, path: Path, seed: int = 0) -> dict:
     from repro_torch.training.train_step import batch_to, grad_and_metrics
 
     cfg = _sharded_config(arch)
-    opt_cfg = OptConfig(learning_rate=SHARDED_LR, warmup_steps=1)
+    lr = _sharded_lr(arch)
+    opt_cfg = OptConfig(learning_rate=lr, warmup_steps=1)
     batch = batch_to(make_batch(cfg, SHARDED_BATCH, SHARDED_SEQ, seed=seed), "cuda")
 
-    def one_step(cfg, batch):
+    def one_step(cfg, batch, plain=False):
         params = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        grads, metrics = grad_and_metrics(cfg, params, batch)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            grads, metrics = grad_and_metrics(cfg, params, batch)
         params, opt, info = adamw_update(grads, init_opt_state(params, opt_cfg), params,
                                          opt_cfg)
         torch.cuda.synchronize()
@@ -2545,27 +2617,33 @@ def sharded_reference(arch: str, path: Path, seed: int = 0) -> dict:
     torch.save(want, path)
     del params, m
     pods, data, _ = SHARDED_MESH
+    kept = SHARDED_BATCH - SHARDED_BATCH // (pods * data)
+    order = (_sharded_config(arch, SHARDED_ORDER_MICRO), batch, False)
+    if arch in SHARDED_MOE_ARCHS:
+        order = (cfg, batch, True)
     readings = {
-        "order": (dataclasses.replace(cfg, parallel=dataclasses.replace(
-            cfg.parallel, microbatches=SHARDED_ORDER_MICRO)), batch),
-        "fault": (cfg, {k: v[:SHARDED_BATCH - SHARDED_BATCH // (pods * data)]
-                        for k, v in batch.items()})}
-    for name, (c, b) in readings.items():
+        "order": order,
+        "fault": (_sharded_config(arch, rows=kept), {k: v[:kept] for k, v in batch.items()},
+                  False)}
+    tol = _m_tols(cfg)
+    for name, (c, b, plain) in readings.items():
         gc.collect()
         torch.cuda.empty_cache()
-        params, m, info = one_step(c, b)
+        params, m, info = one_step(c, b, plain)
         errs = {}
         for (k, pt), (_, mt) in zip(_leaf_paths(params), _leaf_paths(m)):
             wp = want["params"][k].to("cuda").float()
             wm = want["m"][k].to("cuda").float()
             rms = wp.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
-            ratio, need = _param_check(pt, wp, wm, rms, want["m_rms"][k])
+            ratio, need = _param_check(pt, wp, wm, rms, want["m_rms"][k], lr)
             errs[k] = (ratio, need, ((mt.float() - wm).square().sum() /
                                      wm.square().sum().clamp_min(1e-30)).sqrt().item())
         out[name] = {"loss": info["loss"], "grad_norm": info["grad_norm"],
                      "param_ratio": max(e[0] for e in errs.values()),
                      "near_zero_needed": max(e[1] for e in errs.values()),
-                     "m_err": max(e[2] for e in errs.values())}
+                     "m_err": max(e[2] for e in errs.values()),
+                     "m_ratio": max(e[2] / tol[k] for k, e in errs.items()),
+                     "m_worst": _worst({k: e[2] for k, e in errs.items()})}
         del params, m
     gc.collect()
     torch.cuda.empty_cache()
@@ -2677,7 +2755,7 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
         for n, fn in saved.items():
             setattr(ops, n, recording(n, fn))
         for arch in archs:
-            for backend in ("xla", "fulllane"):
+            for backend in _sharded_backends(arch):
                 print(f"[sharded] rank {rank}: {arch} {backend}, "
                       f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
                       f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free on the card",
@@ -2686,7 +2764,7 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
                 if backend != "xla":
                     cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
                         cfg.parallel, fsdp=False))
-                opt_cfg = OptConfig(learning_rate=SHARDED_LR, warmup_steps=1)
+                opt_cfg = OptConfig(learning_rate=_sharded_lr(arch), warmup_steps=1)
                 full = lm.init_model(cfg, torch.Generator(device="cuda").manual_seed(seed))
                 replica = sum(t.numel() for t in leaves(full))  # a replica's elements
                 if backend == "xla":
@@ -2730,7 +2808,7 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
                 torch.cuda.empty_cache()
                 want = torch.load(Path(ref_dir) / f"{arch}.pt", mmap=True)
                 res["errs"] = {k: _shard_errs(pt, want["params"][k], mt, want["m"][k],
-                                              want["m_rms"][k])
+                                              want["m_rms"][k], _sharded_lr(arch))
                                for (k, pt), (_, mt) in zip(_leaf_paths(params),
                                                            _leaf_paths(opt["m"]))}
                 del params, opt, want
@@ -2743,7 +2821,38 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
     return out
 
 
-def _param_check(p, want, want_m, rms, m_rms: float) -> tuple[float, float]:
+def _m_tols(cfg) -> dict:
+    """Phase 10's limit on each leaf's first moment, by leaf path
+    (``_leaf_paths``'): ``SHARDED_MOE_M_TOL`` for a leaf that follows the
+    routing (one with an ``experts`` axis: the router and the experts),
+    else ``SHARDED_M_TOL``."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
+
+    return dict(_leaf_paths(map_tree(
+        lambda _, m: SHARDED_MOE_M_TOL if "experts" in m.axes else SHARDED_M_TOL,
+        lm.model_meta(cfg))))
+
+
+def _worst(errs: dict, n: int = 3) -> list:
+    """The ``n`` largest of ``errs`` (by key), largest first."""
+    return sorted(errs.items(), key=lambda kv: -kv[1])[:n]
+
+
+def _sharded_backends(arch: str) -> tuple:
+    """The steps phase 10 (b) runs ``arch`` through: the sharded step and the
+    ``fulllane`` shard_map step, or the sharded step alone for an MoE config
+    of (e), whose dispatch groups the shard_map step would take from each
+    rank's rows."""
+    return ("xla",) if arch in SHARDED_MOE_ARCHS else ("xla", "fulllane")
+
+
+def _sharded_lr(arch: str) -> float:
+    """Phase 10's learning rate for ``arch``."""
+    return SHARDED_MOE_LR if arch in SHARDED_MOE_ARCHS else SHARDED_LR
+
+
+def _param_check(p, want, want_m, rms, m_rms: float, lr: float) -> tuple[float, float]:
     """Updated parameters of one leaf (or of a shard of it) after phase 10's
     first AdamW step against the one-rank step's (``want``), judged from
     the one-rank step's side alone: (the largest ``|p - want|`` over its
@@ -2765,7 +2874,7 @@ def _param_check(p, want, want_m, rms, m_rms: float) -> tuple[float, float]:
     ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
     scale = TOL_BF16 * (want.abs() + rms)
     near = want_m.abs() <= SHARDED_NEAR_ZERO * m_rms
-    allow = torch.where(near, torch.maximum(scale, 2 * SHARDED_LR + ulp), scale)
+    allow = torch.where(near, torch.maximum(scale, 2 * lr + ulp), scale)
     diff = (p - want).abs()
     off = diff > scale
     need = want_m.abs()[off].max().item() / max(m_rms, 1e-30) if off.any() else 0.0
@@ -2785,7 +2894,7 @@ def _local_slices(t) -> tuple:
     return tuple(slice(a, a + n) for a, n in zip(start, size))
 
 
-def _shard_errs(p, want_p, m, want_m, m_rms: float) -> tuple:
+def _shard_errs(p, want_p, m, want_m, m_rms: float, lr: float) -> tuple:
     """This rank's shard of an updated parameter ``p`` and of its first
     moment ``m`` (DTensors) against the same elements of the one-rank
     step's (``want_p``, ``want_m``: whole tensors on the host; ``m_rms``
@@ -2799,7 +2908,7 @@ def _shard_errs(p, want_p, m, want_m, m_rms: float) -> tuple:
     rows = want_p[sl[:-1]].to(local.device).float()  # whole rows, for their rms
     rms = rows.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
     wp = rows[..., sl[-1]]
-    ratio, need = _param_check(local, wp, want_m[sl].to(local.device), rms, m_rms)
+    ratio, need = _param_check(local, wp, want_m[sl].to(local.device), rms, m_rms, lr)
     err = ((local.float() - wp).abs() / (wp.abs() + rms)).max().item()
     first = all(c == 0 for c, q in zip(m.device_mesh.get_coordinate(), m.placements)
                 if not q.is_shard())
@@ -2870,21 +2979,25 @@ def sharded_phase(smi: str) -> dict:
     # the one-rank steps in a process of their own, which returns the card's
     # memory whole when it exits: the 8 ranks need all of it
     t0 = time.perf_counter()
+    archs = list(SHARDED_ARCHS + SHARDED_MOE_ARCHS)
     (one,) = ranks.run("chip_smoke:sharded_references", 1, timeout_s=600,
-                       kwargs={"archs": list(SHARDED_ARCHS), "ref_dir": str(d)})
+                       kwargs={"archs": archs, "ref_dir": str(d)})
     for arch, r in one.items():
         print(f"[sharded] the one-rank step of {arch} through the kernels: loss "
               f"{r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, {r['seconds']:.2f} s")
         o, f = r["order"], r["fault"]
-        print(f"[sharded] {arch}, the checks' two readings against that step: in "
-              f"{SHARDED_ORDER_MICRO} microbatches (another order) first moments {o['m_err']:.4g}"
-              f" (tol {SHARDED_M_TOL}), parameters {o['param_ratio']:.4g} of their allowance "
-              f"(near zero needed {o['near_zero_needed']:.4g}, given {SHARDED_NEAR_ZERO}); "
-              f"without a data-parallel rank's rows (a fault) first moments {f['m_err']:.4g}, "
-              f"parameters {f['param_ratio']:.4g} of their allowance")
+        how = ("through the plain versions" if arch in SHARDED_MOE_ARCHS
+               else f"in {SHARDED_ORDER_MICRO} microbatches")
+        print(f"[sharded] {arch}, the checks' two readings against that step: {how} "
+              f"(another order) first moments {o['m_err']:.4g}, {o['m_ratio']:.4g} of their "
+              f"limit (worst {o['m_worst']}), parameters {o['param_ratio']:.4g} of their "
+              f"allowance (near zero needed {o['near_zero_needed']:.4g}, given "
+              f"{SHARDED_NEAR_ZERO}); without a data-parallel rank's rows (a fault) first "
+              f"moments {f['m_err']:.4g}, {f['m_ratio']:.4g} of their limit, parameters "
+              f"{f['param_ratio']:.4g} of their allowance")
         # the limits lie between the readings: another order passes with room, the fault fails
-        if not (o["m_err"] <= SHARDED_M_TOL / 2 and o["param_ratio"] <= 1.0
-                and f["m_err"] >= 2 * SHARDED_M_TOL and f["param_ratio"] > 1.0):
+        if not (o["m_ratio"] <= 0.5 and o["param_ratio"] <= 1.0
+                and f["m_ratio"] >= 2 and f["param_ratio"] > 1.0):
             raise AssertionError(f"{arch}: phase 10's limits do not part a correct order "
                                  f"{o} from a fault {f}")
     print(f"[sharded] one-rank steps in {time.perf_counter() - t0:.1f} s (start-up included); "
@@ -2893,17 +3006,18 @@ def sharded_phase(smi: str) -> dict:
     t0 = time.perf_counter()
     with _expandable_segments():
         got = ranks.run("chip_smoke:sharded_job", world, timeout_s=900,
-                        kwargs={"archs": list(SHARDED_ARCHS), "ref_dir": str(d)})
+                        kwargs={"archs": archs, "ref_dir": str(d)})
     job_s = time.perf_counter() - t0
     print(f"[sharded] {world} ranks on cuda:0 as a (pod, data, model) = {SHARDED_MESH} mesh "
           f"over gloo, in {job_s:.1f} s (start-up included); gloo takes CUDA tensors for "
           f"{got[0]['gloo']}; the mesh's groups stage through pinned host memory "
           f"(core/groups.StagedGroup); {smi}")
     out = {"one_rank": one, "ranks": {}, "job_seconds": job_s}
-    for arch in SHARDED_ARCHS:
+    for arch in archs:
         cfg = _sharded_config(arch)
+        tol = _m_tols(cfg)
         want = {**dict.fromkeys(got[0][f"{arch} xla"]["launches"], 0), **_launches_per_step(cfg)}
-        for backend in ("xla", "fulllane"):
+        for backend in _sharded_backends(arch):
             key = f"{arch} {backend}"
             r0 = got[0][key]
             leaves = r0["errs"]
@@ -2916,6 +3030,7 @@ def sharded_phase(smi: str) -> dict:
             worst = sorted(ratio, key=lambda k: -ratio[k])[:3]
             r0 = {**r0, "param_ratio": max(ratio.values()), "param_err": err,
                   "near_zero_needed": need, "m_err": max(m_err.values()),
+                  "m_ratio": max(m_err[k] / tol[k] for k in leaves), "m_worst": _worst(m_err),
                   "param_worst": [(k, [ratio[k], m_err[k]]) for k in worst]}
             loss_rel = abs(r0["metrics"]["loss"] - one[arch]["loss"]) / abs(one[arch]["loss"])
             gn_rel = abs(r0["metrics"]["grad_norm"] - one[arch]["grad_norm"]) / one[arch][
@@ -2932,7 +3047,8 @@ def sharded_phase(smi: str) -> dict:
                   f"step's {one[arch]['loss']:.6f} (rel {loss_rel:.3g}), grad_norm "
                   f"{r0['metrics']['grad_norm']:.6f} against {one[arch]['grad_norm']:.6f} (rel "
                   f"{gn_rel:.3g}); every first moment: rms over its leaf "
-                  f"{r0['m_err']:.4g} (tol {SHARDED_M_TOL}); every updated parameter: over "
+                  f"{r0['m_err']:.4g}, {r0['m_ratio']:.4g} of its limit (worst "
+                  f"{r0['m_worst']}); every updated parameter: over "
                   f"its allowance {r0['param_ratio']:.4g} (tol 1; plain scaled err "
                   f"{r0['param_err']:.3g}; near zero needed {need:.4g}, given "
                   f"{SHARDED_NEAR_ZERO}; "
@@ -2951,7 +3067,7 @@ def sharded_phase(smi: str) -> dict:
             if not (p_share <= 1.05 * p_want and m_share <= 1.05 / (data * model)):
                 raise AssertionError(f"{key}: a rank holds {p_share} of the parameters "
                                      f"(want {p_want}), {m_share} of the moments")
-            if not (loss_rel <= TOL_BF16 and gn_rel <= TOL_BF16 and r0["m_err"] <= SHARDED_M_TOL
+            if not (loss_rel <= TOL_BF16 and gn_rel <= TOL_BF16 and r0["m_ratio"] <= 1.0
                     and r0["param_ratio"] <= 1.0 and not any(bad_shapes.values())
                     and not bad_launches):
                 raise AssertionError(f"{key}: loss rel {loss_rel}, grad_norm rel {gn_rel}, "
@@ -2974,6 +3090,289 @@ def sharded_phase(smi: str) -> dict:
         raise AssertionError(f"the meshed CLI's loss did not fall: {losses}")
     out["cli"] = {"argv": SHARDED_CLI, "losses": losses,
                   "step_s": [h["seconds"] for h in cli["history"]]}
+    return out
+
+
+def _moe_layer_config(arch: str, groups: int, smoke: bool = False):
+    """Phase 10 (d)'s config: ``arch`` at its published widths (or its smoke
+    widths, a rehearsal's) with ``moe_groups``."""
+    from repro_torch.configs import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    return dataclasses.replace(cfg, parallel=dataclasses.replace(cfg.parallel,
+                                                                 moe_groups=groups))
+
+
+def _moe_layer_shapes(cfg, batch: int, seq: int) -> dict:
+    """The shape of each tensor of phase 10 (d)'s layer, by key."""
+    from repro_torch.models.moe import moe_meta
+
+    shapes = {k: m.shape for k, m in moe_meta(cfg).items()}
+    return {**shapes, "x": (batch, seq, cfg.d_model), "c": (batch, seq, cfg.d_model)}
+
+
+def _moe_layer_rows(key: str, shape: tuple, lo: int, hi: int, seed: int, device: str):
+    """Rows ``[lo, hi)`` of dim 0 of phase 10 (d)'s seeded tensor ``key``
+    (bf16): an expert-stacked weight drawn an expert at a time, each from a
+    generator of its own (a rank draws its experts alone), any other
+    tensor drawn whole and cut; a weight at ``1/sqrt`` of its input
+    width."""
+    import torch
+
+    base = seed * 1_000_003 + MOE_LAYER_KEYS.index(key) * 1009
+    scale = 1.0 if key in ("x", "c") else 1 / math.sqrt(shape[-2])
+
+    def draw(shape_, s):
+        g = torch.Generator(device=device).manual_seed(s)
+        return (torch.randn(shape_, generator=g, device=device) * scale).to(torch.bfloat16)
+
+    if key in ("w_gate", "w_up", "w_down"):
+        return torch.stack([draw(shape[1:], base + e) for e in range(lo, hi)])
+    return draw(shape, base)[lo:hi]
+
+
+def _moe_layer_shard(key: str, shape: tuple, mesh, pl: tuple, seed: int):
+    """This rank's shard of phase 10 (d)'s tensor ``key`` placed on ``mesh``
+    by ``pl``, drawn for its rows of dim 0 alone."""
+    from torch.distributed.tensor import DTensor
+
+    coord = mesh.get_coordinate()
+    lo, hi = 0, shape[0]
+    for d, q in enumerate(pl):  # dim 0 is split in mesh order
+        if q.is_shard(0):
+            n = (hi - lo) // mesh.size(d)
+            lo, hi = lo + coord[d] * n, lo + (coord[d] + 1) * n
+    local = _moe_layer_rows(key, shape, lo, hi, seed, mesh.device_type)
+    for d, q in enumerate(pl):
+        if q.is_shard() and not q.is_shard(0):
+            local = local.chunk(mesh.size(d), q.dim)[coord[d]]
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False)
+
+
+def _moe_layer_loss(cfg, params: dict, x, c, fn=None):
+    """``moe(cfg, params, x)`` (or ``fn``'s) and the gradients of ``sum(c *
+    out) + aux`` by key (``x`` and every weight): (out, aux, grads)."""
+    import torch
+
+    from repro_torch.models.moe import moe
+
+    keys = sorted(params)
+    out, aux = (fn or moe)(cfg, params, x)
+    grads = torch.autograd.grad((out * c).sum() + aux, [x, *(params[k] for k in keys)])
+    return out, aux, dict(zip(["x", *keys], grads))
+
+
+def _moe_emulated(cfg, p: dict, x, mesh_shape: tuple, drop=None):
+    """Phase 10 (d)'s expert-parallel layer as one process's sums: each
+    data-parallel share's routing (``moe._route_on_rank``) and each
+    ``model`` rank's experts on it (``moe._experts_on_rank``, on its slices
+    of the whole weights), the ``model`` partials summed in reverse rank
+    order (``drop``: one rank's partial left out, a fault), the aux loss
+    from the shares' sums.  The same function as ``moe``, in another
+    summation order."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    pods, data, model = mesh_shape
+    ndp, e = pods * data, cfg.moe
+    B, S, _ = x.shape
+    G = M._groups(cfg, B * S)
+    shares = x.chunk(ndp) if G % ndp == 0 and B % ndp == 0 else [x]
+    El = e.num_experts // model
+    outs, f_sum, p_sum = [], 0, 0
+    for xi in shares:
+        gw, gi, fs, ps = M._route_on_rank(cfg, p["router"], xi, G // len(shares))
+        f_sum, p_sum, partial = f_sum + fs, p_sum + ps, 0
+        for m in reversed(range(model)):
+            w = {k: p[k][m * El:(m + 1) * El] for k in ("w_gate", "w_up", "w_down")}
+            if e.num_shared_experts:
+                w.update(shared_gate=p["shared_gate"].chunk(model, 1)[m],
+                         shared_up=p["shared_up"].chunk(model, 1)[m],
+                         shared_down=p["shared_down"].chunk(model, 0)[m])
+            if m != drop:
+                partial = partial + M._experts_on_rank(cfg, w, xi, gw, gi, G // len(shares),
+                                                       m * El)
+        outs.append(partial)
+    T = B * S
+    aux = e.num_experts * torch.sum((f_sum / T) * (p_sum / T)) * e.router_aux_weight
+    return torch.cat(outs), aux
+
+
+def _moe_layer_errs(got: dict, want: dict) -> dict:
+    """Each quantity's ``ref.scaled_err`` against the one-rank layer's (the
+    aux loss: relative)."""
+    from repro_torch.kernels.ref import scaled_err
+
+    return {k: (abs(float(got[k]) - float(want[k])) / abs(float(want[k])) if k == "aux"
+                else scaled_err(got[k], want[k])) for k in want}
+
+
+def moe_layer_reference(ref_dir: str, cases: list, smoke: bool = False,
+                        batch: int = MOE_LAYER_BATCH, seq: int = MOE_LAYER_SEQ,
+                        device: str = "cuda", seed: int = 0) -> dict:
+    """Phase 10 (d) (a), in a process of its own: for each case, the
+    one-rank layer on the whole seeded tensors, its output, aux loss and
+    gradients saved to ``<ref_dir>/<label>.pt`` for the ranks, and the two
+    readings that place (d)'s limit: the layer's sums in another order
+    (``_moe_emulated``, which must pass with room) and with the last
+    ``model`` rank's partial dropped (which must fail)."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    for label, arch, groups in cases:
+        cfg = _moe_layer_config(arch, groups, smoke)
+        shapes = _moe_layer_shapes(cfg, batch, seq)
+        t = {k: _moe_layer_rows(k, s, 0, s[0], seed, device) for k, s in shapes.items()}
+        c = t.pop("c")
+        x = t.pop("x").requires_grad_()
+        p = {k: v.requires_grad_() for k, v in t.items()}
+        t0 = time.perf_counter()
+        o, aux, grads = _moe_layer_loss(cfg, p, x, c)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        want = {"out": o.detach(), "aux": aux.detach(), **grads}
+        res = {"seconds": time.perf_counter() - t0}
+        torch.save({k: v.cpu() for k, v in want.items()}, Path(ref_dir) / f"{label}.pt")
+        for name, drop in (("order", None), ("fault", MOE_LAYER_MESH[2] - 1)):
+            o, aux, grads = _moe_layer_loss(cfg, p, x, c, lambda cfg_, p_, x_: _moe_emulated(
+                cfg_, p_, x_, MOE_LAYER_MESH, drop))
+            res[name] = _moe_layer_errs({"out": o.detach(), "aux": aux, **grads}, want)
+            del o, grads
+        out[label] = res
+        del want, p, x, t
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def moe_layer_job(ref_dir: str, cases: list, smoke: bool = False, batch: int = MOE_LAYER_BATCH,
+                  seq: int = MOE_LAYER_SEQ, device: str = "cuda", seed: int = 0) -> dict:
+    """Phase 10 (d) (b), the body of one rank of the ``MOE_LAYER_MESH``
+    mesh: for each case, the expert-parallel layer (``moe`` on DTensors)
+    forward and backward on this rank's shards of the seeded tensors
+    (weights by the FSDP rules, x and c over the data-parallel dims), and
+    each quantity's ``ref.scaled_err`` over the elements this rank holds
+    against the same elements of the one-rank layer's in
+    ``<ref_dir>/<label>.pt``: its output rows, x's gradient (summed over
+    ``model``), its experts', the shared experts' and the router's
+    gradients, the aux loss.  Also its peak memory over the case, the
+    step's host-clock seconds and the collectives by op."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.moe import moe_meta
+    from repro_torch.models.params import partition_specs, placements
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    mesh = make_device_mesh(MOE_LAYER_MESH, ("pod", "data", "model"), device)
+    sizes = dict(zip(mesh.mesh_dim_names, MOE_LAYER_MESH))
+    dp = (Shard(0), Shard(0), Replicate())
+    out = {"rank": rank}
+    for label, arch, groups in cases:
+        cfg = _moe_layer_config(arch, groups, smoke)
+        shapes = _moe_layer_shapes(cfg, batch, seq)
+        specs = partition_specs(moe_meta(cfg), sizes, fsdp=True)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        p = {k: _moe_layer_shard(k, shapes[k], mesh, placements(specs[k], mesh), seed
+                                 ).requires_grad_() for k in specs}
+        x = _moe_layer_shard("x", shapes["x"], mesh, dp, seed).requires_grad_()
+        c = _moe_layer_shard("c", shapes["c"], mesh, dp, seed)
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm:
+            o, aux, grads = _moe_layer_loss(cfg, p, x, c)
+            grads["x"] = grads["x"].redistribute(mesh, dp)  # the sum over model
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = {"seconds": secs, "collectives": {str(k): v for k, v in
+                                                comm.get_comm_counts().items()}}
+        if device == "cuda":
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        want = torch.load(Path(ref_dir) / f"{label}.pt", mmap=True)
+        got = {"out": o, **grads}
+        res["errs"] = {"aux": abs(float(aux.full_tensor()) - float(want["aux"])) / abs(
+            float(want["aux"]))}
+        for k, t in got.items():
+            sl = _local_slices(t)
+            local = t.to_local().float()
+            rows = want[k][sl[:-1]].to(local.device).float()  # whole rows, for their rms
+            rms = rows.square().mean(dim=-1, keepdim=True).sqrt().clamp_min(1e-30)
+            w = rows[..., sl[-1]]
+            res["errs"][k] = ((local - w).abs() / (w.abs() + rms)).max().item()
+        out[label] = res
+        del p, x, c, o, grads, got, want
+    return out
+
+
+def moe_layer_phase(smi: str) -> dict:
+    """Phase 10 (d): the expert-parallel MoE layer alone at full width, in 8
+    ranks over the card's host-staged gloo groups, each case of
+    ``MOE_LAYER_CASES`` held to the one-rank layer run first in a process
+    of its own (``moe_layer_reference``): every rank's every quantity within
+    ``MOE_LAYER_TOL`` in ``ref.scaled_err``, a limit that must part the
+    reference's two readings (another order within half of it, a dropped
+    ``model`` partial at twice it or more).  Each rank's peak memory is
+    printed beside the bytes the replicated layer would need."""
+    import torch
+
+    from repro_torch.launch import ranks
+
+    d = OUT_DIR / "moe_layer"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    (one,) = ranks.run("chip_smoke:moe_layer_reference", 1, timeout_s=600,
+                       kwargs={"ref_dir": str(d), "cases": MOE_LAYER_CASES})
+    ref_s = time.perf_counter() - t0
+    for label, r in one.items():
+        o, f = max(r["order"].values()), max(r["fault"].values())
+        print(f"[moe layer] {label}: the one-rank layer in {r['seconds']:.2f} s; the limit's "
+              f"two readings: another order {o:.4g} (worst of {r['order']}), a dropped model "
+              f"partial {f:.4g} (tol {MOE_LAYER_TOL} in ref.scaled_err)")
+        if not (o <= MOE_LAYER_TOL / 2 and f >= 2 * MOE_LAYER_TOL):
+            raise AssertionError(f"{label}: phase 10 (d)'s limit does not part another order "
+                                 f"{r['order']} from a dropped partial {r['fault']}")
+    world = math.prod(MOE_LAYER_MESH)
+    t0 = time.perf_counter()
+    with _expandable_segments():
+        got = ranks.run("chip_smoke:moe_layer_job", world, timeout_s=600,
+                        kwargs={"ref_dir": str(d), "cases": MOE_LAYER_CASES})
+    job_s = time.perf_counter() - t0
+    out = {"one_rank": one, "ranks": got, "reference_seconds": ref_s, "job_seconds": job_s}
+    for label, arch, groups in MOE_LAYER_CASES:
+        cfg = _moe_layer_config(arch, groups)
+        e = cfg.moe
+        replicated = 2 * 3 * e.num_experts * cfg.d_model * e.d_ff_expert * 2
+        errs = {k: max(r[label]["errs"][k] for r in got) for k in got[0][label]["errs"]}
+        mem = [r[label]["peak_bytes"] / 1e9 for r in got]
+        print(f"[moe layer] {label}: {world} ranks as (pod, data, model) = {MOE_LAYER_MESH}, x "
+              f"[{MOE_LAYER_BATCH}, {MOE_LAYER_SEQ}, {cfg.d_model}] bf16, moe_groups {groups}: "
+              f"worst over ranks {errs} (tol {MOE_LAYER_TOL}); peak memory per rank "
+              f"{min(mem):.2f}-{max(mem):.2f} GB (the replicated layer: at least "
+              f"{replicated / 1e9:.2f} GB a rank for every expert's weights and gradients); "
+              f"forward and backward {got[0][label]['seconds']:.2f} s on rank 0 (host clock, "
+              f"{HOST_STAGED}); collectives (CommDebugMode) {got[0][label]['collectives']}; "
+              f"{smi}")
+        if max(errs.values()) > MOE_LAYER_TOL:
+            raise AssertionError(f"{label}: the expert-parallel layer is off the one-rank "
+                                 f"layer: {errs}")
+    print(f"[moe layer] one-rank layers in {ref_s:.1f} s, the ranks' job in {job_s:.1f} s "
+          f"(start-up included)")
+    shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3082,6 +3481,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = sharded_phase(smi)
     done("sharded")
+    sharded["moe_layer"] = moe_layer_phase(smi)
+    done("sharded moe layer")
     runs = {run: r["launches"] for run, r in train["full_width"].items()}
     for arch, by_key in sharded["ranks"].items():  # rank 0's; each rank's are equal
         runs.update({f"{key} rank 0": rs[0]["launches"] for key, rs in by_key.items()})

@@ -89,7 +89,11 @@ class ParallelConfig:
     collective_backend: Literal["xla", "fulllane", "kported"] = "xla"
     optimizer_dtype: str = "float32"  # bf16 moments for >=200B models
     grad_dtype: str = "float32"  # accumulation dtype (bf16 saves HBM at scale)
-    moe_groups: int = 1  # MoE dispatch groups (set to DP size by factories)
+    # MoE dispatch groups.  The step factories leave it as the config sets
+    # it; only launch/dryrun.optimized_config sets it to the DP size, as in
+    # the reference.  A multiple of the DP size that splits the batch keeps
+    # each rank's routing to its own groups (models/moe.moe)
+    moe_groups: int = 1
     attn_chunk_q: int = 512
     attn_chunk_kv: int = 512
     mamba_chunk: int = 256

@@ -9,11 +9,18 @@ One 8-rank job, ``torch_rank_jobs.sharded_ranks``, runs every case; the
 tests read its result.  Inputs: the reference's parameters
 (``lm.init_model``, saved per config and loaded by key) and
 ``make_batch(seed=0, step=0)`` of 8 x 32, in float32 smoke configs.  The
-cases: yi_6b, gemma_7b and musicgen_large at 2 microbatches (the
-reference's ``test_microbatch_equivalence`` cases; the reference drops its
-activation hook for musicgen with microbatches, the port applies it
-always), deepseek_v2_236b (MLA, MoE), falcon_mamba_7b (the scan) and
-jamba_1_5_large_398b (all three).
+cases (``torch_rank_jobs.SHARDED_CASES``): yi_6b, gemma_7b and
+musicgen_large at 2 microbatches (the reference's
+``test_microbatch_equivalence`` cases; the reference drops its activation
+hook for musicgen with microbatches, the port applies it always),
+deepseek_v2_236b (MLA, MoE), falcon_mamba_7b (the scan),
+jamba_1_5_large_398b (all three) and dbrx_132b (MoE), each at
+``moe_groups`` 1, and dbrx_132b and deepseek_v2_236b at ``moe_groups`` 4,
+the data-parallel world, where each rank routes its own group (against
+the reference's step at the same ``moe_groups``); every MoE layer runs
+expert-parallel, its experts split over ``model``.  The shard_map step
+with TP (``TP_CASES``): yi_6b for both backends, and deepseek_v2_236b,
+whose MoE layers route each rank's rows.
 
 Tolerances, those of the one-card step's parity
 (``test_torch_train_step.py``): loss and nll rtol 1e-5, ``grad_norm`` rtol
@@ -59,10 +66,10 @@ B, S = 8, 32
 OPT = dict(learning_rate=1e-3, warmup_steps=2)
 
 
-def _jcfg(arch, microbatches=1, fsdp=True):
+def _jcfg(arch, microbatches=1, fsdp=True, moe_groups=1):
     cfg = jsmoke(arch)
     return dataclasses.replace(cfg, dtype="float32", parallel=dataclasses.replace(
-        cfg.parallel, microbatches=microbatches, fsdp=fsdp))
+        cfg.parallel, microbatches=microbatches, fsdp=fsdp, moe_groups=moe_groups))
 
 
 def _jflat(tree) -> dict:
@@ -84,30 +91,30 @@ def run(tmp_path_factory, mesh):
     d = tmp_path_factory.mktemp("sharded")
     want = {"init": {}, "sharded": {}, "tp": {}}
     inits = {}
-    for arch, micro in J.SHARDED_CASES:
-        inits[arch] = jlm.init_model(_jcfg(arch, micro), jax.random.PRNGKey(0))
-        want["init"][arch] = {k: np.asarray(v) for k, v in _jflat(inits[arch]).items()}
-        np.savez(d / f"{arch}.npz", **want["init"][arch])
+    for arch, micro, _ in J.SHARDED_CASES.values():
+        if arch not in inits:
+            inits[arch] = jlm.init_model(_jcfg(arch, micro), jax.random.PRNGKey(0))
+            want["init"][arch] = {k: np.asarray(v) for k, v in _jflat(inits[arch]).items()}
+            np.savez(d / f"{arch}.npz", **want["init"][arch])
     got = []
     job = threading.Thread(target=lambda: got.append(_ranks(d)), daemon=True)
     job.start()
     ocfg = jopt.OptConfig(**OPT)
-    for arch, micro in J.SHARDED_CASES:
-        jcfg, params = _jcfg(arch, micro), inits[arch]
+    for name, (arch, micro, groups) in J.SHARDED_CASES.items():
+        jcfg, params = _jcfg(arch, micro, moe_groups=groups), inits[arch]
         batch = jax.tree.map(jnp.asarray, jmake_batch(jcfg, B, S, seed=0, step=0))
         fn = make_train_step_pjit(jcfg, mesh, ocfg)[0](batch)
         new, opt, m = fn(jax.tree.map(jnp.copy, params), jopt.init_opt_state(params, ocfg),
                          batch)
-        want["sharded"][arch] = {"params": _jflat(new), "m": _jflat(opt["m"]),
+        want["sharded"][name] = {"params": _jflat(new), "m": _jflat(opt["m"]),
                                  "v": _jflat(opt["v"]), "metrics": m, "step": opt["step"]}
-    jcfg = _jcfg("yi_6b", fsdp=False)
-    params = jlm.init_model(jcfg, jax.random.PRNGKey(0))
-    batch = jax.tree.map(jnp.asarray, jmake_batch(jcfg, B, S, seed=0, step=0))
-    for backend in ("xla", "fulllane"):
+    for name, (arch, backend) in J.TP_CASES.items():
+        jcfg, params = _jcfg(arch, fsdp=False), inits[arch]
+        batch = jax.tree.map(jnp.asarray, jmake_batch(jcfg, B, S, seed=0, step=0))
         fn = make_train_step_shardmap(jcfg, mesh, ocfg, backend=backend)[0](batch)
         new, opt, m = fn(jax.tree.map(jnp.copy, params), jopt.init_opt_state(params, ocfg),
                          batch)
-        want["tp"][backend] = {"params": _jflat(new), "m": _jflat(opt["m"]), "metrics": m}
+        want["tp"][name] = {"params": _jflat(new), "m": _jflat(opt["m"]), "metrics": m}
     job.join(timeout=660)
     assert not job.is_alive() and len(got) == 1, "the ranks' job did not finish"
     if isinstance(got[0], BaseException):
@@ -152,14 +159,14 @@ def _check_step(port: dict, want: dict, slack: float = 0.0) -> None:
         assert np.all(np.abs(p.numpy() - np.asarray(want["params"][k])) <= bound), k
 
 
-@pytest.mark.parametrize("arch", [a for a, _ in J.SHARDED_CASES])
-def test_sharded_step_matches_the_reference_pjit_step(run, arch):
+@pytest.mark.parametrize("name", list(J.SHARDED_CASES))
+def test_sharded_step_matches_the_reference_pjit_step(run, name):
     want, got = run
     for r in got[1:]:  # the metrics are the same floats on every rank
-        assert r["sharded"][arch]["metrics"] == got[0]["sharded"][arch]["metrics"]
-    port = got[0]["sharded"][arch]
-    assert port["step"] == int(want["sharded"][arch]["step"]) == 1
-    _check_step(port, want["sharded"][arch])
+        assert r["sharded"][name]["metrics"] == got[0]["sharded"][name]["metrics"]
+    port = got[0]["sharded"][name]
+    assert port["step"] == int(want["sharded"][name]["step"]) == 1
+    _check_step(port, want["sharded"][name])
 
 
 @pytest.mark.parametrize("backend", ["xla", "fulllane"])
@@ -173,13 +180,38 @@ def test_tp_shardmap_step_matches_the_reference_shardmap_step(run, backend):
                                other["metrics"]["loss"], rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", [a for a, _ in J.SHARDED_CASES])
-def test_local_shards_are_the_reference_device_shards(run, mesh, arch):
+def test_tp_shardmap_moe_step_matches_the_reference_shardmap_step(run):
+    """DeepSeek-V2 (MLA, MoE with shared experts) through the shard_map step:
+    each rank routes its own rows, its experts split over ``model``."""
     want, got = run
+    for r in got[1:]:
+        assert r["tp"]["deepseek_v2_236b"]["metrics"] == got[0]["tp"]["deepseek_v2_236b"]["metrics"]
+    _check_step(got[0]["tp"]["deepseek_v2_236b"], want["tp"]["deepseek_v2_236b"], slack=1e-5)
+
+
+@pytest.mark.parametrize("step,name", [("sharded", n) for n, c in J.SHARDED_CASES.items()
+                                       if J.sharded_config(c[0]).moe is not None]
+                         + [("tp", "deepseek_v2_236b")])
+def test_no_expert_weight_is_gathered_over_model(run, step, name):
+    """Each MoE case, in either step: inside the MoE layer, every all-gather
+    over ``model`` is of a 2-D input (the router's; no expert weight), and
+    the layer sums its output over ``model``."""
+    _, got = run
+    for r in got:
+        calls = r[step][name]["moe_collectives"]
+        assert [c for c in calls if c[1] == "model" and c[0] == "all_reduce"], calls
+        assert not [c for c in calls if c[1] == "model" and c[0].startswith("all_gather")
+                    and len(c[2]) != 2], calls
+
+
+@pytest.mark.parametrize("name", list(J.SHARDED_CASES))
+def test_local_shards_are_the_reference_device_shards(run, mesh, name):
+    want, got = run
+    arch = J.SHARDED_CASES[name][0]
     specs = _jflat(param_pspecs(_jcfg(arch), mesh))
     for r, res in enumerate(got):
         device = mesh.devices[np.unravel_index(r, (2, 2, 2))]
-        for k, local in res["sharded"][arch]["local_before"].items():
+        for k, local in res["sharded"][name]["local_before"].items():
             full = want["init"][arch][k]
             idx = NamedSharding(mesh, specs[k]).devices_indices_map(full.shape)[device]
             assert np.array_equal(local.numpy(), full[idx]), f"rank {r} {k}"
@@ -203,16 +235,17 @@ def test_every_shard_shape_is_the_reference_shard_shape(run, mesh, arch):
                         NamedSharding(mesh, mspec[k]).shard_shape(shape)), (r, fsdp, mom, k)
 
 
-@pytest.mark.parametrize("arch,micro", J.SHARDED_CASES)
-def test_kernels_saw_local_shapes(run, arch, micro):
+@pytest.mark.parametrize("name,micro", [pytest.param(n, c[1], id=f"{n}-{c[1]}")
+                                        for n, c in J.SHARDED_CASES.items()])
+def test_kernels_saw_local_shapes(run, name, micro):
     """Each rank's rows are B / (pod * data) / microbatches; attention's
     kernel rows are those rows times the rank's H / model heads, the scan's
     channels d_inner / model."""
     _, got = run
-    cfg = J.sharded_config(arch, micro)
+    cfg = J.sharded_config(J.SHARDED_CASES[name][0], micro)
     rows = B // 4 // micro
-    calls = got[0]["sharded"][arch]["kernel_shapes"]
-    seen = {name for name, _ in calls}
+    calls = got[0]["sharded"][name]["kernel_shapes"]
+    seen = {fn for fn, _ in calls}
     want = {"rmsnorm_ref", "rmsnorm_bwd_ref"}
     if cfg.attn is not None:
         want |= {"flash_attention_ref", "flash_attention_bwd_ref"}
@@ -220,14 +253,14 @@ def test_kernels_saw_local_shapes(run, arch, micro):
         want |= {"mamba_scan_ref", "mamba_scan_bwd_ref"}
     assert seen == want
     for r in got:
-        for name, shape in r["sharded"][arch]["kernel_shapes"]:
-            if name.startswith("flash"):
-                assert shape == [rows * cfg.attn.num_heads // 2, S, shape[2]], (name, shape)
-            elif name.startswith("mamba"):
+        for fn, shape in r["sharded"][name]["kernel_shapes"]:
+            if fn.startswith("flash"):
+                assert shape == [rows * cfg.attn.num_heads // 2, S, shape[2]], (fn, shape)
+            elif fn.startswith("mamba"):
                 di = cfg.mamba.expand * cfg.d_model
-                assert shape == [rows, S, di // 2, cfg.mamba.d_state], (name, shape)
+                assert shape == [rows, S, di // 2, cfg.mamba.d_state], (fn, shape)
             else:
-                assert shape[:2] == [rows, S], (name, shape)
+                assert shape[:2] == [rows, S], (fn, shape)
 
 
 def test_rmsnorm_dw_over_batch_shards_is_the_one_card_dw(run):

@@ -257,10 +257,21 @@ def train_step_ranks(pods: int, lanes: int, arch: str, params_npz: str, batch: i
     return out
 
 
-#: the sharded step's parity cases: (arch, microbatches), float32 smoke
-#: configs at the reference's FSDP default
-SHARDED_CASES = [("yi_6b", 1), ("gemma_7b", 2), ("musicgen_large", 2), ("deepseek_v2_236b", 1),
-                 ("falcon_mamba_7b", 1), ("jamba_1_5_large_398b", 1)]
+#: the sharded step's parity cases: name -> (arch, microbatches,
+#: moe_groups), float32 smoke configs at the reference's FSDP default;
+#: ``moe_groups`` 4 is the data-parallel world, each rank routing its own
+#: group
+SHARDED_CASES = {"yi_6b": ("yi_6b", 1, 1), "gemma_7b": ("gemma_7b", 2, 1),
+                 "musicgen_large": ("musicgen_large", 2, 1),
+                 "deepseek_v2_236b": ("deepseek_v2_236b", 1, 1),
+                 "falcon_mamba_7b": ("falcon_mamba_7b", 1, 1),
+                 "jamba_1_5_large_398b": ("jamba_1_5_large_398b", 1, 1),
+                 "dbrx_132b": ("dbrx_132b", 1, 1), "dbrx_132b-g4": ("dbrx_132b", 1, 4),
+                 "deepseek_v2_236b-g4": ("deepseek_v2_236b", 1, 4)}
+#: the shard_map step with TP's parity cases (``fsdp=False``): name ->
+#: (arch, backend)
+TP_CASES = {"xla": ("yi_6b", "xla"), "fulllane": ("yi_6b", "fulllane"),
+            "deepseek_v2_236b": ("deepseek_v2_236b", "xla")}
 #: every config whose placements are checked, at fsdp True and False
 PLACED_ARCHS = ["yi_6b", "gemma_7b", "musicgen_large", "deepseek_v2_236b", "falcon_mamba_7b",
                 "jamba_1_5_large_398b", "h2o_danube_3_4b", "minicpm3_4b", "qwen2_vl_7b",
@@ -271,16 +282,17 @@ RECORDED = {"rmsnorm_ref": 0, "rmsnorm_bwd_ref": 0, "flash_attention_ref": 0,
             "flash_attention_bwd_ref": 0, "mamba_scan_ref": 0, "mamba_scan_bwd_ref": 0}
 
 
-def sharded_config(arch: str, microbatches: int = 1, fsdp: bool = True):
-    """The float32 smoke config of ``arch`` with ``microbatches`` and
-    ``fsdp`` (shared with the test, which builds the reference's)."""
+def sharded_config(arch: str, microbatches: int = 1, fsdp: bool = True, moe_groups: int = 1):
+    """The float32 smoke config of ``arch`` with ``microbatches``, ``fsdp``
+    and ``moe_groups`` (shared with the test, which builds the
+    reference's)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
 
     cfg = get_smoke_config(arch)
     return dataclasses.replace(cfg, dtype="float32", parallel=dataclasses.replace(
-        cfg.parallel, microbatches=microbatches, fsdp=fsdp))
+        cfg.parallel, microbatches=microbatches, fsdp=fsdp, moe_groups=moe_groups))
 
 
 def _flat(tree) -> dict:
@@ -299,8 +311,8 @@ def sharded_ranks(npz_dir: str, batch: int, seq: int, lr: float, warmup: int) ->
     ``make_train_step_sharded``; rank 0 returns the metrics and the
     gathered updated parameters and moments, and every rank its local shard
     of each parameter before the step and the shapes its kernels' plain
-    versions were called at.  Then the shard_map step with TP on ``yi_6b``
-    (``fsdp=False``) for both backends, the local shapes of every
+    versions were called at.  Then the shard_map step with TP
+    (``fsdp=False``) for each case of ``TP_CASES``, the local shapes of every
     parameter and moment of every config of ``PLACED_ARCHS`` at fsdp True
     and False, RMSNorm's ``dw`` under batch sharding against the one-card
     ``dw``, and the staged process group's collectives on the CPU."""
@@ -311,6 +323,7 @@ def sharded_ranks(npz_dir: str, batch: int, seq: int, lr: float, warmup: int) ->
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models import layers, lm
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.params import full_params, map_tree, shard_params, shard_tensor
     from repro_torch.training import train_step as T
     from repro_torch.training.data import make_batch
@@ -333,38 +346,49 @@ def sharded_ranks(npz_dir: str, batch: int, seq: int, lr: float, warmup: int) ->
         return wrapped
 
     saved_refs = {n: getattr(ops, n) for n in RECORDED}
+    saved_moe = moe_mod.moe
     out = {"sharded": {}, "tp": {}, "placed": {}}
     try:
         for n, fn in saved_refs.items():
             setattr(ops, n, recording(n, fn))
-        for arch, micro in SHARDED_CASES:
-            cfg = sharded_config(arch, micro)
+        for name, (arch, micro, groups) in SHARDED_CASES.items():
+            cfg = sharded_config(arch, micro, moe_groups=groups)
             step, (pspec, _) = T.make_train_step_sharded(cfg, mesh, opt_cfg)
             params = shard_params(load(cfg, arch), pspec, mesh)
             before = {k: t.to_local().clone() for k, t in _flat(params).items()}
             opt = init_opt_state(params, opt_cfg, T.opt_placements(cfg, mesh))
             shapes.clear()
-            params, opt, metrics = step(params, opt, make_batch(cfg, batch, seq, seed=0, step=0))
+            with comms(mesh) as comm:
+                moe_mod.moe = moe_tagged(saved_moe, comm)
+                params, opt, metrics = step(params, opt, make_batch(cfg, batch, seq, seed=0,
+                                                                    step=0))
             case = {"metrics": metrics, "local_before": before, "kernel_shapes": list(shapes),
-                    "step": int(opt["step"])}
+                    "step": int(opt["step"]),
+                    "moe_collectives": [c[:3] for c in comm.calls if c[3] == "moe"]}
             full = {"params": full_params(params), "m": full_params(opt["m"]),
                     "v": full_params(opt["v"])}
             if rank == 0:
                 case.update({k: _flat(v) for k, v in full.items()})
-            out["sharded"][arch] = case
-    finally:
+            out["sharded"][name] = case
         for n, fn in saved_refs.items():
             setattr(ops, n, fn)
-
-    cfg = sharded_config("yi_6b", fsdp=False)
-    for backend in ("xla", "fulllane"):
-        params = shard_params(load(cfg, "yi_6b"), T.param_pspecs(cfg, mesh), mesh)
-        opt = init_opt_state(params, opt_cfg, T.opt_placements(cfg, mesh))
-        step = T.make_train_step(cfg, opt_cfg, backend=backend, mesh=mesh)
-        params, opt, metrics = step(params, opt, make_batch(cfg, batch, seq, seed=0, step=0))
-        full = {"params": _flat(full_params(params)), "m": _flat(full_params(opt["m"]))}
-        out["tp"][backend] = {"metrics": {k: float(v) for k, v in metrics.items()},
-                              **(full if rank == 0 else {})}
+        for name, (arch, backend) in TP_CASES.items():
+            cfg = sharded_config(arch, fsdp=False)
+            params = shard_params(load(cfg, arch), T.param_pspecs(cfg, mesh), mesh)
+            opt = init_opt_state(params, opt_cfg, T.opt_placements(cfg, mesh))
+            step = T.make_train_step(cfg, opt_cfg, backend=backend, mesh=mesh)
+            with comms(mesh) as comm:
+                moe_mod.moe = moe_tagged(saved_moe, comm)
+                params, opt, metrics = step(params, opt, make_batch(cfg, batch, seq, seed=0,
+                                                                    step=0))
+            full = {"params": _flat(full_params(params)), "m": _flat(full_params(opt["m"]))}
+            out["tp"][name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                               "moe_collectives": [c[:3] for c in comm.calls if c[3] == "moe"],
+                               **(full if rank == 0 else {})}
+    finally:
+        moe_mod.moe = saved_moe
+        for n, fn in saved_refs.items():
+            setattr(ops, n, fn)
 
     for arch in PLACED_ARCHS:
         for fsdp in (True, False):
@@ -478,3 +502,192 @@ def cli_runs(runs: list) -> list:
     from repro_torch.launch import train
 
     return [train.main(argv) for argv in runs]
+
+
+def comms(mesh):
+    """A ``CommDebugMode`` that also keeps each collective of a mesh dim's
+    group in ``calls``, as (op, mesh dim name, input shape, its ``tag`` at
+    the time)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    names = mesh.mesh_dim_names
+    dims = {mesh.get_group(i).group_name: names[i] for i in range(mesh.ndim)}
+
+    class Comms(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.calls, self.tag = [], None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not any(t is DTensor for t in types) and hasattr(func, "_overloadpacket"):
+                group = next((a for a in reversed(args) if isinstance(a, str) and a in dims),
+                             None)
+                if group is not None:
+                    self.calls.append((func._overloadpacket.__name__, dims[group],
+                                       list(args[0].shape), self.tag))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return Comms()
+
+
+def moe_tagged(fn, comm):
+    """``fn`` (``models/moe.moe``) with the collectives it issues tagged
+    "moe" in ``comm`` (``comms``)."""
+    def tagged(*args, **kw):
+        comm.tag = "moe"
+        try:
+            return fn(*args, **kw)
+        finally:
+            comm.tag = None
+    return tagged
+
+
+#: the expert-parallel MoE layer's cases (``moe_ranks``): name -> (arch,
+#: moe_groups, num_experts or None for the config's).  Three experts do not
+#: split over ``model`` = 2, so the rules give it the experts' ``ff``
+MOE_CASES = {
+    "dbrx_g1": ("dbrx_132b", 1, None),
+    "dbrx_g2": ("dbrx_132b", 2, None),
+    "dbrx_g4": ("dbrx_132b", 4, None),
+    "dbrx_e3_g1": ("dbrx_132b", 1, 3),
+    "dbrx_e3_g4": ("dbrx_132b", 4, 3),
+    "deepseek_g1": ("deepseek_v2_236b", 1, None),
+    "deepseek_g4": ("deepseek_v2_236b", 4, None),
+}
+#: faults planted in one rank of a case (``moe_ranks``), each of which the
+#: test's check must catch: name -> (case, rank)
+MOE_FAULTS = {"dropped_partial": ("dbrx_g4", 1), "group_offset": ("dbrx_g4", 2)}
+#: the layer's input [B, S, D] over the (pod 2, data 2, model 2) mesh: 2 rows
+#: of 16 tokens a data-parallel rank
+MOE_B, MOE_S = 8, 16
+
+
+def moe_config(arch: str, groups: int, experts):
+    """The float32 smoke config of ``arch`` with ``moe_groups`` and
+    ``num_experts`` (None: the config's); the test builds the same."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    e = cfg.moe if experts is None else dataclasses.replace(cfg.moe, num_experts=experts)
+    return dataclasses.replace(cfg, dtype="float32", moe=e, parallel=dataclasses.replace(
+        cfg.parallel, moe_groups=groups))
+
+
+def moe_inputs(cfg) -> dict:
+    """The layer's seeded inputs, float32 numpy: its parameters (by key,
+    each drawn at ``1/sqrt`` of its input width), ``x`` [B, S, D] and the
+    output's cotangent ``c``."""
+    from repro_torch.models.moe import moe_meta
+
+    r = np.random.RandomState(29)
+    out = {k: (r.randn(*m.shape) / np.sqrt(m.shape[-2])).astype(np.float32)
+           for k, m in sorted(moe_meta(cfg).items())}
+    out["x"] = _randn(30, MOE_B, MOE_S, cfg.d_model)
+    out["c"] = _randn(31, MOE_B, MOE_S, cfg.d_model)
+    return out
+
+
+def moe_ranks() -> dict:
+    """The expert-parallel MoE layer (``models/moe.moe`` on DTensors) on the
+    (pod 2, data 2, model 2) mesh of 8 ranks, on the CPU, for each case of
+    ``MOE_CASES``: its parameters placed by the FSDP rules, ``x`` and ``c``
+    over the data-parallel dims, the loss ``sum(c * out) + aux`` and its
+    gradients.  Rank 0 returns the output, aux loss and every gradient,
+    gathered; every rank the weight shapes each ``expert_ffn`` call saw,
+    its bmm FLOPs in the forward (``FlopCounterMode``) beside the one-rank
+    layer's, and the collectives of the forward and of the backward by
+    (op, mesh dim, input shape).  Then each fault of ``MOE_FAULTS`` planted
+    in its rank (``_route_on_rank`` routing the next data-parallel rank's
+    rows, ``_experts_on_rank``'s partial dropped): the gathered output and
+    gradients."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import moe as M
+    from repro_torch.models.params import partition_specs, shard_params, shard_tensor
+
+    rank = dist.get_rank()
+    mesh = make_device_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    names = mesh.mesh_dim_names
+
+    def bmm_flops(counter) -> int:
+        return int(counter.get_flop_counts().get("Global", {}).get(torch.ops.aten.bmm, 0))
+
+    spied = []
+
+    def run(cfg, inputs, record=False):
+        keys = [k for k in inputs if k not in ("x", "c")]
+        full = {k: torch.from_numpy(inputs[k]) for k in keys}
+        specs = partition_specs(M.moe_meta(cfg), dict(zip(names, mesh.shape)), fsdp=True)
+        p = {k: t.requires_grad_() for k, t in shard_params(full, specs, mesh).items()}
+        dp = (Shard(0), Shard(0), Replicate())
+        x = shard_tensor(torch.from_numpy(inputs["x"]), mesh, dp).requires_grad_()
+        c = shard_tensor(torch.from_numpy(inputs["c"]), mesh, dp)
+        fwd, bwd, flops = comms(mesh), comms(mesh), FlopCounterMode(display=False)
+        with fwd, flops:
+            out, aux = M.moe(cfg, p, x)
+        loss = (out * c).sum() + aux
+        with bwd:
+            grads = torch.autograd.grad(loss, [x, *(p[k] for k in keys)])
+        res = {"out": out.full_tensor().detach(), "aux": aux.full_tensor().detach(),
+               "grads": {k: g.full_tensor() for k, g in zip(["x", *keys], grads)},
+               "grad_placements": {k: str(g.placements) for k, g in zip(["x", *keys], grads)}}
+        if record:
+            res["expert_ffn"] = list(spied)  # the sharded forward's calls
+            one = FlopCounterMode(display=False)
+            with one:
+                M.moe(cfg, full, torch.from_numpy(inputs["x"]))
+            res.update(fwd=[c[:3] for c in fwd.calls], bwd=[c[:3] for c in bwd.calls],
+                       flops=bmm_flops(flops),
+                       one_rank_flops=bmm_flops(one), specs={k: list(v) for k, v in specs.items()})
+        return res
+
+    saved = {n: getattr(M, n) for n in ("expert_ffn", "_route_on_rank", "_experts_on_rank")}
+
+    def spy(be, wg, wu, wd):
+        spied.append([list(wg.shape), list(wu.shape), list(wd.shape)])
+        return saved["expert_ffn"](be, wg, wu, wd)
+
+    def next_rows(inputs):
+        """``_route_on_rank`` routing the rows of the next data-parallel rank."""
+        def route(cfg_, router, x, G):
+            share = (rank // 2 + 1) % 4 * x.shape[0]
+            x = torch.from_numpy(inputs["x"][share:share + x.shape[0]]) + 0 * x
+            return saved["_route_on_rank"](cfg_, router, x, G)
+        return route
+
+    def no_partial(*args):
+        """``_experts_on_rank`` whose partial is left out of the sum over model."""
+        return saved["_experts_on_rank"](*args) * 0
+
+    out = {"cases": {}, "faults": {}}
+    try:
+        M.expert_ffn = spy
+        for name, case in MOE_CASES.items():
+            cfg = moe_config(*case)
+            spied.clear()
+            out["cases"][name] = run(cfg, moe_inputs(cfg), record=True)
+        for name, (case, bad) in MOE_FAULTS.items():
+            cfg = moe_config(*MOE_CASES[case])
+            inputs = moe_inputs(cfg)
+            if rank == bad and name == "group_offset":
+                M._route_on_rank = next_rows(inputs)
+            elif rank == bad:
+                M._experts_on_rank = no_partial
+            out["faults"][name] = run(cfg, inputs)
+            M._route_on_rank = saved["_route_on_rank"]
+            M._experts_on_rank = saved["_experts_on_rank"]
+    finally:
+        for n, fn in saved.items():
+            setattr(M, n, fn)
+    if rank:
+        for res in (*out["cases"].values(), *out["faults"].values()):
+            for k in ("out", "aux", "grads"):
+                res.pop(k)
+    return out
