@@ -157,12 +157,23 @@ Phases, each reported on its own lines:
    what ``torch.cuda.memory_allocated`` grows by when they are made, and
    its arguments plus its ``peak_bytes`` are printed beside
    ``torch.cuda.max_memory_allocated`` over one train step.  (b)
-   ``--all --mesh both`` for the ``xla`` and ``fulllane`` backends, one
-   process for each backend and mesh, all four at once, none of them seeing
-   the card: every cell ``ok`` or skipped by
-   ``cell_eligible``, no error; each train cell's cross-pod bytes per rank
-   of the gradient sync on 2 x 16 x 16, flat and full-lane, are printed.
-   The dry-run's numbers are counts from shapes, not card times;
+   ``--all --mesh both`` for the ``xla`` and ``fulllane`` backends, none
+   of the processes seeing the card: every cell ``ok`` or skipped by
+   ``cell_eligible``, no error; each ``fulllane`` train cell's cross-pod
+   bytes per rank of the shard_map step's gradient sync on 2 x 16 x 16 are
+   printed.  The ``xla`` cells run the reference's own sharded programs
+   (the production step, the sharded prefill and decode step) as rank 0
+   over a fake process group of the mesh's size, on meta shards; the
+   sweep runs in eight processes at once (each (backend, mesh) for every
+   other config) at the lowest CPU priority, started before phase 8 so
+   that it runs on the host while phase 8 runs on the card.  (c) After phase 10: the dry-run's sharded cells of the
+   programs phase 10 (b) and (f) run, at their configs, shapes and meshes
+   (``dryrun_cells``, computed beside (b)), against rank 0 of those runs:
+   argument bytes per rank equal to what it holds (parameters and AdamW
+   moments; parameters, cache and tokens), and the collectives by kind,
+   bytes and counts, equal to what it issued (``CollectiveBytes``; a train
+   step's: one microbatch's times their number, and the update).  The
+   dry-run's numbers are counts from shapes, not card times;
 10. sharded training (``training/train_step.make_train_step_sharded``
    and the shard_map step with TP) on this card, in 8 ranks over gloo as a
    (pod 2, data 2, model 2) ``DeviceMesh`` whose groups stage every
@@ -209,7 +220,25 @@ Phases, each reported on its own lines:
    through (a) and (b) beside Yi and Falcon (the sharded step alone),
    each row of a microbatch a dispatch group (``moe_groups`` 4, the
    data-parallel world), their routed leaves' first moments at
-   ``SHARDED_MOE_M_TOL``.
+   ``SHARDED_MOE_M_TOL``.  (f) Sharded serving (``lm.prefill`` and
+   ``lm.decode_step`` on DTensors with ``make_act_shard``'s hook) at full
+   width and 2 layers: Yi-6B and Falcon-Mamba-7B on (2, 2, 2), DeepSeek-V2
+   (its dense prelude and one MoE layer: MLA with its latent cache split
+   over ``model`` on the sequence, expert-parallel) on (1, 2, 4); 4 prompts
+   of 512 tokens into a capacity of 1024, then 8 decode steps.  The
+   one-rank path through the kernels first, in a process of its own, from
+   the same seed (its parameters saved for the ranks, which cut their
+   shards from them); every rank's logits after the prefill and after
+   each step, and every rank's cache shards against the matching slices
+   of the one-rank cache, within ``SERVE_SHARDED_TOL`` in
+   ``ref.scaled_err``, a limit that must part the one-rank path through
+   the plain versions (which must pass) from a planted fault (one
+   ``model`` rank's mixer outputs dropped from the sum, which must fail
+   by twice it); the greedy tokens that agree are counted (near-tie
+   routing flips in bf16); per rank the bytes held, peak memory,
+   collectives, bytes staged through the host and host-clock seconds; the
+   path's kernels (RMSNorm, flash attention, the scan) each launched on
+   every rank.
 
 The last three lines are the ``nvidia-smi`` line, one JSON object with the
 kernels' numbers, and ``{"ok": true, "device": {...}}``; the full record
@@ -499,6 +528,33 @@ SHARDED_MOE_M_TOL = 0.2
 #: CUDA tensors over the gloo world by phase 10
 GLOO_OPS = ("all_reduce", "broadcast", "all_gather_into_tensor", "reduce_scatter_tensor",
             "all_to_all_single")
+#: phase 10 (f): sharded serving (``lm.prefill`` and ``lm.decode_step`` on
+#: DTensors, with ``make_act_shard``'s hook) at full width and 2 layers, in
+#: 8 ranks over the card's host-staged gloo groups: (arch, mesh as (pod,
+#: data, model)).  DeepSeek-V2's 2 layers are its dense prelude and one MoE
+#: layer (MLA, its latent cache split over ``model`` on its sequence;
+#: expert-parallel), on phase 10 (d)'s mesh
+SERVE_SHARDED = [("yi_6b", (2, 2, 2)), ("falcon_mamba_7b", (2, 2, 2)),
+                 ("deepseek_v2_236b", (1, 2, 4))]
+#: (f)'s workload: prompts [SERVE_SHARDED_BATCH, SERVE_SHARDED_PROMPT] into a
+#: cache of SERVE_SHARDED_CAPACITY, then SERVE_SHARDED_STEPS decode steps
+SERVE_SHARDED_BATCH, SERVE_SHARDED_PROMPT = 4, 512
+SERVE_SHARDED_CAPACITY, SERVE_SHARDED_STEPS = 1024, 8
+#: (f)'s limit on every rank's logits (after the prefill and after each
+#: step) against the one-rank path's, in ``ref.scaled_err``, and on its
+#: cache shards, by the rms of the error over the shard relative to the
+#: one-rank leaf's rms (the Mamba state is float32 from bf16 activations,
+#: whose rounding ``exp(dt A)`` amplifies element by element: up to 2 in
+#: ``ref.scaled_err`` on the CPU rehearsal in bf16, 0 in float32); it must
+#: part two readings: the one-rank path through the plain versions
+#: (another rounding of the same function) must pass, one ``model`` rank's
+#: mixer output dropped from the sum over ``model`` (a planted fault) must
+#: fail by twice it.  The CPU rehearsal at the smoke widths in bf16 reads up
+#: to 0.040 on the logits and 0.014 on the caches, the fault 1.4 to 2.5; the
+#: H100 (a first run): logits 0.044 / 0.049 / 0.082 (Yi, Falcon,
+#: DeepSeek-V2, whose near-tie routing choices flip in bf16), the plain
+#: versions 0.034 / 0 / 0.044, the fault 3.7 / 3.2 / 2.9
+SERVE_SHARDED_TOL = 2e-1
 
 
 def _graph_ms(calls) -> float:
@@ -2441,58 +2497,95 @@ def train_checkpoint(seed: int = 0) -> dict:
     return {"losses": losses, "resumed_at": 3, "state_equal": True}
 
 
-def dryrun_phase(smi: str) -> dict:
-    """Phase 9 (b): ``python -m repro_torch.launch.dryrun --all`` on both
-    meshes for each backend, the four (backend, mesh) runs at once, each in
-    a process of its own that sees no card (the dry-run runs on the meta
-    device).  Every cell must be ``ok`` or ``skipped`` by
-    ``cell_eligible``: an error fails the phase.  Returns, by backend, the
-    counts by status and the seconds, and each train cell's cross-pod bytes
-    per rank of the gradient sync on the multi-pod mesh."""
+def _lowest_priority():
+    """In a child before it runs: the lowest CPU priority (a niceness of
+    19), so that the card's phases keep their host cores."""
+    os.nice(19)
+
+
+def dryrun_start() -> dict:
+    """Phase 9 (b)'s processes, started: ``python -m
+    repro_torch.launch.dryrun`` over every cell on both meshes for each
+    backend, in eight processes (each (backend, mesh) for every other
+    config), and (c)'s dry-run side (``dryrun_cells``) in a ninth, each
+    seeing no card (the dry-run runs on the meta device) and at the lowest
+    CPU priority: they run on the host beside phase 8's card work, and
+    ``dryrun_phase`` collects them."""
+    from repro_torch.configs import ARCH_IDS
+
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
     procs, dirs = {}, {}
-    t0 = time.perf_counter()
+    cells_path = OUT_DIR / "dryrun_cells.json"
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    kw = dict(env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+              preexec_fn=_lowest_priority)
+    for backend in ("xla", "fulllane"):
+        dirs[backend] = OUT_DIR / f"dryrun_{backend}"
+        shutil.rmtree(dirs[backend], ignore_errors=True)
+        for mesh in ("single", "multi"):  # independent host processes
+            for half in (0, 1):
+                procs[backend, mesh, half] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                     *ARCH_IDS[half::2], "--mesh", mesh, "--backend", backend,
+                     "--out-dir", str(dirs[backend])], **kw)
+    procs["cells"] = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke; chip_smoke.dryrun_cells({str(cells_path)!r})"], **kw)
+    return {"procs": procs, "dirs": dirs, "cells_path": cells_path,
+            "t0": time.perf_counter()}
+
+
+def dryrun_phase(smi: str, started: dict) -> dict:
+    """Phase 9 (b): waits for ``dryrun_start``'s processes.  Every cell must
+    be ``ok`` or ``skipped`` by ``cell_eligible``: an error fails the
+    phase.  Returns, by backend, the counts by status and the seconds, each
+    ``fulllane`` train cell's cross-pod bytes per rank of the gradient
+    sync on the multi-pod mesh, and (c)'s cells."""
+    procs, dirs, cells_path = started["procs"], started["dirs"], started["cells_path"]
+    t_wait = time.perf_counter()
     try:
-        for backend in ("xla", "fulllane"):
-            dirs[backend] = OUT_DIR / f"dryrun_{backend}"
-            shutil.rmtree(dirs[backend], ignore_errors=True)
-            for mesh in ("single", "multi"):  # independent host processes
-                procs[backend, mesh] = subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", mesh,
-                     "--backend", backend, "--out-dir", str(dirs[backend])],
-                    env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True)
         logs = {k: p.communicate(timeout=900)[0] for k, p in procs.items()}
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    seconds = time.perf_counter() - t0
-    out = {}
+    seconds = time.perf_counter() - started["t0"]
+    waited = time.perf_counter() - t_wait
+    (OUT_DIR / "dryrun_cells.log").write_text(logs["cells"])
+    if procs["cells"].returncode:
+        raise AssertionError(f"phase 9 (c)'s dry-run cells: exit {procs['cells'].returncode}; "
+                             f"{logs['cells'][-2000:]}")
+    out = {"cells": json.loads(cells_path.read_text())}
     for backend, d in dirs.items():
         recs = [json.loads(f.read_text()) for f in sorted(d.glob("*.json"))]
         status = {k: sum(r["status"] == k for r in recs) for k in ("ok", "skipped", "error")}
         rcs = {}
         for mesh in ("single", "multi"):
-            (OUT_DIR / f"dryrun_{backend}_{mesh}.log").write_text(logs[backend, mesh])
-            rcs[mesh] = procs[backend, mesh].returncode
-        if any(rcs.values()) or status["error"] or len(recs) != 80:
+            (OUT_DIR / f"dryrun_{backend}_{mesh}.log").write_text(
+                logs[backend, mesh, 0] + logs[backend, mesh, 1])
+            rcs[mesh] = [procs[backend, mesh, h].returncode for h in (0, 1)]
+        if any(any(v) for v in rcs.values()) or status["error"] or len(recs) != 80:
             raise AssertionError(f"dryrun --backend {backend}: exit {rcs}, "
                                  f"{len(recs)} records, {status}; logs in build/chip_smoke")
         cross = {r["arch"]: r["dp_sync_sent_per_device"]["cross_pod_bytes"] for r in recs
-                 if r["status"] == "ok" and r["shape"] == "train_4k" and r["mesh"] == "multi"}
-        out[backend] = {"status": status, "cross_pod_bytes_train_4k_multi": cross}
+                 if r["status"] == "ok" and r["shape"] == "train_4k" and r["mesh"] == "multi"
+                 and r["dp_sync_sent_per_device"] is not None}
+        slowest = max((r for r in recs if r["status"] == "ok"), key=lambda r: r["pass_s"])
+        out[backend] = {"status": status, "cross_pod_bytes_train_4k_multi": cross,
+                        "pass_s": sum(r.get("pass_s", 0) for r in recs)}
         print(f"[dryrun] --all --mesh both --backend {backend}: {status['ok']} cells ok, "
               f"{status['skipped']} skipped by cell_eligible, {status['error']} errors "
-              f"(four processes at once in {seconds:.1f} s, on the host: counts from shapes on "
-              f"the meta device, not card numbers; {smi})")
-    for arch, flat in out["xla"]["cross_pod_bytes_train_4k_multi"].items():
-        full = out["fulllane"]["cross_pod_bytes_train_4k_multi"][arch]
-        print(f"[dryrun] {arch} train_4k on 2 x 16 x 16: the gradient sync sends {flat / 2**20:.1f}"
-              f" MiB across pods per rank flat, {full / 2**20:.1f} MiB full-lane "
-              f"({full / flat:.4f} of it; the paper's count, direct algorithms)")
-    out["seconds"] = seconds
+              f"(eight processes and (c)'s at once in {seconds:.1f} s beside phase 8, "
+              f"{waited:.1f} s of it waited for; this backend's passes "
+              f"{out[backend]['pass_s']:.1f} s, the slowest {slowest['arch']} "
+              f"{slowest['shape']} {slowest['mesh']} {slowest['pass_s']} s; on the host: counts "
+              f"from shapes on the meta device, not card numbers; {smi})")
+    for arch, full in out["fulllane"]["cross_pod_bytes_train_4k_multi"].items():
+        print(f"[dryrun] {arch} train_4k on 2 x 16 x 16: the shard_map step's gradient sync "
+              f"sends {full / 2**20:.1f} MiB across pods per rank full-lane (the paper's count, "
+              f"direct algorithms)")
+    out["seconds"], out["waited"] = seconds, waited
     return out
 
 
@@ -2725,6 +2818,7 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
     from repro_torch.core.groups import MeshAxes
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import scaled_err
+    from repro_torch.launch.costanalysis import CollectiveBytes
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.models import lm
     from repro_torch.models.params import shard_params
@@ -2787,7 +2881,8 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
                 ops.reset_launches()  # this run's counts start here
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with CommDebugMode() as comm:
+                rec = CollectiveBytes()
+                with CommDebugMode() as comm, rec:
                     params, opt, metrics = step(params, opt, batch)
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
@@ -2798,6 +2893,7 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
                        "launches": launches, "kernel_shapes": sorted(set(shapes)),
                        "bytes": mine, "replica_elements": replica, "peak_bytes": peak,
                        "collectives": {str(k): v for k, v in comm.get_comm_counts().items()},
+                       "recorded": (dict(rec.bytes), dict(rec.counts)),
                        "staged_bytes": staged,
                        "dp_traffic": view.traffic.snapshot()}
                 view.traffic.reset()
@@ -3376,6 +3472,439 @@ def moe_layer_phase(smi: str) -> dict:
     return out
 
 
+def _serve_sharded_config(arch: str, smoke: bool = False):
+    """Phase 10 (f)'s config: ``arch`` at full width and 2 layers (its smoke
+    config, a rehearsal's)."""
+    from repro_torch.configs import get_smoke_config
+
+    return get_smoke_config(arch) if smoke else _config(arch, 2)
+
+
+def _serve_sharded_tokens(cfg, batch: int, n: int, seed: int, device: str):
+    """(f)'s seeded tokens [batch, n] (int32): the prompt, then each decode
+    step's token, the same in every process."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed + 17)
+    return torch.randint(0, cfg.vocab_size, (batch, n), generator=g, device=device,
+                         dtype=torch.int32)
+
+
+def _serve_sharded_run(cfg, params, tokens, prompt: int, capacity: int, act=None, place=None):
+    """(f)'s workload: a prefill of ``tokens[:, :prompt]`` into
+    ``capacity``, then a decode step on each next token.
+    Returns (logits after the prefill and after each step, the cache after
+    the prefill (a copy), the cache, and the collectives of the prefill
+    and of the first step, by kind, from ``costanalysis.CollectiveBytes``)."""
+    from repro_torch.launch.costanalysis import CollectiveBytes
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
+
+    place = place or (lambda t: t)
+    rec = CollectiveBytes()
+    with rec:
+        lg, cache = lm.prefill(cfg, params, {"tokens": place(tokens[:, :prompt])},
+                               capacity=capacity, act_shard=act)
+    colls = {"prefill": (dict(rec.bytes), dict(rec.counts))}
+    logits = [lg]
+    filled = map_tree(lambda _, t: t.clone(), cache)
+    for i in range(tokens.shape[1] - prompt):
+        rec = CollectiveBytes()
+        with rec:
+            lg, cache = lm.decode_step(cfg, params, place(tokens[:, prompt + i:prompt + i + 1]),
+                                       cache, prompt + i, act_shard=act)
+        if i == 0:
+            colls["decode"] = (dict(rec.bytes), dict(rec.counts))
+        logits.append(lg)
+    return logits, filled, cache, colls
+
+
+def _cache_err(got, want, leaf_rms: float) -> float:
+    """(f)'s measure of a cache shard: the rms of its error over the shard,
+    relative to the one-rank leaf's rms."""
+    return ((got.float() - want.float()).square().mean().sqrt().item()
+            / max(leaf_rms, 1e-30))
+
+
+def serve_sharded_reference(ref_dir: str, smoke: bool = False, device: str = "cuda",
+                            batch: int = SERVE_SHARDED_BATCH,
+                            prompt: int = SERVE_SHARDED_PROMPT,
+                            capacity: int = SERVE_SHARDED_CAPACITY,
+                            steps: int = SERVE_SHARDED_STEPS, seed: int = 0) -> dict:
+    """Phase 10 (f) (a), in a process of its own: for each config of
+    ``SERVE_SHARDED``, the one-rank path through the kernels from the
+    seeded parameters (``lm.init_model``) and tokens, its logits, caches
+    and each cache leaf's rms saved to ``<ref_dir>/<arch>.pt``; then the
+    same path through the plain versions, a reading that must pass (f)'s
+    check: its worst logits error and cache error against the kernels'
+    path."""
+    import torch
+
+    from repro_torch.kernels.ref import scaled_err
+    from repro_torch.models import lm
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    out = {}
+    for arch, _ in SERVE_SHARDED:
+        cfg = _serve_sharded_config(arch, smoke)
+        params = lm.init_model(cfg, torch.Generator(device=device).manual_seed(seed),
+                               device=device)
+        tokens = _serve_sharded_tokens(cfg, batch, prompt + steps, seed, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, filled, cache, _ = _serve_sharded_run(cfg, params, tokens, prompt, capacity)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        want = {"logits": logits, "prefill_cache": dict(_leaf_paths(filled)),
+                "cache": dict(_leaf_paths(cache))}
+        rms = {w: {k: t.float().square().mean().sqrt().item() for k, t in want[w].items()}
+               for w in ("prefill_cache", "cache")}
+        torch.save({**{k: ([t.cpu() for t in v] if isinstance(v, list) else
+                           {n: t.cpu() for n, t in v.items()}) for k, v in want.items()},
+                    "rms": rms}, Path(ref_dir) / f"{arch}.pt")
+        with plain_kernels():
+            logits_p, filled_p, cache_p, _ = _serve_sharded_run(cfg, params, tokens, prompt,
+                                                               capacity)
+        plain = {"logits": max(scaled_err(a, b) for a, b in zip(logits_p, want["logits"])),
+                 "cache": max([_cache_err(t, want["cache"][k], rms["cache"][k])
+                               for k, t in _leaf_paths(cache_p)]
+                              + [_cache_err(t, want["prefill_cache"][k],
+                                            rms["prefill_cache"][k])
+                                 for k, t in _leaf_paths(filled_p)])}
+        out[arch] = {"seconds": secs, "plain": plain,
+                     "param_bytes": sum(t.numel() * t.element_size() for _, t in
+                                        _leaf_paths(params)),
+                     "cache_bytes": sum(t.numel() * t.element_size() for t in
+                                        want["cache"].values())}
+        del params, logits_p, filled_p, cache_p, want, logits, filled, cache
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def _drawn_shards(cfg, mesh, seed: int, device: str) -> dict:
+    """``lm.init_model(cfg)``'s parameters from ``seed`` (the same draws, leaf
+    by leaf in its order) placed by ``param_pspecs`` on ``mesh``: each rank
+    draws every leaf on ``device`` and keeps its shard, the ranks in turn,
+    so that one whole leaf at a time is drawn on the card."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import lm
+    from repro_torch.models.params import _init_one, map_tree, placements, torch_dtype
+    from repro_torch.training.train_step import param_pspecs
+
+    def one(_, meta, spec):
+        local = _init_one(meta, gen, torch.device(device), torch_dtype(cfg.dtype))
+        pl = placements(spec, mesh)
+        coord = mesh.get_coordinate()
+        for d, q in enumerate(pl):
+            if q.is_shard():
+                local = local.chunk(mesh.size(d), q.dim)[coord[d]]
+        return DTensor.from_local(local.clone(memory_format=torch.contiguous_format), mesh,
+                                  pl, run_check=False)
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if r == dist.get_rank():
+            gen = torch.Generator(device=device).manual_seed(seed)
+            out = map_tree(one, lm.model_meta(cfg), param_pspecs(cfg, mesh))
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+@contextlib.contextmanager
+def _dropped_partial(rank_drops: bool):
+    """A planted fault: on a rank where ``rank_drops``, each attention and
+    Mamba mixer's output has this rank's local part zeroed, so that its
+    share of the sum over ``model`` is left out."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import lm
+
+    saved = (lm.attn_mod.attention, lm.mamba_mod.mamba)
+
+    def zeroed(t):
+        return DTensor.from_local(t.to_local() * 0, t.device_mesh, t.placements,
+                                  run_check=False, shape=t.shape, stride=t.stride())
+
+    def attention(*a, **k):
+        res = saved[0](*a, **k)
+        return res._replace(out=zeroed(res.out))
+
+    def mamba(*a, **k):
+        y, cache = saved[1](*a, **k)
+        return zeroed(y), cache
+
+    if rank_drops:
+        lm.attn_mod.attention, lm.mamba_mod.mamba = attention, mamba
+    try:
+        yield
+    finally:
+        lm.attn_mod.attention, lm.mamba_mod.mamba = saved
+
+
+def serve_sharded_job(ref_dir: str, smoke: bool = False, device: str = "cuda",
+                      batch: int = SERVE_SHARDED_BATCH, prompt: int = SERVE_SHARDED_PROMPT,
+                      capacity: int = SERVE_SHARDED_CAPACITY,
+                      steps: int = SERVE_SHARDED_STEPS, seed: int = 0) -> dict:
+    """Phase 10 (f) (b), the body of one rank: for each config of
+    ``SERVE_SHARDED`` on its mesh, the parameters placed by
+    ``param_pspecs`` (each rank cuts its shards from the saved ones), the
+    prompt and tokens by ``batch_pspecs``, (f)'s workload sharded with
+    ``make_act_shard``'s hook; each rank's logits (replicated) and cache
+    shards held to the one-rank path's (``ref.scaled_err``, each shard
+    against the same slice of the one-rank cache, none gathered), how many
+    greedy tokens agree, the bytes it holds, its peak memory, the
+    collectives (``CommDebugMode`` by op; ``CollectiveBytes`` by kind for
+    the prefill and the first step), the bytes staged through the host,
+    the launches and the host-clock seconds.  Then the planted fault: the
+    prefill again with the last ``model`` rank's mixer outputs dropped
+    from the sum over ``model`` (``_dropped_partial``), its logits'
+    error."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.core.groups import MeshAxes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import scaled_err
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models.params import placements, shard_tensor
+    from repro_torch.training import train_step as T
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    for arch, shape in SERVE_SHARDED:
+        cfg = _serve_sharded_config(arch, smoke)
+        mesh = make_device_mesh(shape, ("pod", "data", "model"), device)
+        view = MeshAxes(mesh)
+        params = _drawn_shards(cfg, mesh, seed, device)
+        act = T.make_act_shard(cfg, mesh)
+
+        def place(t):
+            return shard_tensor(t, mesh, placements(SP.batch_pspecs(mesh, t), mesh))
+
+        tokens = _serve_sharded_tokens(cfg, batch, prompt + steps, seed, device)
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        staged0 = view.staged_bytes()
+        ops.reset_launches()  # this run's counts start here
+        dist.barrier()
+        t0 = time.perf_counter()
+        with CommDebugMode() as comm:
+            logits, filled, cache, colls = _serve_sharded_run(cfg, params, tokens, prompt,
+                                                              capacity, act, place)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        want = torch.load(Path(ref_dir) / f"{arch}.pt", mmap=True)
+        lg_errs = [scaled_err(g.to_local(), w.to(g.to_local().device))
+                   for g, w in zip(logits, want["logits"])]
+        agree = sum(int((g.to_local().argmax(-1).cpu() == w.argmax(-1)).sum())
+                    for g, w in zip(logits[1:], want["logits"][1:]))
+
+        def shard_errs(tree, when):
+            return {k: _cache_err(t.to_local(), want[when][k][_local_slices(t)].to(
+                t.to_local().device), want["rms"][when][k]) for k, t in _leaf_paths(tree)}
+
+        res = {"logits_errs": lg_errs, "greedy_agree": agree,
+               "greedy_total": (len(logits) - 1) * batch,
+               "prefill_cache_errs": shard_errs(filled, "prefill_cache"),
+               "cache_errs": shard_errs(cache, "cache"),
+               "bytes": {"params": sum(t.to_local().numel() * t.to_local().element_size()
+                                       for _, t in _leaf_paths(params)),
+                         "cache": sum(t.to_local().numel() * t.to_local().element_size()
+                                      for _, t in _leaf_paths(cache)),
+                         "tokens": place(tokens[:, :prompt]).to_local().numel() * 4},
+               "seconds": secs, "launches": launches,
+               "collectives": {str(k): v for k, v in comm.get_comm_counts().items()},
+               "recorded": colls, "mesh": list(shape),
+               "staged_bytes": {k: v - staged0.get(k, 0)
+                                for k, v in view.staged_bytes().items()}}
+        if device == "cuda":
+            res["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del filled, cache, want
+        # the planted fault: the last model rank's mixer outputs left out of the sum
+        drops = mesh.get_coordinate()[2] == shape[2] - 1
+        with _dropped_partial(drops):
+            lg_f, _, _, _ = _serve_sharded_run(cfg, params, tokens[:, :prompt], prompt,
+                                               capacity, act, place)
+        want = torch.load(Path(ref_dir) / f"{arch}.pt", mmap=True)
+        res["fault_err"] = scaled_err(lg_f[0].to_local(),
+                                      want["logits"][0].to(lg_f[0].to_local().device))
+        out[arch] = res
+        del params, logits, lg_f, want
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_sharded_phase(smi: str) -> dict:
+    """Phase 10 (f): sharded serving at full width on this card.  (a) The
+    one-rank path of each config of ``SERVE_SHARDED`` through the kernels,
+    and through the plain versions (a reading that must pass), in a
+    process of its own; (b) ``serve_sharded_job`` in 8 ranks: every rank's
+    logits and cache shards within ``SERVE_SHARDED_TOL`` of the one-rank
+    path's, the planted dropped partial at twice it or more, the path's
+    kernels each launched on every rank.  Prints per rank the bytes held,
+    peak memory, collectives, bytes staged through the host and seconds."""
+    import torch
+
+    from repro_torch.launch import ranks
+
+    d = OUT_DIR / "serve_sharded"
+    d.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    (one,) = ranks.run("chip_smoke:serve_sharded_reference", 1, timeout_s=600,
+                       kwargs={"ref_dir": str(d)})
+    ref_s = time.perf_counter() - t0
+    world = math.prod(SERVE_SHARDED[0][1])
+    t0 = time.perf_counter()
+    with _expandable_segments():
+        got = ranks.run("chip_smoke:serve_sharded_job", world, timeout_s=900,
+                        kwargs={"ref_dir": str(d)})
+    job_s = time.perf_counter() - t0
+    out = {"one_rank": one, "ranks": got, "reference_seconds": ref_s, "job_seconds": job_s}
+    for arch, shape in SERVE_SHARDED:
+        cfg = _serve_sharded_config(arch)
+        r0 = got[0][arch]
+        errs = max(max(r[arch]["logits_errs"]) for r in got)
+        cache_errs = max(max(list(r[arch]["prefill_cache_errs"].values())
+                             + list(r[arch]["cache_errs"].values())) for r in got)
+        fault = max(r[arch]["fault_err"] for r in got)
+        mem = [r[arch]["peak_bytes"] / 1e9 for r in got]
+        kinds = [k for k in ("rmsnorm", "flash_attention", "mamba_scan")
+                 if (k != "mamba_scan" or cfg.mamba is not None)
+                 and (k != "flash_attention" or cfg.attn is not None)]
+        unlaunched = {r["rank"]: [k for k in kinds if r[arch]["launches"][k] == 0] for r in got}
+        print(f"[serve sharded] {arch} at full width, 2 layers, {world} ranks as (pod, data, "
+              f"model) = {tuple(shape)}: {SERVE_SHARDED_BATCH} prompts of "
+              f"{SERVE_SHARDED_PROMPT} into {SERVE_SHARDED_CAPACITY}, "
+              f"{SERVE_SHARDED_STEPS} decode steps: worst over ranks logits {errs:.4g}, cache "
+              f"shards {cache_errs:.4g} (tol {SERVE_SHARDED_TOL}: logits in ref.scaled_err, "
+              f"cache shards by the rms of the error over the one-rank leaf's; the one-rank "
+              f"path through the plain versions {one[arch]['plain']}; one model rank's mixer "
+              f"partial dropped: logits {fault:.4g}); greedy tokens agreeing "
+              f"{r0['greedy_agree']} of {r0['greedy_total']}; launches on rank 0 "
+              f"{r0['launches']}")
+        for r in got:
+            x = r[arch]
+            print(f"[serve sharded] {arch} rank {r['rank']}: holds parameters "
+                  f"{x['bytes']['params'] / 1e9:.3f} GB (the replica's "
+                  f"{one[arch]['param_bytes'] / 1e9:.3f} GB), cache "
+                  f"{x['bytes']['cache'] / 1e6:.2f} MB (the one-rank cache's "
+                  f"{one[arch]['cache_bytes'] / 1e6:.2f} MB); peak memory "
+                  f"{x['peak_bytes'] / 1e9:.2f} GB; collectives (CommDebugMode) "
+                  f"{x['collectives']}; staged through the host {x['staged_bytes']}; prefill "
+                  f"and {SERVE_SHARDED_STEPS} steps in {x['seconds']:.2f} s (host clock, "
+                  f"{HOST_STAGED}); {smi}")
+        print(f"[serve sharded] {arch}: peak memory per rank {min(mem):.2f}-{max(mem):.2f} GB")
+        if not (max(one[arch]["plain"].values()) <= SERVE_SHARDED_TOL
+                and fault >= 2 * SERVE_SHARDED_TOL):
+            raise AssertionError(f"{arch}: (f)'s limit does not part the plain versions' "
+                                 f"path {one[arch]['plain']} from a dropped partial {fault}")
+        if errs > SERVE_SHARDED_TOL or cache_errs > SERVE_SHARDED_TOL or any(
+                unlaunched.values()):
+            raise AssertionError(f"{arch}: sharded serving is off the one-rank path: logits "
+                                 f"{errs}, caches {cache_errs}; kernels not launched "
+                                 f"{unlaunched}")
+    print(f"[serve sharded] one-rank paths in {ref_s:.1f} s, the ranks' job in {job_s:.1f} s "
+          f"(start-up included)")
+    shutil.rmtree(d, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_cells(out_path: str) -> None:
+    """Phase 9 (c)'s dry-run side, in a process that sees no card: the
+    sharded cells of the programs phase 10 (b) and (f) run, each at that
+    phase's config, shape and mesh, as rank 0 over a fake group of device
+    type ``cuda`` (``launch/dryrun.measure_cell``), to ``out_path``."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+
+    cells = {}
+    for arch in SHARDED_ARCHS + SHARDED_MOE_ARCHS:
+        cfg = _sharded_config(arch)  # phase 10 (b) builds its AdamW with float32 moments
+        cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+            cfg.parallel, optimizer_dtype="float32"))
+        cells[f"{arch} train"] = dryrun.measure_cell(
+            cfg, ShapeSpec("phase 10 (b)", "train", SHARDED_SEQ, SHARDED_BATCH),
+            make_test_mesh(SHARDED_MESH))
+    for arch, shape in SERVE_SHARDED:
+        cfg = _serve_sharded_config(arch)
+        cells[f"{arch} prefill"] = dryrun.measure_cell(
+            cfg, ShapeSpec("phase 10 (f)", "prefill", SERVE_SHARDED_PROMPT,
+                           SERVE_SHARDED_BATCH), make_test_mesh(shape),
+            capacity=SERVE_SHARDED_CAPACITY)
+        cells[f"{arch} decode"] = dryrun.measure_cell(
+            cfg, ShapeSpec("phase 10 (f)", "decode", SERVE_SHARDED_CAPACITY,
+                           SERVE_SHARDED_BATCH), make_test_mesh(shape))
+    Path(out_path).write_text(json.dumps(cells))
+
+
+def dryrun_against_runs(cells: dict, sharded: dict, served: dict, smi: str) -> dict:
+    """Phase 9 (c): each sharded cell of the dry-run (``dryrun_cells``)
+    against rank 0 of the real run: argument bytes per rank equal to what
+    it holds (phase 10 (b): its parameters and AdamW moments; (f): its
+    parameters, its cache and its tokens), and the collectives by kind,
+    bytes and counts, equal to what it issued (``CollectiveBytes``; a
+    train step's: one microbatch's, cut from the batch and through its
+    gradients, times their number, and the update).  The check that the
+    fake group counts the real program."""
+    out, bad = {}, []
+    for key, rec in cells.items():
+        arch, kind = key.rsplit(" ", 1)
+        parts = rec["memory"]["argument_bytes_by_part"]
+        if kind == "train":
+            r0 = sharded["ranks"][arch][f"{arch} xla"][0]
+            held = {"params": r0["bytes"]["params"],
+                    "opt_state": r0["bytes"]["m"] + r0["bytes"]["v"] + 4}  # + the step
+            want = {k: parts[k] for k in held}
+            coll = r0["recorded"]
+        else:
+            r0 = served["ranks"][0][arch]
+            held = {"params": r0["bytes"]["params"]}
+            if kind == "prefill":
+                held["batch"] = r0["bytes"]["tokens"]
+            else:
+                held["cache"] = r0["bytes"]["cache"]
+            want = {k: parts[k] for k in held}
+            coll = r0["recorded"][kind]
+        same = (held == want and rec["collective_bytes_per_device"] == coll[0]
+                and rec["collective_counts_per_device"] == coll[1])
+        out[key] = {"held": held, "dryrun": want, "real_collectives": coll,
+                    "dryrun_collectives": [rec["collective_bytes_per_device"],
+                                           rec["collective_counts_per_device"]], "same": same}
+        print(f"[dryrun] (c) {key}: argument bytes on rank 0 {held}, the dry-run's {want}; "
+              f"collectives by kind (bytes, counts) issued {coll}, the dry-run's "
+              f"{out[key]['dryrun_collectives']}: {'equal' if same else 'DIFFERENT'} "
+              f"(a fake group of {rec['num_devices']} ranks on meta shards; {smi})")
+        if not same:
+            bad.append(key)
+    if bad:
+        raise AssertionError(f"phase 9 (c): the dry-run's count differs from the run's for {bad}")
+    return out
+
+
 def _leaf_paths(tree, path=""):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -3448,6 +3977,7 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    dry_started = dryrun_start()  # phase 9 (b) on the host, beside phase 8 on the card
     fwd_train, bwd_train = flash_train_cases(gen, fault_libs)
     rms_train = rmsnorm_train_cases(gen, fault_libs)
     scan_train = scan_train_cases(gen, fault_libs)
@@ -3475,7 +4005,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry = {"anchor": dryrun_anchor(smi)}
     done("dryrun anchor")
-    dry.update(dryrun_phase(smi))
+    dry.update(dryrun_phase(smi, dry_started))
     done("dryrun")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3483,9 +4013,17 @@ def main() -> int:
     done("sharded")
     sharded["moe_layer"] = moe_layer_phase(smi)
     done("sharded moe layer")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded["serve"] = serve_sharded_phase(smi)
+    done("sharded serve")
+    dry["against_runs"] = dryrun_against_runs(dry["cells"], sharded, sharded["serve"], smi)
+    done("dryrun against runs")
     runs = {run: r["launches"] for run, r in train["full_width"].items()}
     for arch, by_key in sharded["ranks"].items():  # rank 0's; each rank's are equal
         runs.update({f"{key} rank 0": rs[0]["launches"] for key, rs in by_key.items()})
+    for arch, _ in SERVE_SHARDED:
+        runs[f"serve sharded {arch} rank 0"] = sharded["serve"]["ranks"][0][arch]["launches"]
 
     def by_model(k):
         return {**{a: r["launches"][k] for a, r in served.items()},

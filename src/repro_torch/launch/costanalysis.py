@@ -9,24 +9,33 @@ reference's fields:
 
 * ``flops`` — the reference's is 2 x (result elements) x (contracted
   elements) of every ``dot``, trip-count weighted: matrix products only.
-  Here: the matrix products that ``torch.utils.flop_counter.FlopCounterMode``
-  sees in the pass (``mm``, ``bmm``, ``addmm``, einsum's products), the
-  backward and the rematerialised forward included, plus what the kernels'
-  meta branches count (``kernels/ops.count_meta_flops``: attention's score
+  Here: the matrix products of the pass (``mm``, ``bmm``, ``addmm``,
+  einsum's products; :class:`LocalFlops`, by ``torch.utils.flop_counter``'s
+  registry), the backward and the rematerialised forward included, on
+  each rank's local tensors under DTensor, plus what the kernels' meta
+  branches count (``kernels/ops.count_meta_flops``: attention's score
   and value products over the tiles inside the frontier, the scan's
   readout), since a kernel's products are not aten ops.
 * ``collective_bytes`` — the reference's is the operand bytes of each
   collective op per device, by kind.  Here: the same bytes by the same
-  kind names, recorded by a device-free ``core.groups.RecordingMesh`` as
-  the port's own collectives run on it (:func:`sync_bytes`), and the
-  ZeRO-1 gathers the reference's step makes of its sharded moments
-  (:func:`zero1_gather_bytes`), counted from the specs.
+  kind names.  A DTensor program (the sharded step, sharded serving) run
+  as one rank over a fake process group (``launch/mesh.fake_device_mesh``)
+  issues its collectives as ops, which :class:`CollectiveBytes` records as
+  they are dispatched: the operand of each (the shard for an all-gather,
+  the whole input for a reduce-scatter, as the reference's convention).
+  The shard_map step's data-parallel sync is recorded by a device-free
+  ``core.groups.RecordingMesh`` as the port's own collectives run on it
+  (:func:`sync_bytes`), beside the ZeRO-1 gathers the reference's step
+  makes of its sharded moments (:func:`zero1_gather_bytes`), counted from
+  the specs.
 * ``peak_bytes`` — in place of ``memory_analysis().temp_size_in_bytes``:
   the peak of the storage that meta tensors created in the pass hold at
   once (:class:`PeakBytes`, a ``TorchDispatchMode``).  Eager PyTorch frees
   a tensor when its last reference goes, so this is what a caching
   allocator would need beyond the arguments, before rounding and
-  fragmentation.
+  fragmentation.  Under DTensor the modes see each rank's local ops (a
+  DTensor op is left to DTensor, whose local ops come back to the modes),
+  so FLOPs, bytes and collectives are the rank's own.
 * ``hbm_bytes`` — the reference's fused-HLO traffic model (operands and
   results of every top-level fusion) has no counterpart on an unfused
   eager pass: it is absent (:data:`HBM_BYTES_ABSENT`).
@@ -36,39 +45,117 @@ reference's fields:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import weakref
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
-from torch.utils.flop_counter import FlopCounterMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core.groups import RecordingMesh
 from repro_torch.kernels import ops
 from repro_torch.models.params import map_tree
 from repro_torch.training.train_step import sync
 
-__all__ = ["HBM_BYTES_ABSENT", "PassCost", "PeakBytes", "measure", "shard_bytes",
-           "shard_shape", "sync_bytes", "tree_shard_bytes", "zero1_gather_bytes"]
+__all__ = ["HBM_BYTES_ABSENT", "COLLECTIVE_KINDS", "CollectiveBytes", "LocalFlops", "Meter",
+           "PassCost", "PeakBytes", "measure", "shard_bytes", "shard_shape", "sync_bytes",
+           "tree_shard_bytes", "zero1_gather_bytes"]
 
 HBM_BYTES_ABSENT = ("the reference's hbm_bytes models fused-HLO traffic (operands and "
                     "results of each top-level fusion); an eager pass has no fusions to "
                     "model, so the port records none")
 
 
+#: the reference's HLO kind of each collective op a DTensor program
+#: issues (functional collectives, and DTensor's own all-to-all op)
+COLLECTIVE_KINDS = {"all_gather_into_tensor": "all-gather",
+                    "all_gather_into_tensor_coalesced": "all-gather",
+                    "reduce_scatter_tensor": "reduce-scatter",
+                    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+                    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+                    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
+_COLLECTIVE_NS = ("_c10d_functional", "c10d_functional")
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
+
+
+def _dtensor_op(types) -> bool:
+    return any(issubclass(t, DTensor) for t in types)
+
+
+def _nbytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
 @dataclasses.dataclass
 class PassCost:
     """What one pass on meta tensors costs."""
 
-    matmul_flops: float  # FlopCounterMode's count
+    matmul_flops: float  # LocalFlops' count
     kernel_flops: dict[str, float]  # the kernels' meta counts, by dispatcher
     peak_bytes: int  # peak of the storage created in the pass, live at once
+    collective_bytes: dict = dataclasses.field(default_factory=dict)  # by kind
+    collective_counts: dict = dataclasses.field(default_factory=dict)  # by kind
 
     @property
     def flops(self) -> float:
         return self.matmul_flops + sum(self.kernel_flops.values())
+
+
+class LocalFlops(TorchDispatchMode):
+    """The matrix-product FLOPs of the ops dispatched while the mode is
+    active, by ``torch.utils.flop_counter``'s registry (what
+    ``FlopCounterMode`` counts), each at the shapes of the tensors it runs
+    on: under DTensor the rank's local ops, not the global ones."""
+
+    def __init__(self):
+        super().__init__()
+        self.total = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _dtensor_op(types):
+            return NotImplemented
+        if func is not torch.ops.prim.device.default:
+            with self:
+                r = func.decompose(*args, **kwargs)
+            if r is not NotImplemented:
+                return r
+        out = func(*args, **kwargs)
+        count = flop_registry.get(func._overloadpacket)
+        if count is not None:
+            self.total += count(*args, **kwargs, out_val=out)
+        return out
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """Records every collective op dispatched while the mode is active: its
+    operand bytes (the first argument: the shard an all-gather gathers, the
+    whole input a reduce-scatter reduces) and count by the reference's kind
+    name (:data:`COLLECTIVE_KINDS`; another collective under its op's own
+    name).  Under DTensor the collectives its redistributions issue, on
+    this rank."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes: dict[str, int] = {}
+        self.counts: dict[str, int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if _dtensor_op(types):
+            return NotImplemented
+        name = func._overloadpacket.__name__
+        if name in COLLECTIVE_KINDS or (func.namespace in _COLLECTIVE_NS
+                                        and name not in _NOT_COLLECTIVES):
+            kind = COLLECTIVE_KINDS.get(name, name)
+            self.bytes[kind] = self.bytes.get(kind, 0) + _nbytes(args[0])
+            self.counts[kind] = self.counts.get(kind, 0) + 1
+        return func(*args, **kwargs)
 
 
 class PeakBytes(TorchDispatchMode):
@@ -85,9 +172,12 @@ class PeakBytes(TorchDispatchMode):
         self._excluded: set[int] = set()
 
     def exclude(self, tensors) -> None:
-        self._excluded.update(t.untyped_storage()._cdata for t in tensors)
+        self._excluded.update((t.to_local() if isinstance(t, DTensor) else t)
+                              .untyped_storage()._cdata for t in tensors)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if _dtensor_op(types):  # its local ops come back here
+            return NotImplemented
         out = func(*args, **(kwargs or {}))
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor) and t.is_meta:
@@ -115,18 +205,42 @@ class PeakBytes(TorchDispatchMode):
             del self._refs[key]
 
 
+class Meter:
+    """The counting modes of :func:`measure` as a block: inside it,
+    :meth:`snapshot` gives the :class:`PassCost` so far (a pass's parts
+    are told apart by the difference of two snapshots).  ``args``: the
+    pass's arguments, whose storage the peak leaves out."""
+
+    def __init__(self, args=()):
+        self.peak = PeakBytes()
+        self.peak.exclude(t for t in tree_leaves(args)
+                          if isinstance(t, torch.Tensor) and t.is_meta)
+        self.flops, self.coll = LocalFlops(), CollectiveBytes()
+        self._stack = contextlib.ExitStack()
+
+    def __enter__(self) -> "Meter":
+        self.kernel_flops = self._stack.enter_context(ops.count_meta_flops())
+        for mode in (self.coll, self.flops, self.peak):
+            self._stack.enter_context(mode)
+        return self
+
+    def __exit__(self, *exc):
+        return self._stack.__exit__(*exc)
+
+    def snapshot(self) -> PassCost:
+        return PassCost(matmul_flops=float(self.flops.total),
+                        kernel_flops=dict(self.kernel_flops), peak_bytes=self.peak.peak,
+                        collective_bytes=dict(self.coll.bytes),
+                        collective_counts=dict(self.coll.counts))
+
+
 def measure(fn, *args, **kwargs):
-    """``fn(*args, **kwargs)`` on meta tensors, counted: returns (its
-    result, :class:`PassCost`).  The arguments' storage is not counted in
-    the peak."""
-    peak = PeakBytes()
-    peak.exclude(t for t in tree_leaves((args, kwargs))
-                 if isinstance(t, torch.Tensor) and t.is_meta)
-    flops = FlopCounterMode(display=False)
-    with ops.count_meta_flops() as kernel_flops, flops, peak:
+    """``fn(*args, **kwargs)`` on meta tensors (plain, or DTensors over meta
+    shards), counted: returns (its result, :class:`PassCost`).  The
+    arguments' storage is not counted in the peak."""
+    with Meter((args, kwargs)) as meter:
         out = fn(*args, **kwargs)
-    return out, PassCost(matmul_flops=float(flops.get_total_flops()),
-                         kernel_flops=dict(kernel_flops), peak_bytes=peak.peak)
+    return out, meter.snapshot()
 
 
 def _axes_of(entry) -> tuple[str, ...]:

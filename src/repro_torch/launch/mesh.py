@@ -11,19 +11,28 @@ dry-run (``launch/dryrun.py``) needs only the axes' names and sizes, so a
 ``make_production_mesh`` over real ranks: a ``DeviceMesh`` of the world's
 ranks, row-major as ``jax.make_mesh`` lays devices out, with the axes as
 its ``mesh_dim_names`` (the sharded train step's mesh).
+
+``fake_device_mesh`` builds a ``DeviceMesh`` of a ``MeshShape``'s size
+over PyTorch's ``fake`` process-group backend, seen from one rank: every
+collective a DTensor program issues on it is dispatched (so a dispatch
+mode can count it) and none is sent.  The dry-run runs the reference's
+sharded programs on meta tensors over one (``launch/dryrun.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.groups import group_backend, mesh_groups
 
-__all__ = ["MeshShape", "make_device_mesh", "make_production_mesh", "make_test_mesh"]
+__all__ = ["MeshShape", "fake_device_mesh", "make_device_mesh", "make_production_mesh",
+           "make_test_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +81,25 @@ def make_device_mesh(shape=(2, 2, 2), axes=("pod", "data", "model"), device="cpu
     groups = mesh_groups(tuple(shape), group_backend(device))
     return DeviceMesh.from_group(groups, device.type, mesh=world,
                                  mesh_dim_names=tuple(axes))
+
+
+@contextlib.contextmanager
+def fake_device_mesh(mesh: MeshShape, rank: int = 0, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``mesh``'s shape and axis names, seen from
+    ``rank``, over a default process group of the ``fake`` backend of
+    ``mesh.size`` ranks, which this block creates and destroys after it.
+    A process holds one default group: the block raises if one exists.
+    ``device_type`` is the mesh's: DTensor issues some collectives by it
+    (a shard-to-shard move is an all-to-all on ``"cuda"``, an all-gather
+    and a cut on ``"cpu"``, as on a gloo mesh of CPU tensors).  No device
+    of that type is needed: the tensors are the caller's (meta)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore  # registers "fake"
+
+    if dist.is_initialized():
+        raise RuntimeError("fake_device_mesh: a default process group already exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=mesh.size)
+    try:
+        yield DeviceMesh(device_type, torch.arange(mesh.size).reshape(mesh.shape),
+                         mesh_dim_names=mesh.axis_names)
+    finally:
+        dist.destroy_process_group()

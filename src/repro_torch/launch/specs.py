@@ -14,7 +14,10 @@ them, or None), trailing Nones dropped, over a device-free
 ``launch/mesh.MeshShape``.  ``placements`` (``models/params.py``, where
 the specs are made) binds a spec to a ``DeviceMesh`` as DTensor
 placements, the counterpart of the reference's ``named`` (specs bound to a
-device mesh as ``NamedSharding``s).
+device mesh as ``NamedSharding``s).  ``shard_cache`` places a full cache
+by ``cache_pspecs`` (as ``params.shard_params`` places parameters), and
+``placed_structs`` / ``abstract_placed_cache`` give the dry-run's placed
+inputs: DTensors over meta shards, one rank's view of the mesh.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ import math
 
 import torch
 
+from torch.distributed.tensor import DTensor, Shard
+
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.models.params import map_tree, placements, torch_dtype
+from repro_torch.models import lm
+from repro_torch.models.params import map_tree, placements, shard_tensor, torch_dtype
 from repro_torch.training.train_step import dim_spec, dp_axes, mesh_axis_sizes
 
 __all__ = [
@@ -34,6 +40,9 @@ __all__ = [
     "batch_pspecs",
     "cell_eligible",
     "placements",
+    "placed_structs",
+    "shard_cache",
+    "abstract_placed_cache",
 ]
 
 
@@ -125,3 +134,37 @@ def cell_eligible(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
             "is excluded per the assignment (DESIGN.md §4)"
         )
     return True, ""
+
+
+def placed_structs(tree, specs, mesh):
+    """Each meta tensor of ``tree`` as a DTensor on the ``DeviceMesh``
+    ``mesh`` placed by its spec in ``specs``: this rank's shard on the meta
+    device (no storage), the global shape and strides kept."""
+    def one(_, t, spec):
+        pl = placements(spec, mesh)
+        local = list(t.shape)
+        for d, p in enumerate(pl):
+            if isinstance(p, Shard):
+                if local[p.dim] % mesh.size(d):
+                    raise ValueError(f"dim {p.dim} of {tuple(t.shape)} does not split into "
+                                     f"{mesh.size(d)} (mesh dim {d})")
+                local[p.dim] //= mesh.size(d)
+        return DTensor.from_local(torch.empty(local, dtype=t.dtype, device="meta"), mesh, pl,
+                                  run_check=False, shape=t.shape, stride=t.stride())
+    return map_tree(one, tree, specs)
+
+
+def shard_cache(cfg: ModelConfig, cache: dict, mesh) -> dict:
+    """A full cache (``lm.init_cache``'s or a one-rank ``lm.prefill``'s, the
+    same on every rank) as DTensors on ``mesh`` placed by ``cache_pspecs``:
+    each rank keeps its shard."""
+    specs = cache_pspecs(cfg, mesh, cache)
+    return map_tree(lambda _, t, spec: shard_tensor(t, mesh, placements(spec, mesh)),
+                    cache, specs)
+
+
+def abstract_placed_cache(cfg: ModelConfig, mesh, batch: int, capacity: int) -> dict:
+    """``lm.abstract_cache`` placed by ``cache_pspecs`` on ``mesh``
+    (``placed_structs``): the dry-run's decode cache."""
+    cache = lm.abstract_cache(cfg, batch, capacity)
+    return placed_structs(cache, cache_pspecs(cfg, mesh, cache), mesh)

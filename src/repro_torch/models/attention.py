@@ -27,6 +27,19 @@ Three compute paths (MLA has the last two):
   attention when there is no cache and none to fill.  MLA trains in the
   expanded form of its prefill: keys ``[k_nope ‖ k_rope]`` at q/k head dim
   ``qk_head_dim``, values at ``v_head_dim``, G = 1, no window.
+
+On DTensors (sharded serving, ``lm.prefill`` and ``lm.decode_step`` with
+parameters placed by ``param_pspecs``) the projections run on DTensor's
+sharding propagation, heads over ``model`` and the batch over the
+data-parallel dims.  Prefill runs the flash kernel on each rank's batch
+rows and kv heads with the query heads that read them (``ops.on_shards``,
+as the training attention does) and cuts the filled cache from each
+rank's own keys; ``lm`` places it by ``launch/specs.cache_pspecs``.
+Decode writes the new entries into each rank's cache shard
+(``layers.write_at``), and takes scores and values on DTensors: where the
+cache's sequence dim is split over ``model`` (MLA's latent cache, or kv
+heads that do not split), the softmax over it is what DTensor's
+propagation makes of it.
 """
 
 from __future__ import annotations
@@ -36,11 +49,12 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.flash import flash_attention_train, kernel_rows
-from repro_torch.models.layers import rms_norm, rope
+from repro_torch.models.layers import rms_norm, rope, unflatten, write_at
 from repro_torch.models.params import ParamMeta
 
 __all__ = ["AttnResult", "attn_meta", "attention", "init_attn_cache"]
@@ -91,16 +105,115 @@ def init_attn_cache(cfg: ModelConfig, batch: int, capacity: int, *, device,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _merge(o: torch.Tensor) -> torch.Tensor:
+    """o [B, S, heads..., hd] -> [B, S, heads * hd]; a DTensor on each rank's
+    rows and heads (``ops.on_shards``), so that no view of it, nor of its
+    gradient, splits a sharded dim unevenly."""
+    B, S = o.shape[:2]
+    if not isinstance(o, DTensor):
+        return o.reshape(B, S, -1)
+    op = ops.rows(o, 0, 2)
+    return ops.on_shards(lambda t: t.reshape(t.shape[0], t.shape[1], -1), (o,), (op,), op)
+
+
+def _scores(qg, k, scale):
+    """qg [B,1,Hkv,G,hd], k [B,C,Hkv,hd] -> float32 scores [B,Hkv,G,1,C]."""
+    return torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+
+
+def _values(p, v):
+    """p [B,Hkv,G,1,C], v [B,C,Hkv,hd] -> [B,1,Hkv,G,hd] in v's dtype."""
+    return torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+
+
 def _decode_attend(q, k, v, valid, scale):
     """q [B,1,H,hd]; k/v [B,C,Hkv,hd]; valid [C] bool."""
     B, _, H, hd = q.shape
     Hkv = k.shape[2]
-    qg = q.reshape(B, 1, Hkv, H // Hkv, hd)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    qg = unflatten(q, 2, (Hkv, H // Hkv))
+    if isinstance(k, DTensor):
+        return _sharded_decode_attend(qg, k, v, valid, scale).reshape(B, 1, H, v.shape[-1])
+    s = _scores(qg, k, scale)
     s = s.masked_fill(~valid, _NEG)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(v.dtype), v)
+    o = _values(p, v)
     return o.reshape(B, 1, H, v.shape[-1])
+
+
+def _by_cache(cp: tuple, batch: int, seq, other: dict) -> tuple:
+    """Placements, one per mesh dim, of a tensor read against a cache placed
+    ``cp`` ([B, C, ...]): where the cache shards the batch, ``Shard(batch)``;
+    where it shards the sequence, ``seq`` (a placement, or None for
+    ``Replicate``); where it shards another dim ``d``, ``Shard(other[d])``
+    (``Replicate`` if ``d`` is not in ``other``)."""
+    out = []
+    for p in cp:
+        if not isinstance(p, Shard):
+            out.append(Replicate())
+        elif p.dim == 0:
+            out.append(Shard(batch))
+        elif p.dim == 1:
+            out.append(seq or Replicate())
+        else:
+            out.append(Shard(other[p.dim]) if p.dim in other else Replicate())
+    return tuple(out)
+
+
+def _sharded_decode_attend(qg: DTensor, k: DTensor, v: DTensor, valid, scale) -> DTensor:
+    """``_decode_attend`` against a cache placed by ``cache_pspecs``: the
+    scores and the values on each rank's batch rows and kv heads
+    (``ops.on_shards``), the mask and the softmax on DTensors.  Where the
+    cache's sequence is split, each rank scores its own keys, the softmax
+    gathers them as DTensor's propagation does, and each rank's values
+    are a partial sum over its keys."""
+    cp = k.placements
+    qp = _by_cache(cp, 0, None, {2: 2})
+    sp = _by_cache(cp, 0, Shard(4), {2: 1})
+    op = _by_cache(cp, 0, Partial(), {2: 2})
+    s = ops.on_shards(_scores, (qg, k, scale), (qp, cp, None), sp)
+    p = torch.softmax(s.masked_fill(~valid, _NEG), dim=-1)
+    return ops.on_shards(_values, (p, v), (sp, cp), op)
+
+
+def _flash_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                window: int | None) -> torch.Tensor:
+    """Prefill attention of one rank's shards through the flash kernel:
+    q [B, S, Hkv, G, hd], k [B, S, Hkv, hd], v [B, S, Hkv, hd_v] -> [B, S,
+    Hkv, G, hd_v] (kernel row b*Hkv*G + h*G + g reads kv row b*Hkv + h)."""
+    B, S, Hkv, G, _ = q.shape
+    o = ops.flash_attention(kernel_rows(q), kernel_rows(k), kernel_rows(v), group_size=G,
+                            causal=True, window=window, scale=scale)
+    return o.reshape(B, Hkv, G, S, -1).movedim(3, 1)
+
+
+def _sharded_flash(q: DTensor, k: DTensor, v: DTensor, scale: float,
+                   window: int | None) -> DTensor:
+    """``_flash_rows`` on DTensors, each rank's batch rows and kv heads
+    (dims 0 and 2) with the query heads that read them."""
+    qp = ops.rows(q, 0, 2)
+    return ops.on_shards(_flash_rows, (q, k, v, scale, window), (qp, qp, qp, None, None), qp)
+
+
+def _fill(t: torch.Tensor, cap: int, window: int | None) -> torch.Tensor:
+    """A prefill's cache of ``cap`` entries from t [B, S, ...]: its last
+    ``cap`` rows, zero-padded at the end; under a sliding window past it, a
+    ring in which position p sits in slot p % cap, where decode reads it
+    (the reference leaves the last cap keys unrotated, which is that layout
+    only when S % cap == 0)."""
+    S = t.shape[1]
+    c = t[:, -cap:]
+    if window is not None and S > cap:
+        c = torch.roll(c, S % cap, dims=1)
+    return F.pad(c, (0, 0) * (t.ndim - 2) + (0, max(cap - S, 0)))
+
+
+def _filled(t: torch.Tensor, cap: int, window: int | None = None) -> torch.Tensor:
+    """``_fill``; a DTensor on each rank's rows (and heads), the sequence
+    whole."""
+    if isinstance(t, DTensor):
+        tp = ops.rows(t, *(d for d in range(t.ndim) if d != 1))
+        return ops.on_shards(lambda x: _fill(x, cap, window), (t,), (tp,), tp)
+    return _fill(t, cap, window)
 
 
 class AttnResult(NamedTuple):
@@ -133,24 +246,24 @@ def attention(
     a = cfg.attn
     B, S, _ = x.shape
     H, Hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = unflatten(x @ p["wq"], 2, (H, hd))
+    k = unflatten(x @ p["wk"], 2, (Hkv, hd))
+    v = unflatten(x @ p["wv"], 2, (Hkv, hd))
     q = rope(q, positions, a.rope_theta, sections=a.mrope_sections)
     k = rope(k, positions, a.rope_theta, sections=a.mrope_sections)
     scale = 1.0 / math.sqrt(hd)
 
     if train:
         pl = cfg.parallel
-        o = flash_attention_train(q.reshape(B, S, Hkv, H // Hkv, hd), k, v, scale,
+        o = flash_attention_train(unflatten(q, 2, (Hkv, H // Hkv)), k, v, scale,
                                   a.sliding_window, pl.attn_chunk_q, pl.attn_chunk_kv,
                                   pl.causal_skip)
-        return AttnResult(o.reshape(B, S, H * hd) @ p["wo"], None)
+        return AttnResult(_merge(o) @ p["wo"], None)
     if cache is not None:
         C = cache["k"].shape[1]
-        widx = (cache_pos % C if a.sliding_window is not None else cache_pos).reshape(1)
-        cache["k"].index_copy_(1, widx, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, widx, v.to(cache["v"].dtype))
+        widx = cache_pos % C if a.sliding_window is not None else cache_pos
+        write_at(cache["k"], widx, k)
+        write_at(cache["v"], widx, v)
         idx = torch.arange(C, device=x.device)
         if a.sliding_window is not None:
             # ring buffer: slot s holds position cache_pos - ((cache_pos - s) % C)
@@ -161,25 +274,22 @@ def attention(
         o = _decode_attend(q, cache["k"], cache["v"], valid, scale).to(x.dtype)
         new_cache = cache
     else:
-        # kernel row b*H + h reads kv row (b*H + h) // G = b*Hkv + h // G,
-        # the GQA map
-        o = ops.flash_attention(
-            kernel_rows(q), kernel_rows(k), kernel_rows(v), group_size=H // Hkv,
-            causal=True, window=a.sliding_window, scale=scale,
-        ).reshape(B, H, S, hd).transpose(1, 2)
+        if isinstance(q, DTensor):
+            o = _sharded_flash(unflatten(q, 2, (Hkv, H // Hkv)), k, v, scale,
+                               a.sliding_window)
+        else:
+            # kernel row b*H + h reads kv row (b*H + h) // G = b*Hkv + h // G,
+            # the GQA map
+            o = ops.flash_attention(
+                kernel_rows(q), kernel_rows(k), kernel_rows(v), group_size=H // Hkv,
+                causal=True, window=a.sliding_window, scale=scale,
+            ).reshape(B, H, S, hd).transpose(1, 2)
         cap = capacity or S
         if a.sliding_window is not None:
             cap = min(cap, a.sliding_window)
-        kc, vc = k[:, -cap:], v[:, -cap:]
-        if a.sliding_window is not None and S > cap:
-            # the ring's layout: position p in slot p % cap, where decode
-            # reads it (the reference leaves the last cap keys unrotated,
-            # which is that layout only when S % cap == 0)
-            kc, vc = (torch.roll(t, S % cap, dims=1) for t in (kc, vc))
-        pad = max(cap - S, 0)
-        new_cache = {"k": F.pad(kc, (0, 0, 0, 0, 0, pad)),
-                     "v": F.pad(vc, (0, 0, 0, 0, 0, pad))}
-    out = o.reshape(B, S, H * hd) @ p["wo"]
+        new_cache = {"k": _filled(k, cap, a.sliding_window),
+                     "v": _filled(v, cap, a.sliding_window)}
+    out = _merge(o) @ p["wo"]
     return AttnResult(out, new_cache)
 
 
@@ -197,7 +307,7 @@ def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity, train):
     scale = 1.0 / math.sqrt(a.qk_head_dim)
 
     q_in = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) if a.q_lora_rank else x
-    qf = (q_in @ p["wq_b"]).reshape(B, S, H, nope + rdim)
+    qf = unflatten(q_in @ p["wq_b"], 2, (H, nope + rdim))
     q_nope = qf[..., :nope]
     q_rope = rope(qf[..., nope:], positions, a.rope_theta)
     kv_a = x @ p["wkv_a"]  # [B, S, kv_lora + rope]
@@ -205,16 +315,18 @@ def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity, train):
     # copied out of kv_a's rows of kv_lora + rope (one copy a layer)
     ckv = rms_norm(kv_a[..., :lora].contiguous(), p["kv_norm"], cfg.norm_eps)
     k_rope = rope(kv_a[..., None, lora:], positions, a.rope_theta)[:, :, 0]  # [B, S, rope]
-    wkv_b = p["wkv_b"].reshape(lora, H, nope + vdim)
+    wkv_b = unflatten(p["wkv_b"], 1, (H, nope + vdim))
 
     if cache is not None:
         # absorbed decode: w_uk folded into the query and w_uv applied after
         # the values, so scores and values are taken against the latent cache
-        widx = cache_pos.reshape(1)
-        cache["ckv"].index_copy_(1, widx, ckv.to(cache["ckv"].dtype))
-        cache["krope"].index_copy_(1, widx, k_rope.to(cache["krope"].dtype))
+        write_at(cache["ckv"], cache_pos, ckv)
+        write_at(cache["krope"], cache_pos, k_rope)
         ckv_c, kr_c = cache["ckv"], cache["krope"]
         valid = torch.arange(ckv_c.shape[1], device=x.device) <= cache_pos
+        if isinstance(ckv_c, DTensor):
+            o = _sharded_mla_decode(q_nope, q_rope, wkv_b, ckv_c, kr_c, valid, scale, nope)
+            return AttnResult(_merge(o) @ p["wo"], cache)
         q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope, wkv_b[..., :nope])
         s = (torch.einsum("bqhl,bkl->bhqk", q_lat.float(), ckv_c.float())
              + torch.einsum("bqhr,bkr->bhqk", q_rope.float(), kr_c.float())) * scale
@@ -225,20 +337,65 @@ def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity, train):
     else:
         # expanded form: per-head keys [k_nope ‖ k_rope] at qk_head_dim and
         # values at v_head_dim, through the flash kernels (MHA: group 1)
-        kv = (ckv @ p["wkv_b"]).reshape(B, S, H, nope + vdim)
+        kv = unflatten(ckv @ p["wkv_b"], 2, (H, nope + vdim))
         kk = torch.cat([kv[..., :nope], k_rope[:, :, None].expand(B, S, H, rdim)], dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
         if train:
             pl = cfg.parallel
             o = flash_attention_train(qq[:, :, :, None], kk, kv[..., nope:], scale, None,
                                       pl.attn_chunk_q, pl.attn_chunk_kv, pl.causal_skip)
-            return AttnResult(o.reshape(B, S, H * vdim) @ p["wo"], None)
-        o = ops.flash_attention(kernel_rows(qq), kernel_rows(kk), kernel_rows(kv[..., nope:]),
-                                group_size=1, causal=True,
-                                scale=scale).reshape(B, H, S, vdim).transpose(1, 2)
+            return AttnResult(_merge(o) @ p["wo"], None)
+        if isinstance(qq, DTensor):
+            o = _sharded_flash(qq[:, :, :, None], kk, kv[..., nope:], scale, None)
+        else:
+            o = ops.flash_attention(kernel_rows(qq), kernel_rows(kk),
+                                    kernel_rows(kv[..., nope:]), group_size=1, causal=True,
+                                    scale=scale).reshape(B, H, S, vdim).transpose(1, 2)
         cap = capacity or S
-        pad = max(cap - S, 0)
-        new_cache = {"ckv": F.pad(ckv[:, -cap:], (0, 0, 0, pad)),
-                     "krope": F.pad(k_rope[:, -cap:], (0, 0, 0, pad))}
-    out = o.reshape(B, S, H * vdim) @ p["wo"]
+        new_cache = {"ckv": _filled(ckv, cap), "krope": _filled(k_rope, cap)}
+    out = _merge(o) @ p["wo"]
     return AttnResult(out, new_cache)
+
+
+def _sharded_mla_decode(q_nope: DTensor, q_rope: DTensor, wkv_b: DTensor, ckv: DTensor,
+                        krope: DTensor, valid, scale: float, nope: int) -> DTensor:
+    """MLA's absorbed decode against a latent cache placed by
+    ``cache_pspecs`` (its sequence over ``model``): each product on each
+    rank's shards (``ops.on_shards``) and the mask and the softmax on
+    DTensors.  The queries' heads stay where the projection split them
+    except on a mesh dim that splits the cache's sequence, where each rank
+    scores every head against its own keys; the softmax gathers the
+    scores as DTensor's propagation does, each rank's latent values are a
+    partial sum over its keys, summed into the heads' split before
+    ``w_uv``."""
+    qp = ops.rows(q_nope, 0, 2)  # batch rows and heads, as projected
+    wp = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2 else Replicate() for p in qp)
+    heads = {2: 2}
+    cp = ckv.placements
+    # a mesh dim that shards neither the cache's batch nor its sequence
+    # keeps the queries' heads split
+    qs = tuple(q if isinstance(c, Replicate) and isinstance(q, Shard) and q.dim == 2 else r
+               for q, c, r in zip(qp, cp, _by_cache(cp, 0, None, heads)))
+    sp = tuple(Shard(1) if isinstance(q, Shard) and q.dim == 2 else r
+               for q, r in zip(qs, _by_cache(cp, 0, Shard(3), {})))
+    lp = tuple(Shard(2) if isinstance(q, Shard) and q.dim == 2 else r
+               for q, r in zip(qs, _by_cache(cp, 0, Partial(), {})))
+
+    def lat(qn, w):
+        return torch.einsum("bqhn,lhn->bqhl", qn, w[..., :nope])
+
+    def scores(ql, qr, c, kr):
+        return (torch.einsum("bqhl,bkl->bhqk", ql.float(), c.float())
+                + torch.einsum("bqhr,bkr->bhqk", qr.float(), kr.float())) * scale
+
+    def values(pr, c):
+        return torch.einsum("bhqk,bkl->bqhl", pr.to(c.dtype), c)
+
+    def out(ol, w):
+        return torch.einsum("bqhl,lhv->bqhv", ol.to(w.dtype), w[..., nope:])
+
+    q_lat = ops.on_shards(lat, (q_nope, wkv_b), (qp, wp), qp)
+    s = ops.on_shards(scores, (q_lat, q_rope, ckv, krope), (qs, qs, cp, cp), sp)
+    pr = torch.softmax(s.masked_fill(~valid, _NEG), dim=-1)
+    o_lat = ops.on_shards(values, (pr, ckv), (sp, cp), lp)
+    return ops.on_shards(out, (o_lat, wkv_b), (qp, wp), qp)

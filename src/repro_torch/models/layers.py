@@ -11,13 +11,22 @@ propagation, and ``rms_norm`` runs shard by shard: each rank's rows of
 ``x`` through the kernels, ``w`` gathered, and ``w``'s gradient ``Partial``
 over the mesh dims that shard the rows (each rank's ``dw`` sums its own
 rows only).
+
+``assign`` and ``write_at`` are the caches' in-place writes (a Mamba
+state, a decode step's new key at its position), on tensors and on
+DTensors placed by ``launch/specs.cache_pspecs``: each rank writes its own
+shard, and where the cache's sequence dim is split over a mesh dim only
+the rank that holds the position writes (GSPMD's masked
+``dynamic_update_slice``); nothing is read back to the host.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -34,6 +43,9 @@ __all__ = [
     "logits",
     "rope",
     "mrope_positions",
+    "assign",
+    "unflatten",
+    "write_at",
 ]
 
 
@@ -151,8 +163,21 @@ def logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
         return x @ params["embed"]["embedding"].T
     out = x @ params["head"]["lm_head"]
     if cfg.num_codebooks > 1:
-        out = out.unflatten(-1, (cfg.num_codebooks, cfg.padded_vocab))
+        out = unflatten(out, out.ndim - 1, (cfg.num_codebooks, cfg.padded_vocab))
     return out
+
+
+def unflatten(t: torch.Tensor, dim: int, sizes: tuple) -> torch.Tensor:
+    """``t.unflatten(dim, sizes)``.  A DTensor whose split of ``dim`` does
+    not fall on whole ``sizes[0]`` blocks (Yi's 4 kv heads, MusicGen's 4
+    codebooks, over a ``model`` of 16) is gathered on it first."""
+    if isinstance(t, DTensor):
+        mesh, pl = t.device_mesh, t.placements
+        on = [i for i, p in enumerate(pl) if isinstance(p, Shard) and p.dim == dim]
+        if sizes[0] % math.prod(mesh.size(i) for i in on):
+            t = t.redistribute(mesh, tuple(Replicate() if i in on else p
+                                           for i, p in enumerate(pl)))
+    return t.unflatten(dim, sizes)
 
 
 def mrope_positions(positions: torch.Tensor, sections: tuple[int, ...]) -> torch.Tensor:
@@ -180,3 +205,39 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float, *,
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``dst`` takes ``src`` at its own
+    placements, each rank copying into its shard."""
+    if not isinstance(dst, DTensor):
+        dst.copy_(src)
+        return
+    dst.to_local().copy_(src.redistribute(dst.device_mesh, dst.placements).to_local())
+
+
+def write_at(cache: torch.Tensor, pos: torch.Tensor, new: torch.Tensor) -> None:
+    """``cache[:, pos] = new[:, 0]`` in place (``index_copy_`` along dim 1,
+    ``new`` cast to the cache's dtype); ``pos`` a 0-d int64 tensor.  On a
+    DTensor each rank writes its shard of ``new``; where the cache's dim 1
+    is split over a mesh dim, the rank whose slice holds ``pos`` writes it
+    and every other rank writes back what it holds."""
+    if not isinstance(cache, DTensor):
+        cache.index_copy_(1, pos.reshape(1), new.to(cache.dtype))
+        return
+    mesh, pl = cache.device_mesh, cache.placements
+    seq = [d for d, p in enumerate(pl) if isinstance(p, Shard) and p.dim == 1]
+    want = tuple(Replicate() if d in seq else p for d, p in enumerate(pl))
+    new = new.redistribute(mesh, want).to_local().to(cache.dtype)
+    local = cache.to_local()
+    idx = pos.reshape(1)
+    if seq:
+        coord, size = mesh.get_coordinate(), local.shape[1]
+        block = 0
+        for d in seq:  # the rank's slice, the mesh dims in order
+            block = block * mesh.size(d) + coord[d]
+        off = idx - block * size
+        inside = ((off >= 0) & (off < size)).reshape(())
+        idx = off.clamp(0, size - 1)
+        new = torch.where(inside, new, local.index_select(1, idx))
+    local.index_copy_(1, idx, new)

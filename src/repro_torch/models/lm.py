@@ -30,15 +30,28 @@ that remain.  Every config trains: attention through the flash kernels
 (MLA in its expanded form, at its pair of head dims), Mamba through the
 selective scan's custom VJP (``mamba.selective_scan``, the scan's backward
 kernel), the hybrid (Jamba) through both.
+
+Served sharded (the reference's dry-run cells), ``prefill`` and
+``decode_step`` take the parameters as DTensors placed by
+``param_pspecs`` (``models/params.shard_params``), the prompt or tokens
+placed by ``launch/specs.batch_pspecs`` and, for decode, the cache placed
+by ``launch/specs.cache_pspecs`` (``launch/specs.shard_cache``); with
+``act_shard`` (``training/train_step.make_act_shard``) the residual
+stream's batch is pinned to the data-parallel mesh dims at the backbone's
+entry and at every period, as the reference's hook does.  The filled or
+updated cache comes back placed by ``cache_pspecs`` (the reference's
+``out_shardings``), the last-position logits replicated.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
 import torch.utils.checkpoint
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -47,7 +60,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.params import abstract_params, init_params, map_tree, torch_dtype
+from repro_torch.models.params import (abstract_params, init_params, map_tree, placements,
+                                       torch_dtype)
 
 __all__ = ["model_meta", "init_model", "abstract_model", "init_cache", "abstract_cache",
            "loss_fn", "prefill", "decode_step", "check_position", "scanned_periods"]
@@ -268,7 +282,71 @@ def _sharded_nll(lg: DTensor, labels) -> DTensor:
     return total / labels.numel()
 
 
-def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None):
+def _serving(params: dict):
+    """Mixing plain tensors (positions, masks) into DTensor ops, as the
+    sharded step does: ``implicit_replication`` where the parameters are
+    DTensors."""
+    if isinstance(params["final_norm"], DTensor):
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor replicated on every mesh dim (a tensor as it is)."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh, (Replicate(),) * t.device_mesh.ndim)
+    return t
+
+
+def _shifted(pl: tuple, by: int) -> tuple:
+    return tuple(Shard(p.dim + by) if isinstance(p, Shard) else p for p in pl)
+
+
+def _period_cache(tree: dict, i: int) -> dict:
+    """Period ``i`` of a stacked cache, a view of its storage (a DTensor's
+    of each rank's shard), which a decode step writes in place."""
+    def one(_, t):
+        if not isinstance(t, DTensor):
+            return t[i]
+        return DTensor.from_local(t.to_local()[i], t.device_mesh, _shifted(t.placements, -1),
+                                  run_check=False, shape=t.shape[1:], stride=t.stride()[1:])
+    return map_tree(one, tree)
+
+
+def _place_filled(cfg: ModelConfig, mesh, prelude: dict, filled: dict) -> dict:
+    """A sharded prefill's cache placed by ``cache_pspecs``: each prelude
+    layer's, and each slot's periods stacked on each rank."""
+    from repro_torch.launch.specs import cache_pspecs  # it imports this module
+
+    def like(shape):  # the shape alone: a view of one element, no cache-sized storage
+        return torch.empty((), device="meta").expand(shape)
+
+    stacked = {slot: {n: (len(caches),) + tuple(t.shape) for n, t in caches[0].items()}
+               for slot, caches in filled.items()}
+    specs = cache_pspecs(cfg, mesh, {
+        "blocks": map_tree(lambda _, shape: like(shape), stacked),
+        **{name: map_tree(lambda _, t: like(t.shape), c) for name, c in prelude.items()}})
+    out = {name: map_tree(lambda _, t, spec: t.redistribute(mesh, placements(spec, mesh)),
+                          c, specs[name]) for name, c in prelude.items()}
+    blocks = {}
+    for slot, caches in filled.items():
+        blocks[slot] = {}
+        for n, spec in specs["blocks"][slot].items():
+            pl = placements(spec, mesh)
+            local = torch.stack([c[n].redistribute(mesh, _shifted(pl, -1)).to_local()
+                                 for c in caches])
+            shape = stacked[slot][n]
+            stride = [1] * len(shape)
+            for d in range(len(shape) - 2, -1, -1):
+                stride[d] = stride[d + 1] * shape[d + 1]
+            blocks[slot][n] = DTensor.from_local(local, mesh, pl, run_check=False,
+                                                 shape=torch.Size(shape), stride=tuple(stride))
+    out["blocks"] = blocks
+    return out
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None = None,
+            act_shard=None):
     """Process a prompt batch ``{"tokens": [B, S]}`` (``[B, S, K]`` for K
     codebooks), or ``{"embeds": [B, S, D]}`` for a model that takes
     embeddings, either with optional ``"positions"``; returns
@@ -279,24 +357,37 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
 
     The flash kernel masks by index, so attention follows the positions'
     order only where their first (t) component is ``arange(S)``; the
-    reference masks by that component (ROADMAP, reference caveats)."""
-    x, positions = _inputs(cfg, params, batch)
-    cache = {}
-    for name, spec in _prelude(cfg):
-        x, cache[name], _ = _apply_slot(cfg, spec, params[name], x, positions,
-                                        capacity=capacity)
-    filled = {}
-    for i in range(scanned_periods(cfg)):
-        for j, spec in enumerate(cfg.layer_pattern):
-            slot = f"slot{j}"
-            x, nc, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
-                                   positions, capacity=capacity)
-            filled.setdefault(slot, []).append(nc)
-    cache["blocks"] = {slot: {n: torch.stack([c[n] for c in caches]) for n in caches[0]}
-                       for slot, caches in filled.items()}
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    lg = L.logits(cfg, params, x[:, -1:])
-    return lg[:, 0], cache
+    reference masks by that component (ROADMAP, reference caveats).
+
+    On DTensor parameters (the module docstring) the cache comes back
+    placed by ``cache_pspecs`` and the logits replicated; ``act_shard``
+    pins the batch at the entry and at every period."""
+    with _serving(params):
+        x, positions = _inputs(cfg, params, batch)
+        if act_shard is not None:
+            x = act_shard(x)
+        cache = {}
+        for name, spec in _prelude(cfg):
+            x, cache[name], _ = _apply_slot(cfg, spec, params[name], x, positions,
+                                            capacity=capacity, act_shard=act_shard)
+        filled = {}
+        for i in range(scanned_periods(cfg)):
+            if act_shard is not None:
+                x = act_shard(x)
+            for j, spec in enumerate(cfg.layer_pattern):
+                slot = f"slot{j}"
+                x, nc, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
+                                       positions, capacity=capacity, act_shard=act_shard)
+                filled.setdefault(slot, []).append(nc)
+        if isinstance(x, DTensor):
+            cache = _place_filled(cfg, x.device_mesh, cache, filled)
+        else:
+            cache["blocks"] = {slot: {n: torch.stack([c[n] for c in caches])
+                                      for n in caches[0]}
+                               for slot, caches in filled.items()}
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        lg = _replicated(L.logits(cfg, params, x[:, -1:]))
+        return lg[:, 0], cache
 
 
 def check_position(cfg: ModelConfig, cache: dict, cache_pos: int) -> None:
@@ -317,7 +408,7 @@ def check_position(cfg: ModelConfig, cache: dict, cache_pos: int) -> None:
 
 
 def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dict,
-                cache_pos: int | torch.Tensor):
+                cache_pos: int | torch.Tensor, *, act_shard=None):
     """One decode step.  ``tokens`` [B, 1], or embeddings [B, 1, D] for a
     model that takes embeddings (cast to the model dtype); ``cache_pos`` the
     number of tokens already in the cache, a Python int (checked by
@@ -329,23 +420,34 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dic
 
     The step reads its inputs, writes the cache in place and reads nothing
     back to the host, so one capture of it with a tensor position serves
-    every position (``serving/decode_graph.py``)."""
-    x = (L.embed(cfg, params["embed"], tokens) if cfg.embed_inputs
-         else tokens.to(torch_dtype(cfg.dtype)).contiguous())
-    B = x.shape[0]
-    if not isinstance(cache_pos, torch.Tensor):
-        check_position(cfg, cache, cache_pos)
-        cache_pos = torch.full((), cache_pos, dtype=torch.int64, device=x.device)
-    positions = _default_positions(cfg, B, 1, cache_pos)
-    for name, spec in _prelude(cfg):
-        x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, cache=cache[name],
-                              cache_pos=cache_pos)
-    for i in range(scanned_periods(cfg)):
-        for j, spec in enumerate(cfg.layer_pattern):
-            slot = f"slot{j}"
-            x, _, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
-                                  positions, cache=_period(cache["blocks"][slot], i),
-                                  cache_pos=cache_pos)
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    lg = L.logits(cfg, params, x)
-    return lg[:, 0], cache
+    every position (``serving/decode_graph.py``).
+
+    On DTensor parameters and a cache placed by ``cache_pspecs`` each rank
+    writes its cache shard in place and the logits come back replicated;
+    ``act_shard`` pins the batch at the entry and at every period (the
+    reference's dry-run passes none where the batch does not split over
+    the data-parallel ranks)."""
+    with _serving(params):
+        x = (L.embed(cfg, params["embed"], tokens) if cfg.embed_inputs
+             else tokens.to(torch_dtype(cfg.dtype)).contiguous())
+        if act_shard is not None:
+            x = act_shard(x)
+        B = x.shape[0]
+        if not isinstance(cache_pos, torch.Tensor):
+            check_position(cfg, cache, cache_pos)
+            cache_pos = torch.full((), cache_pos, dtype=torch.int64, device=x.device)
+        positions = _default_positions(cfg, B, 1, cache_pos)
+        for name, spec in _prelude(cfg):
+            x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, cache=cache[name],
+                                  cache_pos=cache_pos, act_shard=act_shard)
+        for i in range(scanned_periods(cfg)):
+            if act_shard is not None:
+                x = act_shard(x)
+            for j, spec in enumerate(cfg.layer_pattern):
+                slot = f"slot{j}"
+                x, _, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
+                                      positions, cache=_period_cache(cache["blocks"][slot], i),
+                                      cache_pos=cache_pos, act_shard=act_shard)
+        x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        lg = _replicated(L.logits(cfg, params, x))
+        return lg[:, 0], cache

@@ -24,7 +24,10 @@ On DTensors (the sharded train step, ``d_inner`` over ``model``) the conv,
 sharded as one ``[D, 2 * di]`` matrix, so a rank's columns hold one half
 or the other), and ``selective_scan``'s custom VJP runs shard by shard
 (``ops.on_shards``), ``c``'s gradient ``Partial`` over ``model`` (each
-rank sums its channels' share).
+rank sums its channels' share).  Served on DTensors (``lm.prefill`` and
+``lm.decode_step`` on placed parameters), prefill takes the same path and
+the decode step's conv window and state stay on each rank's channels, the
+cache written in place shard by shard (``layers.assign``).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.layers import assign
 from repro_torch.models.params import ParamMeta
 
 __all__ = ["mamba_meta", "mamba", "init_mamba_cache", "selective_scan"]
@@ -162,14 +166,20 @@ def mamba(
     if cache is not None:
         # ---------- O(1) decode step ----------
         window = torch.cat([cache["conv"], xin], dim=1)  # [B, d_conv, di]
-        xc = torch.einsum("bwd,wd->bd", window.float(), p["conv_w"].float())
+        if isinstance(window, DTensor):  # products and sums, which DTensor propagates fast
+            xc = (window.float() * p["conv_w"].float()).sum(1)
+        else:
+            xc = torch.einsum("bwd,wd->bd", window.float(), p["conv_w"].float())
         xc = F.silu(xc + p["conv_b"].float())[:, None].to(x.dtype)
         a, b, C_ssm = _ssm_terms(cfg, p, xc)
         h = a[:, 0] * cache["ssm"] + b[:, 0]  # [B, di, N]
-        y = torch.einsum("bdn,bn->bd", h, C_ssm[:, 0].float())
+        if isinstance(h, DTensor):
+            y = (h * C_ssm[:, 0].float()[:, None]).sum(-1)
+        else:
+            y = torch.einsum("bdn,bn->bd", h, C_ssm[:, 0].float())
         y = y[:, None] + p["d_skip"].float() * xc.float()
-        cache["conv"].copy_(window[:, 1:])
-        cache["ssm"].copy_(h)
+        assign(cache["conv"], window[:, 1:])
+        assign(cache["ssm"], h)
         new_cache = cache
     else:
         # ---------- prefill: causal depthwise conv + selective scan ----------

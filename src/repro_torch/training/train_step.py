@@ -63,7 +63,8 @@ from repro_torch.training.optimizer import OptConfig, adamw_update, leaves
 
 __all__ = ["batch_to", "grad_and_metrics", "make_train_step", "sync", "dp_axes",
            "mesh_axis_sizes", "dim_spec", "batch_pspec", "param_pspecs", "opt_pspecs",
-           "make_act_shard", "make_train_step_sharded", "place_batch", "opt_placements"]
+           "make_act_shard", "make_train_step_sharded", "place_batch", "opt_placements",
+           "sharded_update", "microbatch"]
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -131,6 +132,19 @@ def _pieces(params: dict) -> dict:
     return {k: map_tree(periods if k == "blocks" else whole, v) for k, v in params.items()}
 
 
+def microbatch(batch: dict, i: int, n: int, act_shard=None) -> dict:
+    """Microbatch ``i`` of ``n`` of ``batch``: rows ``[i B/n, (i + 1) B/n)``
+    of every leaf (a slice of the global batch, as the reference's), each
+    re-pinned by ``act_shard``; the batch itself when ``n`` is 1."""
+    if n == 1:
+        return batch
+    B = next(iter(batch.values())).shape[0]
+    b = {k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
+    if act_shard is not None:
+        b = {k: act_shard(v) for k, v in b.items()}
+    return b
+
+
 def grad_and_metrics(cfg, params: dict, batch: dict, act_shard=None) -> tuple[dict, dict]:
     """(gradients in ``grad_dtype``, metrics) of ``lm.loss_fn`` over the
     batch, accumulated over ``parallel.microbatches`` as the reference's
@@ -154,11 +168,7 @@ def grad_and_metrics(cfg, params: dict, batch: dict, act_shard=None) -> tuple[di
            else torch.zeros(p.shape, dtype=gdt, device=p.device) for p in leaves(params)]
     macc = None
     for i in range(n):
-        b = batch
-        if n > 1:
-            b = {k: v[i * (B // n):(i + 1) * (B // n)] for k, v in batch.items()}
-            if act_shard is not None:
-                b = {k: act_shard(v) for k, v in b.items()}
+        b = microbatch(batch, i, n, act_shard)
         tree = _pieces(params)
         pieces = leaves(tree)  # per parameter: a tensor, or its periods' slices
         flat = [t for x in pieces for t in (x if isinstance(x, list) else [x])]
@@ -286,6 +296,24 @@ def place_batch(batch: dict, mesh, device) -> dict:
     return out
 
 
+def sharded_update(cfg, params: dict, opt_state: dict, batch: dict, act_shard,
+                   opt_cfg: OptConfig, *, grads_done=None) -> tuple[dict, dict, dict]:
+    """The sharded step's body on placed DTensors (``make_train_step_sharded``):
+    the gradients and metrics of ``batch`` accumulated over
+    ``parallel.microbatches`` with ``act_shard``, then the AdamW update in
+    place, under ``implicit_replication``.  Returns ``(params, opt_state,
+    metrics)``, the metrics as tensors; nothing is read back to the host,
+    so it runs on meta shards too (the dry-run's ``xla`` train cells).
+    ``grads_done()``, if given, is called between the gradients and the
+    update."""
+    with implicit_replication():
+        grads, metrics = grad_and_metrics(cfg, params, batch, act_shard=act_shard)
+        if grads_done is not None:
+            grads_done()
+        params, opt_state, info = adamw_update(grads, opt_state, params, opt_cfg)
+    return params, opt_state, {**metrics, **info}
+
+
 def make_train_step_sharded(cfg, mesh, opt_cfg: OptConfig):
     """The counterpart of the reference's ``make_train_step_pjit``, its
     production default: returns ``(step, (pspec, ospec))``.  ``step(params,
@@ -306,9 +334,7 @@ def make_train_step_sharded(cfg, mesh, opt_cfg: OptConfig):
     def step(params: dict, opt_state: dict, batch: dict):
         local = leaves(params)[0].to_local()
         batch = place_batch(batch, mesh, local.device)
-        with implicit_replication():
-            grads, metrics = grad_and_metrics(cfg, params, batch, act_shard=act)
-            params, opt_state, info = adamw_update(grads, opt_state, params, opt_cfg)
-        return params, opt_state, {k: float(v) for k, v in {**metrics, **info}.items()}
+        params, opt_state, metrics = sharded_update(cfg, params, opt_state, batch, act, opt_cfg)
+        return params, opt_state, {k: float(v) for k, v in metrics.items()}
 
     return step, (pspec, ospec)

@@ -1,5 +1,8 @@
 """Jobs that the tests run in ranks (``repro_torch.launch.ranks``).  This
-module imports no JAX, and no torch until a job runs.
+module imports no JAX, and no torch until a job runs.  Among them:
+``sharded_ranks`` and ``moe_ranks`` (the sharded train steps and the
+expert-parallel MoE layer), ``sharded_serve_ranks`` (sharded serving) and
+``dryrun_ranks`` (the dry-run's sharded cells run for real).
 
 ``run_cases`` runs the cases of ``tests/test_collectives.py`` and
 ``tests/test_collectives_meshes.py`` through the port's collectives;
@@ -690,4 +693,156 @@ def moe_ranks() -> dict:
         for res in (*out["cases"].values(), *out["faults"].values()):
             for k in ("out", "aux", "grads"):
                 res.pop(k)
+    return out
+
+
+#: sharded serving's parity cases (``sharded_serve_ranks``): name -> (arch,
+#: moe_groups), float32 smoke configs at the reference's FSDP default
+SERVE_CASES = {"yi_6b": ("yi_6b", 1), "h2o_danube_3_4b": ("h2o_danube_3_4b", 1),
+               "falcon_mamba_7b": ("falcon_mamba_7b", 1),
+               "deepseek_v2_236b": ("deepseek_v2_236b", 1), "dbrx_132b": ("dbrx_132b", 1),
+               "dbrx_132b-g4": ("dbrx_132b", 4),
+               "jamba_1_5_large_398b": ("jamba_1_5_large_398b", 1),
+               "musicgen_large": ("musicgen_large", 1), "qwen2_vl_7b": ("qwen2_vl_7b", 1)}
+#: prompts [B, S], decode steps, and the cache's capacity: Danube's 8-slot
+#: ring wraps in decode (S % 8 == 0, where the two packages' rings agree)
+SERVE_B, SERVE_S, SERVE_STEPS = 8, 16, 4
+SERVE_CAP = {"h2o_danube_3_4b": 8}
+#: the case also served at B = 1 (no activation hook: the batch does not
+#: split over the data-parallel ranks)
+SERVE_B1 = "yi_6b"
+
+
+def serve_capacity(name: str) -> int:
+    return SERVE_CAP.get(SERVE_CASES[name][0], 32)
+
+
+def sharded_serve_ranks(npz_dir: str) -> dict:
+    """Sharded serving (``lm.prefill`` and ``lm.decode_step`` on DTensors,
+    with ``make_act_shard``'s hook) on the (pod 2, data 2, model 2) mesh of
+    8 ranks, on the CPU.  For each case of ``SERVE_CASES``, from
+    ``<npz_dir>/<name>.npz`` (the reference's parameters under "p/", the
+    prompt under "x/prompt" (and "x/positions"), the decode inputs under
+    "x/steps"): the parameters placed by ``param_pspecs``
+    (``convert.params_from_numpy``, then ``shard_params``), the prompt and
+    each step's tokens by ``batch_pspecs``; a prefill into the case's
+    capacity, then ``SERVE_STEPS`` decode steps.  Every rank returns its
+    logits (replicated) after the prefill and each step, and its local
+    shard and placements of every cache leaf after the prefill and after
+    the last step.  ``SERVE_B1`` is served again on the first prompt row
+    alone, with no hook."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree, placements, shard_params, shard_tensor
+    from repro_torch.training import train_step as T
+
+    del dist
+    mesh = make_device_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+
+    def place(tree):
+        return map_tree(lambda _, t, spec: shard_tensor(t, mesh, placements(spec, mesh)),
+                        tree, SP.batch_pspecs(mesh, tree))
+
+    def shards(cache):
+        return {path: (t.to_local().clone(), str(t.placements))
+                for path, t in _flat(cache).items()}
+
+    def serve(cfg, params, saved, rows, act, cap):
+        prompt = {"tokens" if cfg.embed_inputs else "embeds":
+                  torch.from_numpy(saved["x/prompt"][rows].copy())}
+        if "x/positions" in saved:
+            prompt["positions"] = torch.from_numpy(saved["x/positions"][rows].copy())
+        lg, cache = lm.prefill(cfg, params, place(prompt), capacity=cap, act_shard=act)
+        out = {"logits": [lg.to_local().clone()], "prefill_cache": shards(cache)}
+        for t, step in enumerate(saved["x/steps"]):
+            lg, cache = lm.decode_step(cfg, params, place(torch.from_numpy(step[rows].copy())),
+                                       cache, SERVE_S + t, act_shard=act)
+            out["logits"].append(lg.to_local().clone())
+        out["cache"] = shards(cache)
+        return out
+
+    out = {}
+    for name, (arch, groups) in SERVE_CASES.items():
+        cfg = sharded_config(arch, moe_groups=groups)
+        saved = dict(np.load(f"{npz_dir}/{name}.npz"))
+        tree = map_tree(lambda path, _: saved[f"p/{path}"], lm.model_meta(cfg))
+        full = params_from_numpy(cfg, tree, device="cpu")
+        params = shard_params(full, T.param_pspecs(cfg, mesh), mesh)
+        act = T.make_act_shard(cfg, mesh)
+        out[name] = serve(cfg, params, saved, slice(None), act, serve_capacity(name))
+        if name == SERVE_B1:
+            out[name + "-b1"] = serve(cfg, params, saved, slice(0, 1), None,
+                                      serve_capacity(name))
+    return out
+
+
+#: the dry-run's sharded cells (``launch/dryrun.measure_cell`` at smoke
+#: size on the (pod 2, data 2, model 2) mesh) that ``dryrun_ranks`` runs
+#: for real: (arch, kind, global batch, sequence)
+DRYRUN_REAL = [("yi_6b", "train", 16, 64), ("yi_6b", "prefill", 8, 64),
+               ("yi_6b", "decode", 8, 64), ("deepseek_v2_236b", "prefill", 8, 64),
+               ("deepseek_v2_236b", "decode", 8, 64), ("falcon_mamba_7b", "decode", 8, 64)]
+
+
+def dryrun_ranks() -> dict:
+    """Each cell of ``DRYRUN_REAL`` run for real in 8 gloo ranks on the CPU,
+    as the dry-run runs it on meta shards: the smoke config as it is
+    (bf16), random parameters placed by ``param_pspecs``; a train cell one
+    step of ``make_train_step_sharded`` (moments by ``opt_placements``,
+    ``make_batch``), a prefill ``lm.prefill`` of int32 tokens placed by
+    ``batch_pspecs`` into a capacity of S, a decode step ``lm.decode_step``
+    of int32 tokens against a zero cache of capacity S placed by
+    ``shard_cache``, at a tensor position, each with ``make_act_shard``'s
+    hook.  Every rank returns the collectives its pass issued
+    (``costanalysis.CollectiveBytes``): bytes and counts by kind."""
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import costanalysis as CA
+    from repro_torch.launch import specs as SP
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree, placements, shard_params, shard_tensor
+    from repro_torch.training import train_step as T
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import OptConfig, init_opt_state
+
+    mesh = make_device_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+
+    def place(tree):
+        return map_tree(lambda _, t, spec: shard_tensor(t, mesh, placements(spec, mesh)),
+                        tree, SP.batch_pspecs(mesh, tree))
+
+    out = {}
+    for arch, kind, B, S in DRYRUN_REAL:
+        cfg = get_smoke_config(arch)
+        full = lm.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+        params = shard_params(full, T.param_pspecs(cfg, mesh), mesh)
+        act = T.make_act_shard(cfg, mesh)
+        tokens = torch.from_numpy(np.random.RandomState(1).randint(
+            0, cfg.vocab_size, (B, S)).astype(np.int32))
+        rec = CA.CollectiveBytes()
+        if kind == "train":
+            opt_cfg = OptConfig(moment_dtype=cfg.parallel.optimizer_dtype)
+            opt = init_opt_state(params, opt_cfg, T.opt_placements(cfg, mesh))
+            step, _ = T.make_train_step_sharded(cfg, mesh, opt_cfg)
+            batch = make_batch(cfg, B, S, seed=0, step=0)
+            with rec:
+                step(params, opt, batch)
+        elif kind == "prefill":
+            batch = place({"tokens": tokens})
+            with rec:
+                lm.prefill(cfg, params, batch, capacity=S, act_shard=act)
+        else:
+            cache = SP.shard_cache(cfg, lm.init_cache(cfg, B, S, device="cpu"), mesh)
+            tok = place(tokens[:, :1].contiguous())
+            pos = torch.tensor(S // 2)
+            with rec:
+                lm.decode_step(cfg, params, tok, cache, pos, act_shard=act)
+        out[f"{arch}/{kind}"] = {"bytes": rec.bytes, "counts": rec.counts}
     return out
