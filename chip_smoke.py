@@ -20,7 +20,15 @@ Phases, each reported on its own lines:
    fail that check, and so must a fault planted in the MLA pair (q/k head
    dim 96, v head dim 64: v's last 16-column block left unwritten) and one
    in DeepSeek-V2's MLA pair (q/k 192, v 128: the last 64 q/k columns, the
-   rotary part, left out of the scores);
+   rotary part, left out of the scores).  The fused selective scan (the
+   Mamba layer's path: it forms ``a = exp(dt A)`` and ``b = (dt x) B`` from
+   the layer's dt, x, B and A itself) at Falcon-Mamba-7B's prefill (dt and
+   x [4, 512, 8192] bf16), a ragged S = 300, with h0 (float32 inputs) and
+   at N = 8 (y and h_last at 1e-5; whether h_last matches bit for bit is
+   printed), each timed in turns against the path it replaces (the terms
+   formed by PyTorch, then the unfused scan), with faults planted in copies
+   of its source (dt A used in place of dt x, the readout's last shuffle
+   left out, each tile's last step dropped) that must each fail the check;
 4. full-width Yi-6B (random weights from a seed) served through
    ``ServeEngine``: 4 requests of 512 prompt tokens, 32 new tokens each,
    greedy, each decode step a replay of the engine's captured CUDA graph.
@@ -45,8 +53,9 @@ Phases, each reported on its own lines:
    x 32, k = 2, Hydra's cost) are printed;
 5. full-width Falcon-Mamba-7B, H2O-Danube3-4B, Gemma-7B, MusicGen-Large and
    MiniCPM3-4B, each after the last one's weights are freed, served and
-   checked the same way: every RMSNorm and every prefill selective scan or
-   attention must go through the kernels.  Danube serves prompts of 4608
+   checked the same way: every RMSNorm and every prefill selective scan
+   (the fused kernel, 64 launches a Falcon-Mamba prefill) or attention
+   must go through the kernels.  Danube serves prompts of 4608
    tokens into a 4096-slot sliding-window ring (capacity 5120), so the
    window binds, and its graph engine's logits at decode step 8 must match
    a prefill through the kernels over each row's prompt and first 8
@@ -126,7 +135,17 @@ Phases, each reported on its own lines:
    printed; a second call to the same bits), with faults planted in
    copies of its source (a_t used in place of a_{t+1}, the gh_fin seed
    dropped, the carry lost at a chunk edge, one CTA's gc partial left out
-   of the sum), which must each fail that check; each timed as in phase
+   of the sum), which must each fail that check; the fused scan's
+   backward at the same four cases at Falcon-Mamba's training microbatch
+   (dt and x [1, 2048, 8192] bf16; gdt, gx, gB, gC, gA and gh0 at 1e-5, the
+   first four as float32 sums against the plain version's and, in the
+   inputs' dtype, equal to those sums cast; a second call to the same
+   bits), timed in turns against the path it replaces (the terms,
+   ``mamba_scan_bwd`` and the terms' backward through autograd), with
+   faults planted in copies of its source (the gh_fin seed dropped, the
+   carry lost at a chunk edge, the last CTA's gB partial left out of the
+   sum, dt A used in place of dt x in gB's term), which must each fail
+   that check; each timed as in phase
    3, beside its plain version and SDPA's (or ``F.rms_norm``'s) backward
    through autograd (the forward and backward less the forward; SDPA
    takes Danube's window as a mask; no PyTorch call computes a scan's
@@ -143,8 +162,8 @@ Phases, each reported on its own lines:
    depth whose AdamW state fits the card), batch 8 x 2048 in 8 microbatches
    with remat, one repeated batch, learning rate 3e-4 after 1 warmup step:
    the loss must fall, and each step must launch the kernels as the code
-   implies (flash forward 2LM, backward LM, or for Mamba layers the scan
-   forward 2LM and backward LM; RMSNorm forward (2nL+1)M, backward
+   implies (flash forward 2LM, backward LM, or for Mamba layers the fused
+   scan's forward 2LM and backward LM; RMSNorm forward (2nL+1)M, backward
    (nL+1)M, n the norms of a layer: 2, 1 for Falcon-Mamba's, 4 with MLA's);
    step time, tokens/s, model FLOPs per second over the card's peak and
    peak memory are printed.  (d) At the
@@ -272,9 +291,10 @@ OUT_DIR = ROOT / "build" / "chip_smoke"  # the run's full record, beside the bui
 #: satisfy |kernel - plain| <= TOL_BF16 * (|plain| + rms of its row), where the
 #: plain version computes in fp32 on the same bf16 inputs (bf16 keeps 8 bits)
 TOL_BF16 = 2e-2
-#: the same for the fp32 selective scan and its backward, whose kernels and
-#: plain versions differ only in the order of a sum (the readout's over the
-#: state, gc's over the channels)
+#: the same for the fp32 selective scan and its backward, fused or not,
+#: whose kernels and plain versions differ only in the order of a sum (the
+#: readout's over the state, gc's, gB's and gC's over the channels, gA's
+#: over the steps)
 TOL_F32 = 1e-5
 #: the served logits may stray from a float32 recomputation of the same
 #: prefill by at most this many times as far (rms over all logits) as the
@@ -387,10 +407,49 @@ MAMBA_BWD_FAULTS = {
         "for (int j = 0; j < ctas; ++j) s += p[j * SN];  // the partials in CTA order",
         "for (int j = 0; j < ctas - 1; ++j) s += p[j * SN];", "falcon train"),
 }
+#: faults planted in copies of ``csrc/mamba_scan_fused.cu`` (name: sound
+#: line, faulty line, label of the phase-3 case it is checked at): each must
+#: fail that case's check.  ``tests/test_torch_kernels.py`` plants the same.
+FUSED_FAULTS = {
+    "fused_dt_a_in_place_of_dt_x": (
+        "const float dx = term_dx(dtv, to_f(sx[u * CH + cl]));",
+        "const float dx = term_dx(dtv, ac[0]);", "falcon prefill"),
+    "fused_readout_lane_pairs_left_out": (
+        "for (int off = L >> 1; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);",
+        "for (int off = L >> 1; off > 1; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);",
+        "falcon prefill"),
+    "fused_last_step_of_a_tile_dropped": (
+        "const int steps = min(kSteps, S - t0);",
+        "const int steps = min(kSteps - 1, S - t0);", "ragged"),
+}
+#: faults planted in copies of ``csrc/mamba_scan_fused_bwd.cu`` (name: sound
+#: line, faulty line, label of the phase-8 case it is checked at): each must
+#: fail that case's check.  ``tests/test_torch_kernels.py`` plants the same.
+FUSED_BWD_FAULTS = {
+    "fused_gh_fin_seed_dropped": (
+        "g[j] = live && gh_fin != nullptr ? gh_fin[hrow + L * j] : 0.f;", "g[j] = 0.f;",
+        "h0, gh_fin"),
+    "fused_carry_lost_at_a_chunk_edge": (
+        "const int tc = t0 + u0;",
+        "const int tc = t0 + u0; if (tc + kChunk < S) for (int j = 0; j < P; ++j) g[j] = 0.f;",
+        "falcon train"),
+    "fused_last_cta_partial_left_out_of_gb": (
+        "for (int j = 0; j < ctas; ++j) sb += (double)p[j * stride];  // gB's partials",
+        "for (int j = 0; j < ctas - 1; ++j) sb += (double)p[j * stride];", "falcon train"),
+    "fused_bwd_dt_a_in_place_of_dt_x": (
+        "const float dx = term_dx(dtv, xv);", "const float dx = term_dx(dtv, ac[0]);",
+        "falcon train"),
+}
 #: every planted fault, by the kernel whose source it is planted in
 PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS,
            "flash_attention_bwd": FLASH_BWD_FAULTS, "rmsnorm_bwd": RMSNORM_BWD_FAULTS,
-           "mamba_scan_bwd": MAMBA_BWD_FAULTS}
+           "mamba_scan_bwd": MAMBA_BWD_FAULTS, "mamba_scan_fused": FUSED_FAULTS,
+           "mamba_scan_fused_bwd": FUSED_BWD_FAULTS}
+#: lines taken out of the planted copies of a source: the dispatch cases
+#: that none of its faults' cases runs (each runs N = 16: 4 states a
+#: thread), so that a copy compiles a third of the kernel's instances
+PLANTED_TRIM = {"mamba_scan_fused": ("    FUSED_CASE(1)\n", "    FUSED_CASE(2)\n"),
+                "mamba_scan_fused_bwd": ("    FUSED_BWD_CASE(1)\n", "    FUSED_BWD_CASE(2)\n")}
 #: phase 8's attention cases: (label, BH, g, S, hd, hd_v, window): one
 #: sequence of a model's heads (a microbatch of its train step: 2048 tokens,
 #: Danube's 4608 past its window of 4096), ragged S, window edges inside a
@@ -422,6 +481,22 @@ TRAIN_RMSNORM_SPECS = [(2048, 4096), (2049, 4096), (2048, 64), (2048, 3840), (20
 TRAIN_SCAN_SPECS = [("falcon train", 1, 2048, 8192, 16, False),
                     ("ragged", 1, 300, 8192, 16, False),
                     ("h0, gh_fin", 1, 2048, 8192, 16, True), ("N 8", 1, 2048, 8192, 8, False)]
+#: the fused selective scan's cases, forward (phase 3) and backward (phase
+#: 8): (label, B, S, di, N, with h0 (and gh_fin), dtype of dt, x, B and C):
+#: Falcon-Mamba-7B's prefill of 4 x 512 and training microbatch of 1 x 2048
+#: in its bf16, a ragged S (no multiple of the kernels' 64-step tiles or
+#: 8-step chunks), an initial state (and a final-state cotangent) in
+#: float32, the smoke config's state size
+FUSED_SPECS = [("falcon prefill", 4, 512, 8192, 16, False, "bfloat16"),
+               ("ragged", 4, 300, 8192, 16, False, "bfloat16"),
+               ("h0", 4, 512, 8192, 16, True, "float32"),
+               ("N 8", 4, 512, 8192, 8, False, "bfloat16")]
+TRAIN_FUSED_SPECS = [("falcon train", 1, 2048, 8192, 16, False, "bfloat16"),
+                     ("ragged", 1, 300, 8192, 16, False, "bfloat16"),
+                     ("h0, gh_fin", 1, 2048, 8192, 16, True, "float32"),
+                     ("N 8", 1, 2048, 8192, 8, False, "bfloat16")]
+#: the kernels a served prefill or decode step may launch, counted per engine
+SERVE_KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "mamba_scan_fused")
 #: phase 8's batch: 8 sequences, one a microbatch (the configs' 8), of 2048
 #: tokens (Danube's 4608, past its window of 4096)
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
@@ -652,6 +727,10 @@ def build_kernels() -> dict:
     fault_jobs = {}
     for kernel, faults in PLANTED.items():
         src = (build.SRC_DIR / f"{kernel}.cu").read_text()
+        for line in PLANTED_TRIM.get(kernel, ()):
+            if src.count(line) != 1:
+                raise AssertionError(f"planted copies of {kernel}.cu: {line!r} is not in it")
+            src = src.replace(line, "")
         for name, (sound, faulty, _) in faults.items():
             if src.count(sound) != 1:
                 raise AssertionError(f"planted fault {name}: its sound line is not in {kernel}.cu")
@@ -815,7 +894,6 @@ def flash_cases(gen, fault_libs):
     every planted fault of ``FLASH_FAULTS`` against its case's check."""
     import torch
 
-    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref, scaled_err
@@ -833,13 +911,8 @@ def flash_cases(gen, fault_libs):
         fault = {}
         if label in faults:  # before the timed calls, whose freed outputs hold right answers
             name = faults[label]
-            saved = build._LIBS["flash_attention"]
-            try:
-                build._LIBS["flash_attention"] = build.load(fault_libs[name], fa_mod._SIGNATURES)
-                faulty = flash_attention_cuda(q, k, v, **kw)
-                torch.cuda.synchronize()
-            finally:
-                build._LIBS["flash_attention"] = saved
+            faulty = _with_fault("flash_attention", fault_libs[name], fa_mod,
+                                 lambda: flash_attention_cuda(q, k, v, **kw))
             f_err = scaled_err(faulty, flash_attention_ref(q.float(), k.float(), v.float(), **kw))
             print(f"[kernel] flash_attention planted fault {name} at {label}: scaled err "
                   f"{f_err:.6g} (sound {err:.6g}, tol {TOL_BF16})")
@@ -911,6 +984,167 @@ def mamba_cases(gen):
     return cases
 
 
+def fused_inputs(gen, B, S, di, N, with_h0, dtype) -> tuple:
+    """The fused scan's inputs on the card as a Mamba layer gives them: dt
+    (through softplus), x, B and C in ``dtype``, A = -exp(a_log) [di, N]
+    float32 about -(1 .. N) (the configs' init, perturbed per channel), and
+    h0 [B, di, N] float32 or None."""
+    import torch
+    import torch.nn.functional as F
+
+    dt_ = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    dt = F.softplus(randn(B, S, di) - 0.5).to(dt_)
+    x, Bm, Cm = randn(B, S, di).to(dt_), randn(B, S, N).to(dt_), randn(B, S, N).to(dt_)
+    A = -torch.exp(torch.log(torch.arange(1, N + 1, device="cuda", dtype=torch.float32))
+                   + 0.1 * randn(di, N))
+    return dt, x, Bm, Cm, A, randn(B, di, N) * 0.1 if with_h0 else None
+
+
+def unfused_terms(dt, x, B, A):
+    """The terms as the layer formed them before the fused scan (its
+    ``_ssm_terms``): ``a = exp(dt A)`` in place, ``b = (dt x) B``, float32
+    [B, S, di, N]."""
+    dt32 = dt.float()
+    a = (dt32[..., None] * A).exp_()
+    b = (dt32 * x.float())[..., None] * B.float()[..., None, :]
+    return a, b
+
+
+def _unfused_forward(dt, x, B, C, A, h0=None):
+    """The path the fused forward replaces: the terms, then ``mamba_scan``."""
+    from repro_torch.kernels.mamba_scan import mamba_scan_cuda
+
+    return mamba_scan_cuda(*unfused_terms(dt, x, B, A), C.float(), h0)
+
+
+def _unfused_backward(dt, x, B, C, A, h0, gy, gh=None):
+    """The path the fused backward replaces: the terms, ``mamba_scan_bwd``
+    on them, and the terms' backward through autograd."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan_bwd import mamba_scan_bwd_cuda
+
+    ins = [t.detach().requires_grad_() for t in (dt, x, B, C, A)]
+    a, b = unfused_terms(ins[0], ins[1], ins[2], ins[4])
+    c = ins[3].float()
+    ga, gb, gc, gh0 = mamba_scan_bwd_cuda(a.detach(), b.detach(), c.detach(), h0, gy, gh)
+    return torch.autograd.grad((a, b, c), ins, (ga, gb, gc)) + (gh0,)
+
+
+def _turns(fns: dict, args, iters: int, rounds: int = 1) -> dict:
+    """Each of ``fns`` timed on ``args`` as ``_ms`` times a kernel, in turns
+    (each in order, then in reverse, ``rounds`` times): its readings, cold
+    and warm, and their medians."""
+    out = {n: {"cold": [], "warm": []} for n in fns}
+    for n in (list(fns) + list(fns)[::-1]) * rounds:
+        t = _ms(fns[n], args, iters)
+        out[n]["cold"].append(t["cold"] if t["cold"] is not None else t["warm"])
+        out[n]["warm"].append(t["warm"])
+    for r in out.values():
+        r["median"] = statistics.median(r["cold"])
+        r["median_warm"] = statistics.median(r["warm"])
+    return out
+
+
+def _fused_ms(turns: dict) -> dict:
+    """A fused case's kernel times from its turns against the unfused path
+    (the medians, as ``_times`` would give them) and the turns."""
+    return {"ms": turns["fused"]["median"], "ms_warm": turns["fused"]["median_warm"],
+            "turns": turns, "unfused_ms": turns["unfused"]["median"]}
+
+
+def _with_fault(kernel: str, lib_path, module, call):
+    """``call()`` with ``kernel``'s library replaced by the faulty build at
+    ``lib_path``; synchronised."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    saved = build._LIBS[kernel]
+    try:
+        build._LIBS[kernel] = build.load(lib_path, module._SIGNATURES)
+        out = call()
+        torch.cuda.synchronize()
+    finally:
+        build._LIBS[kernel] = saved
+    return out
+
+
+def fused_cases(gen, fault_libs) -> list:
+    """Phase 3: the fused scan's forward against its plain version on the
+    same inputs at ``FUSED_SPECS`` (y and h_last at ``TOL_F32``; whether
+    h_last agrees bit for bit is printed), every planted fault of
+    ``FUSED_FAULTS``, and each case timed in turns against the path it
+    replaces (the terms formed by PyTorch, then ``mamba_scan``).  No
+    PyTorch call computes a selective scan: ``library_ms`` is None."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan_fused as sf_mod
+    from repro_torch.kernels.mamba_scan_fused import mamba_scan_fused_cuda
+    from repro_torch.kernels.ref import mamba_scan_fused_ref, scaled_err
+
+    faults = {}
+    for name, (_, _, label) in FUSED_FAULTS.items():
+        faults.setdefault(label, []).append(name)
+    cases = []
+    for label, B, S, di, N, with_h0, dtype in FUSED_SPECS:
+        args = fused_inputs(gen, B, S, di, N, with_h0, dtype)
+        if not with_h0:
+            args = args[:5]
+        y, h = mamba_scan_fused_cuda(*args)
+        torch.cuda.synchronize()
+        want_y, want_h = mamba_scan_fused_ref(*args)
+        (abs_y, err_y), (abs_h, err_h) = _err(y, want_y), _err(h, want_h)
+        err = max(err_y, err_h)
+        if not err <= TOL_F32:
+            raise AssertionError(f"mamba_scan_fused {label}: scaled err y {err_y}, h_last "
+                                 f"{err_h} > {TOL_F32}")
+        planted = {}
+        for name in faults.get(label, []):
+            fy, fh = _with_fault("mamba_scan_fused", fault_libs[name], sf_mod,
+                                 lambda: mamba_scan_fused_cuda(*args))
+            f_err = max(scaled_err(fy, want_y), scaled_err(fh, want_h))
+            print(f"[kernel] mamba_scan_fused planted fault {name} at {label}: scaled err "
+                  f"{f_err:.6g} (sound {err:.6g}, tol {TOL_F32})")
+            if f_err <= TOL_F32:  # a faulty output of NaNs fails the check too
+                raise AssertionError(f"planted fault {name} passed the check: {f_err}")
+            planted[name] = f_err if math.isfinite(f_err) else str(f_err)
+            del fy, fh
+        h_bits = torch.equal(h, want_h)
+        del y, h, want_y, want_h
+        esz = args[0].element_size()
+        # dt, x, B, C read once (and A, h0), y and h_last written once
+        nbytes = (esz * (2 * B * S * di + 2 * B * S * N) + 4 * di * N
+                  + 4 * (B * S * di + (2 if with_h0 else 1) * B * di * N))
+        # per state element and step: dt A, exp, (dt x) B, the update's
+        # multiply and add, the readout's multiply and add
+        flops = 7 * B * S * di * N + B * S * di
+        turns = _turns({"fused": mamba_scan_fused_cuda, "unfused": _unfused_forward}, args,
+                       iters=5)
+        case = {
+            "shape": f"{label}: dt/x[{B},{S},{di}] B/C[{B},{S},{N}] {dtype}"
+                     f"{' h0' if with_h0 else ''}",
+            "max_abs_err": max(abs_y, abs_h), "scaled_err": err,
+            "scaled_err_y": err_y, "scaled_err_h_last": err_h, "h_last_bit_for_bit": h_bits,
+            **_times(None, mamba_scan_fused_ref, None, args, iters=5), **_fused_ms(turns),
+            "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_ops_ms": flops / PEAK_FP32_FLOPS * 1e3,
+        }
+        if planted:
+            case["planted_fault_scaled_err"] = planted
+        print(f"[kernel] mamba_scan_fused {label}: in turns, fused "
+              f"{turns['fused']['median']:.6f} ms, unfused (terms + mamba_scan) "
+              f"{turns['unfused']['median']:.6f} ms (medians, inputs cold); h_last bit for "
+              f"bit with the plain version: {h_bits}")
+        cases.append(case)
+        del args
+    return cases
+
+
 def kernel_entry(name, source, replaces, cases, launches, tolerance=TOL_BF16):
     """The JSON record of one kernel: numbers at the main path's shape (the
     first case), every case beside them.  ``launches`` maps each run of the
@@ -938,7 +1172,7 @@ def plain_kernels():
     from repro_torch.kernels import ops, ref
 
     names = ("rmsnorm", "flash_attention", "mamba_scan", "flash_attention_bwd", "rmsnorm_bwd",
-             "mamba_scan_bwd")
+             "mamba_scan_bwd", "mamba_scan_fused", "mamba_scan_fused_bwd")
     saved = {n: getattr(ops, n) for n in names}
     for n in names:
         setattr(ops, n, getattr(ref, f"{n}_ref"))
@@ -954,7 +1188,7 @@ def pack_cases(gen, fault_libs) -> list:
     every planted fault against the same check."""
     import torch
 
-    from repro_torch.kernels import a2a_pack, build
+    from repro_torch.kernels import a2a_pack
     from repro_torch.kernels.a2a_pack import a2a_pack_cuda
     from repro_torch.kernels.ref import a2a_pack_ref
 
@@ -982,23 +1216,17 @@ def pack_cases(gen, fault_libs) -> list:
             "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_ops_ms": 0.0,
         })
         del x, out
-    saved = build._LIBS["a2a_pack"]
-    try:
-        for name, (_, _, shape) in PACK_FAULTS.items():
-            x = torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
-            want = a2a_pack_ref(x)  # kept alive: no output reuses its memory
-            build._LIBS["a2a_pack"] = build.load(fault_libs[name], a2a_pack._SIGNATURES)
-            faulty = a2a_pack_cuda(x)
-            torch.cuda.synchronize()
-            differ = int((faulty.view(torch.uint8) != want.view(torch.uint8)).sum())
-            print(f"[kernel] a2a_pack planted fault {name} at {shape}: {differ} of "
-                  f"{want.numel() * want.element_size()} bytes differ")
-            if differ == 0:
-                raise AssertionError(f"planted fault {name} passed the equality check")
-            cases[0].setdefault("planted_faults_bytes_differing", {})[name] = differ
-            del x, want, faulty
-    finally:
-        build._LIBS["a2a_pack"] = saved
+    for name, (_, _, shape) in PACK_FAULTS.items():
+        x = torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+        want = a2a_pack_ref(x)  # kept alive: no output reuses its memory
+        faulty = _with_fault("a2a_pack", fault_libs[name], a2a_pack, lambda: a2a_pack_cuda(x))
+        differ = int((faulty.view(torch.uint8) != want.view(torch.uint8)).sum())
+        print(f"[kernel] a2a_pack planted fault {name} at {shape}: {differ} of "
+              f"{want.numel() * want.element_size()} bytes differ")
+        if differ == 0:
+            raise AssertionError(f"planted fault {name} passed the equality check")
+        cases[0].setdefault("planted_faults_bytes_differing", {})[name] = differ
+        del x, want, faulty
     return cases
 
 
@@ -1280,7 +1508,7 @@ _DENSE = {"norms_per_layer": 2, "prompt": 512, "capacity": 1024}
 SERVED = {
     "yi_6b": {**_DENSE, "prefill": {"flash_attention": 32},
               "widths": (32, 4096, 32, 4, 128, 11008, 64000, None, 1, "silu", "bfloat16")},
-    "falcon_mamba_7b": {**_DENSE, "norms_per_layer": 1, "prefill": {"mamba_scan": 64},
+    "falcon_mamba_7b": {**_DENSE, "norms_per_layer": 1, "prefill": {"mamba_scan_fused": 64},
                         "widths": (64, 4096, 16, 4, 2, 256, 65024, "bfloat16")},
     # past the 4096-token window: the ring wraps at prefill (4608 % 4096 = 512)
     "h2o_danube_3_4b": {**_DENSE, "prompt": 4608, "capacity": 5120, "full_forward_at": 8,
@@ -1357,7 +1585,7 @@ class _Driven:
                                **engine_kw)
         torch.cuda.synchronize()
         self.build_s = time.perf_counter() - t0
-        self.launches = dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan"), 0)
+        self.launches = dict.fromkeys(SERVE_KERNELS, 0)
         self.step_s, self.prefill_ms, self.prefill_segments = [], None, None
         self.peak_mem_gb = 0.0
 
@@ -1548,8 +1776,8 @@ def serve(arch: str, seed: int = 0, smi: str = "") -> dict:
     if main["per_replay"] != {**dict.fromkeys(main["per_replay"], 0), "rmsnorm": per_forward}:
         raise AssertionError(f"launches per replay {main['per_replay']}: want "
                              f"{per_forward} rmsnorm and nothing else")
-    want_launches = {"rmsnorm": per_forward * (1 + decode_steps), "flash_attention": 0,
-                     "mamba_scan": 0, **want["prefill"]}
+    want_launches = {**dict.fromkeys(SERVE_KERNELS, 0),
+                     "rmsnorm": per_forward * (1 + decode_steps), **want["prefill"]}
     for mode, run in (("graph", main), ("eager", eager)):
         if run["launches"] != want_launches:
             raise AssertionError(f"{mode} engine: launches {run['launches']} != "
@@ -1862,7 +2090,7 @@ def drive_embeds(arch: str, seed: int = 0) -> dict:
                                                    dtype=dtype))
     torch.cuda.synchronize()
     build_ms = (time.perf_counter() - t0) * 1e3
-    runs = {m: {"launches": dict.fromkeys(("rmsnorm", "flash_attention", "mamba_scan"), 0),
+    runs = {m: {"launches": dict.fromkeys(SERVE_KERNELS, 0),
                 "logits": [], "step_s": []} for m in ("graph", "eager")}
 
     def call(mode, fn, *args):
@@ -1920,8 +2148,8 @@ def drive_embeds(arch: str, seed: int = 0) -> dict:
     if graph.launches != {**dict.fromkeys(graph.launches, 0), "rmsnorm": per_forward}:
         raise AssertionError(f"launches per replay {graph.launches}: want {per_forward} "
                              "rmsnorm and nothing else")
-    want_launches = {"rmsnorm": per_forward * (1 + steps), "flash_attention": 0,
-                     "mamba_scan": 0, **want["prefill"]}
+    want_launches = {**dict.fromkeys(SERVE_KERNELS, 0), "rmsnorm": per_forward * (1 + steps),
+                     **want["prefill"]}
     for mode, run in runs.items():
         if run["launches"] != want_launches:
             raise AssertionError(f"{mode} path: launches {run['launches']} != {want_launches}"
@@ -1977,7 +2205,6 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
     cases)."""
     import torch
 
-    from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention_bwd as fb_mod
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
@@ -2024,14 +2251,9 @@ def flash_train_cases(gen, fault_libs) -> tuple[list, list]:
         planted = {}
         o_s, do_s = slack(o), slack(do)  # a fault reading past a row's end reads memory
         for name in faults.get(label, []):
-            saved = build._LIBS["flash_attention_bwd"]
-            try:
-                build._LIBS["flash_attention_bwd"] = build.load(fault_libs[name],
-                                                                fb_mod._SIGNATURES)
-                faulty = flash_attention_bwd_cuda(q, k, v, o_s, lse, do_s, **kw)[:3]
-                torch.cuda.synchronize()
-            finally:
-                build._LIBS["flash_attention_bwd"] = saved
+            faulty = _with_fault("flash_attention_bwd", fault_libs[name], fb_mod,
+                                 lambda: flash_attention_bwd_cuda(q, k, v, o_s, lse, do_s,
+                                                                  **kw)[:3])
             f_err = bwd_err(faulty, want)
             print(f"[kernel] flash_attention_bwd planted fault {name} at {label}: scaled err "
                   f"{f_err:.6g} (sound {bwd_err(got[:3], want):.6g}, tol {TOL_BF16})")
@@ -2082,7 +2304,6 @@ def rmsnorm_train_cases(gen, fault_libs) -> list:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import build
     from repro_torch.kernels import rmsnorm_bwd as rb_mod
     from repro_torch.kernels.ref import rmsnorm_bwd_ref, scaled_err
     from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
@@ -2105,13 +2326,8 @@ def rmsnorm_train_cases(gen, fault_libs) -> list:
             raise AssertionError(f"rmsnorm_bwd [{T},{d}]: two calls differ")
         planted = {}
         for name in faults.get((T, d), []):
-            saved = build._LIBS["rmsnorm_bwd"]
-            try:
-                build._LIBS["rmsnorm_bwd"] = build.load(fault_libs[name], rb_mod._SIGNATURES)
-                f_dx, f_dw = rmsnorm_bwd_cuda(x, w, dy)
-                torch.cuda.synchronize()
-            finally:
-                build._LIBS["rmsnorm_bwd"] = saved
+            f_dx, f_dw = _with_fault("rmsnorm_bwd", fault_libs[name], rb_mod,
+                                     lambda: rmsnorm_bwd_cuda(x, w, dy))
             f_err = max(scaled_err(f_dx, want_dx), scaled_err(f_dw, want_dw))
             print(f"[kernel] rmsnorm_bwd planted fault {name} at [{T},{d}]: scaled err "
                   f"{f_err:.6g} (sound {err:.6g}, tol {TOL_BF16})")
@@ -2149,7 +2365,6 @@ def scan_train_cases(gen, fault_libs) -> list:
     ``library_ms`` is None."""
     import torch
 
-    from repro_torch.kernels import build
     from repro_torch.kernels import mamba_scan_bwd as sb_mod
     from repro_torch.kernels.mamba_scan_bwd import (mamba_scan_bwd_cuda,
                                                     mamba_scan_bwd_workspace_bytes)
@@ -2190,13 +2405,8 @@ def scan_train_cases(gen, fault_libs) -> list:
         bitwise = {n: torch.equal(g, w) for n, g, w in zip(names, got, want)}
         planted = {}
         for name in faults.get(label, []):
-            saved = build._LIBS["mamba_scan_bwd"]
-            try:
-                build._LIBS["mamba_scan_bwd"] = build.load(fault_libs[name], sb_mod._SIGNATURES)
-                faulty = kernel(*args)
-                torch.cuda.synchronize()
-            finally:
-                build._LIBS["mamba_scan_bwd"] = saved
+            faulty = _with_fault("mamba_scan_bwd", fault_libs[name], sb_mod,
+                                 lambda: kernel(*args))
             f_err = max(errs(faulty, want).values())
             print(f"[kernel] mamba_scan_bwd planted fault {name} at {label}: scaled err "
                   f"{f_err:.6g} (sound {max(err.values()):.6g}, tol {TOL_F32})")
@@ -2229,6 +2439,108 @@ def scan_train_cases(gen, fault_libs) -> list:
     return cases
 
 
+def fused_train_cases(gen, fault_libs) -> list:
+    """Phase 8 (a): the fused scan's backward against its plain version on
+    the same inputs at ``TRAIN_FUSED_SPECS``: every output (gdt, gx, gB, gC,
+    gA, gh0) at ``TOL_F32``, the first four in float32 (the kernel on the
+    same values in float32: its sums before the cast) against the plain
+    version's, and in the inputs' dtype equal bit for bit to those sums
+    cast; a second call to the same bits; every planted fault of
+    ``FUSED_BWD_FAULTS``; each case timed in turns against the path it
+    replaces (the terms, ``mamba_scan_bwd`` and the terms' backward through
+    autograd).  ``library_ms`` is None."""
+    import torch
+
+    from repro_torch.kernels import mamba_scan_fused_bwd as sb_mod
+    from repro_torch.kernels.mamba_scan_fused_bwd import (mamba_scan_fused_bwd_cuda,
+                                                          mamba_scan_fused_bwd_workspace_bytes)
+    from repro_torch.kernels.ref import mamba_scan_fused_bwd_ref, scaled_err
+
+    names = ("gdt", "gx", "gB", "gC", "gA", "gh0")
+
+    def errs(got, want) -> dict:
+        return {n: scaled_err(g, w) for n, g, w in zip(names, got, want)}
+
+    def kernel(dt, x, B, C, A, gy, h0=None, gh=None):
+        return mamba_scan_fused_bwd_cuda(dt, x, B, C, A, h0, gy, gh)
+
+    def sums(dt, x, B, C, *rest):  # the float32 instance on the same values
+        return kernel(dt.float(), x.float(), B.float(), C.float(), *rest)
+
+    def plain(dt, x, B, C, A, gy, h0=None, gh=None):
+        return mamba_scan_fused_bwd_ref(dt, x, B, C, A, h0, gy, gh)
+
+    def unfused(dt, x, B, C, A, gy, h0=None, gh=None):
+        return _unfused_backward(dt, x, B, C, A, h0, gy, gh)
+
+    faults = {}
+    for name, (_, _, label) in FUSED_BWD_FAULTS.items():
+        faults.setdefault(label, []).append(name)
+    cases = []
+    for label, B, S, di, N, with_h0, dtype in TRAIN_FUSED_SPECS:
+        dt, x, Bm, Cm, A, h0 = fused_inputs(gen, B, S, di, N, with_h0, dtype)
+        gy = torch.randn(B, S, di, generator=gen, device="cuda")
+        args = (dt, x, Bm, Cm, A, gy)
+        if with_h0:
+            args += (h0, torch.randn(B, di, N, generator=gen, device="cuda"))
+        f32 = sums(*args)
+        got = kernel(*args)
+        torch.cuda.synchronize()
+        want = plain(*(t.float() for t in args[:4]), *args[4:])  # float32: before the cast
+        err = errs(f32, want)
+        if not max(err.values()) <= TOL_F32:
+            raise AssertionError(f"mamba_scan_fused_bwd {label}: scaled err {err} > {TOL_F32}")
+        cast = all(torch.equal(g, s.to(g.dtype)) for g, s in zip(got[:4], f32[:4]))
+        if not (cast and all(g.dtype == t.dtype for g, t in zip(got[:4], args[:4]))):
+            raise AssertionError(f"mamba_scan_fused_bwd {label}: the outputs in {dtype} are "
+                                 "not the float32 sums cast")
+        if not all(torch.equal(a, b) for a, b in zip(got, kernel(*args))):  # no atomics
+            raise AssertionError(f"mamba_scan_fused_bwd {label}: two calls differ")
+        bitwise = {n: torch.equal(g, w) for n, g, w in zip(names, f32, want)}
+        planted = {}
+        for name in faults.get(label, []):
+            faulty = _with_fault("mamba_scan_fused_bwd", fault_libs[name], sb_mod,
+                                 lambda: sums(*args))
+            f_err = max(errs(faulty, want).values())
+            print(f"[kernel] mamba_scan_fused_bwd planted fault {name} at {label}: scaled err "
+                  f"{f_err:.6g} (sound {max(err.values()):.6g}, tol {TOL_F32})")
+            if f_err <= TOL_F32:  # a faulty output of NaNs fails the check too
+                raise AssertionError(f"planted fault {name} passed the check: {f_err}")
+            planted[name] = f_err if math.isfinite(f_err) else str(f_err)
+            del faulty
+        esz = dt.element_size()
+        # read once: dt, x, B, C, A, gy (h0, gh_fin); written once: gdt, gx,
+        # gB, gC, gA, gh0
+        nbytes = (2 * esz * (2 * B * S * di + 2 * B * S * N) + 4 * B * S * di
+                  + 8 * di * N + 4 * (3 if with_h0 else 1) * B * di * N)
+        # per state element and step: the forward again (dt A, exp, (dt x) B,
+        # the update's multiply and add), gC's term (multiply, add), g (two
+        # multiplies, an add), ga a (two multiplies), and the sums of gdt's,
+        # gA's, gx's and gB's terms (a multiply and an add each)
+        flops = 20 * B * S * di * N
+        turns = _turns({"fused": kernel, "unfused": unfused}, args, iters=2)
+        case = {
+            "shape": f"{label}: dt/x[{B},{S},{di}] B/C[{B},{S},{N}] {dtype}"
+                     f"{' h0 gh_fin' if with_h0 else ''}",
+            "max_abs_err": max((g - w).abs().max().item() for g, w in zip(f32, want)),
+            "scaled_err": max(err.values()), **{f"scaled_err_{n}": e for n, e in err.items()},
+            "bit_for_bit": bitwise, "cast_bit_for_bit": cast,
+            "workspace_bytes": mamba_scan_fused_bwd_workspace_bytes(B, S, di, N),
+            **_times(None, plain, None, args, iters=2), **_fused_ms(turns),
+            "bound_bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "bound_ops_ms": flops / PEAK_FP32_FLOPS * 1e3,
+        }
+        if planted:
+            case["planted_fault_scaled_err"] = planted
+        print(f"[kernel] mamba_scan_fused_bwd {label}: scaled err {err}; bit for bit with the "
+              f"plain version: {bitwise}; in turns, fused {turns['fused']['median']:.6f} ms, "
+              f"unfused (terms, mamba_scan_bwd, autograd) {turns['unfused']['median']:.6f} ms "
+              "(medians, inputs cold)")
+        cases.append(case)
+        del dt, x, Bm, Cm, A, h0, gy, args, f32, got, want
+    return cases
+
+
 def _config(arch: str, layers: int):
     """``arch`` at its published widths and ``layers`` of its layers."""
     from repro_torch.configs import get_config
@@ -2240,7 +2552,8 @@ def _launches_per_step(cfg) -> dict:
     """The kernels' launches one train step implies, in each of its M
     microbatches: every layer's forward once, and once more in the backward
     under remat; every layer's backward once; the final norm once each way.
-    An attention layer launches flash, a Mamba layer the selective scan; a
+    An attention layer launches flash, a Mamba layer the fused selective
+    scan (which forms its terms itself); a
     layer has its first norm, a second one unless its FFN is "none"
     (Falcon-Mamba), and MLA's q_norm (with a q_lora_rank) and kv_norm."""
     L, M, a = cfg.num_layers, cfg.parallel.microbatches, cfg.attn
@@ -2253,7 +2566,7 @@ def _launches_per_step(cfg) -> dict:
     if attn:
         out.update(flash_attention=r * attn * M, flash_attention_bwd=attn * M)
     if L - attn:
-        out.update(mamba_scan=r * (L - attn) * M, mamba_scan_bwd=(L - attn) * M)
+        out.update(mamba_scan_fused=r * (L - attn) * M, mamba_scan_fused_bwd=(L - attn) * M)
     return {**out, "rmsnorm": (r * n + 1) * M, "rmsnorm_bwd": (n + 1) * M}
 
 
@@ -2832,7 +3145,8 @@ def sharded_job(archs: list, ref_dir: str, seed: int = 0) -> dict:
     mesh = make_device_mesh(SHARDED_MESH, ("pod", "data", "model"), "cuda")
     view = MeshAxes(mesh)
     wrappers = ("rmsnorm_cuda", "rmsnorm_bwd_cuda", "flash_attention_cuda",
-                "flash_attention_bwd_cuda", "mamba_scan_cuda", "mamba_scan_bwd_cuda")
+                "flash_attention_bwd_cuda", "mamba_scan_cuda", "mamba_scan_bwd_cuda",
+                "mamba_scan_fused_cuda", "mamba_scan_fused_bwd_cuda")
     shapes = []
 
     def recording(name, fn):
@@ -3789,8 +4103,8 @@ def serve_sharded_phase(smi: str) -> dict:
                              + list(r[arch]["cache_errs"].values())) for r in got)
         fault = max(r[arch]["fault_err"] for r in got)
         mem = [r[arch]["peak_bytes"] / 1e9 for r in got]
-        kinds = [k for k in ("rmsnorm", "flash_attention", "mamba_scan")
-                 if (k != "mamba_scan" or cfg.mamba is not None)
+        kinds = [k for k in ("rmsnorm", "flash_attention", "mamba_scan_fused")
+                 if (k != "mamba_scan_fused" or cfg.mamba is not None)
                  and (k != "flash_attention" or cfg.attn is not None)]
         unlaunched = {r["rank"]: [k for k in kinds if r[arch]["launches"][k] == 0] for r in got}
         print(f"[serve sharded] {arch} at full width, 2 layers, {world} ranks as (pod, data, "
@@ -3954,8 +4268,9 @@ def main() -> int:
     rms = rmsnorm_cases(gen)
     fla = flash_cases(gen, fault_libs)
     mam = mamba_cases(gen)
+    fus = fused_cases(gen, fault_libs)
     for name, cases, tol in (("rmsnorm", rms, TOL_BF16), ("flash_attention", fla, TOL_BF16),
-                             ("mamba_scan", mam, TOL_F32)):
+                             ("mamba_scan", mam, TOL_F32), ("mamba_scan_fused", fus, TOL_F32)):
         _print_cases(name, cases, tol)
     done("kernels")
 
@@ -3981,10 +4296,12 @@ def main() -> int:
     fwd_train, bwd_train = flash_train_cases(gen, fault_libs)
     rms_train = rmsnorm_train_cases(gen, fault_libs)
     scan_train = scan_train_cases(gen, fault_libs)
+    fus_train = fused_train_cases(gen, fault_libs)
     for name, cases, tol in (("flash_attention (training forward)", fwd_train, TOL_BF16),
                              ("flash_attention_bwd", bwd_train, TOL_BF16),
                              ("rmsnorm_bwd", rms_train, TOL_BF16),
-                             ("mamba_scan_bwd", scan_train, TOL_F32)):
+                             ("mamba_scan_bwd", scan_train, TOL_F32),
+                             ("mamba_scan_fused_bwd", fus_train, TOL_F32)):
         _print_cases(name, cases, tol)
     done("train kernels")
     gc.collect()
@@ -4052,6 +4369,14 @@ def main() -> int:
         kernel_entry("mamba_scan_bwd", "src/repro_torch/kernels/csrc/mamba_scan_bwd.cu",
                      "src/repro/models/mamba.py:112", scan_train,
                      {run: n["mamba_scan_bwd"] for run, n in runs.items()}, tolerance=TOL_F32),
+        kernel_entry("mamba_scan_fused", "src/repro_torch/kernels/csrc/mamba_scan_fused.cu",
+                     "src/repro/kernels/mamba_scan.py:60", fus, by_model("mamba_scan_fused"),
+                     tolerance=TOL_F32),
+        kernel_entry("mamba_scan_fused_bwd",
+                     "src/repro_torch/kernels/csrc/mamba_scan_fused_bwd.cu",
+                     "src/repro/models/mamba.py:112", fus_train,
+                     {run: n["mamba_scan_fused_bwd"] for run, n in runs.items()},
+                     tolerance=TOL_F32),
     ]
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(

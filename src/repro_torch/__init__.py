@@ -14,9 +14,10 @@ Two paths use them: serving (``launch/serve.py`` -> ``serving/engine.py``
 AdamW in ``training/optimizer.py``, checkpoints in
 ``training/checkpoint.py``).  Training differentiates the flash attention
 (``models/flash.py``, the reference's custom VJP), the selective scan
-(``models/mamba.selective_scan``, the other custom VJP) and RMSNorm through
-three more CUDA kernels, their backwards (``csrc/flash_attention_bwd.cu``,
-``csrc/mamba_scan_bwd.cu``, ``csrc/rmsnorm_bwd.cu``); on one card it syncs
+with its terms (``models/mamba.selective_scan_fused``, the other custom
+VJP) and RMSNorm through three more CUDA kernels, their backwards
+(``csrc/flash_attention_bwd.cu``, ``csrc/mamba_scan_fused_bwd.cu``,
+``csrc/rmsnorm_bwd.cu``); on one card it syncs
 no gradients, in ranks (``launch/ranks.py``) the train step takes the
 reference's flat or full-lane (``hierarchical_psum``) data-parallel sync.
 

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 alone (no PyTorch headers, so a build takes seconds) into
 ``build/kernels/<name>-<digest>.so`` at the repository root, where the digest
-covers the source and the flags, so an edited source is rebuilt.  The
-libraries are loaded with ``ctypes``.  Nothing is compiled when this module is
-imported: machines without ``nvcc`` (the CPU test runs) import it freely.
+covers the source, the headers beside it (``csrc/*.cuh``, on the include
+path of every build) and the flags, so an edited source or header is
+rebuilt.  The libraries are loaded with ``ctypes``.  Nothing is compiled
+when this module is imported: machines without ``nvcc`` (the CPU test runs)
+import it freely.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ __all__ = ["KERNELS", "NVCC_FLAGS", "BUILD_LOG", "build", "compile_sources", "jo
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("rmsnorm", "flash_attention", "mamba_scan", "a2a_pack", "flash_attention_bwd",
-           "rmsnorm_bwd", "mamba_scan_bwd")
+           "rmsnorm_bwd", "mamba_scan_bwd", "mamba_scan_fused", "mamba_scan_fused_bwd")
 # -Xptxas -v: registers, shared memory and spills of every kernel, kept in
 # BUILD_LOG for the record of a run
 NVCC_FLAGS = (
@@ -50,7 +52,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -68,7 +71,9 @@ def build(names=KERNELS) -> None:
 
 def compile_sources(jobs: dict[str, tuple[Path, Path]]) -> None:
     """Compile each ``name: (source, library)`` job, one ``nvcc`` per source,
-    all started together; the compiler's output goes to ``BUILD_LOG[name]``.
+    all started together, with ``csrc/`` on the include path (a copy of a
+    source elsewhere finds its headers); the compiler's output goes to
+    ``BUILD_LOG[name]``.
     Raises with the compiler's output if any build fails."""
     if not jobs:
         return
@@ -77,7 +82,7 @@ def compile_sources(jobs: dict[str, tuple[Path, Path]]) -> None:
     for n, (src, target) in jobs.items():
         target.parent.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp), str(src)]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp, target)
     errors = []

@@ -21,8 +21,10 @@ FLOPs of the matrix products its kernel does to every counter that
 products over the 64 x 64 (query, key) tiles inside the causal or window
 frontier, as the reference's chunked attention skips the chunks outside it;
 the scan counts its readout ``y_t = sum_n h_t c_t`` (an einsum in the
-reference) and its backward the readout's contraction for ``gc``; RMSNorm
-and ``a2a_pack`` count none.
+reference) and its backward the readout's contraction for ``gc``, under
+the names ``mamba_scan`` and ``mamba_scan_bwd`` whether the terms are
+formed outside (``mamba_scan``) or inside the kernel
+(``mamba_scan_fused``); RMSNorm and ``a2a_pack`` count none.
 
 A ``DTensor`` (a tensor sharded over a ``DeviceMesh``, the sharded train
 step's) goes to the same dispatcher shard by shard: ``on_shards`` runs the
@@ -33,8 +35,8 @@ can take on local rows: the dims the kernel treats as independent rows or
 channels keep their shards (``rows``), every other dim, and any pending
 sum (``Partial``), is gathered.  A gradient that each rank computes over
 its own rows only (RMSNorm's ``dw``, the scan's ``gc`` over a rank's
-channels) comes back ``Partial`` over those mesh dims, never as if it were
-the whole sum.
+channels, the fused scan's ``gA`` over its batch rows) comes back
+``Partial`` over those mesh dims, never as if it were the whole sum.
 """
 
 from __future__ import annotations
@@ -50,22 +52,27 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.mamba_scan_bwd import mamba_scan_bwd_cuda
+from repro_torch.kernels.mamba_scan_fused import mamba_scan_fused_cuda
+from repro_torch.kernels.mamba_scan_fused_bwd import mamba_scan_fused_bwd_cuda
 from repro_torch.kernels.ref import (
     a2a_pack_ref,
     flash_attention_bwd_ref,
     flash_attention_ref,
+    fused_grads,
     mamba_scan_bwd_ref,
     mamba_scan_ref,
     rmsnorm_bwd_ref,
     rmsnorm_ref,
+    scan_terms_bwd_ref,
+    scan_terms_ref,
 )
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
 __all__ = ["a2a_pack", "flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd",
-           "rmsnorm", "rmsnorm_bwd", "add_launches", "launch_counts", "reset_launches",
-           "count_meta_flops", "attention_tile_pairs", "on_shards", "rows", "moved",
-           "summed_over", "scan_placements"]
+           "mamba_scan_fused", "mamba_scan_fused_bwd", "rmsnorm", "rmsnorm_bwd", "add_launches",
+           "launch_counts", "reset_launches", "count_meta_flops", "attention_tile_pairs",
+           "on_shards", "rows", "moved", "summed_over", "scan_placements", "fused_placements"]
 
 #: the (query, key) tile of the meta FLOP count
 META_TILE = 64
@@ -106,15 +113,25 @@ def moved(placements: tuple, where: dict) -> tuple:
 
 
 def scan_placements(a: DTensor) -> tuple:
-    """The selective scan's placements from ``a`` [B, S, di, N]: (a's and
-    b's and y's and gy's, each rank's batch rows and channels; c's [B, S,
-    N], the rows; h's [B, di, N], the rows and channels; c's gradient,
-    ``Partial`` over the mesh dims that shard the channels, since each rank
-    sums ``gc`` over its own)."""
+    """The selective scan's placements from ``a`` [B, S, di, N] (or the
+    fused scan's ``dt`` [B, S, di]): (a's and b's and y's and gy's, each
+    rank's batch rows and channels; c's [B, S, N], the rows; h's [B, di,
+    N], the rows and channels; c's gradient, ``Partial`` over the mesh dims
+    that shard the channels, since each rank sums ``gc`` over its own)."""
     ap = rows(a, 0, 2)
     cp = moved(ap, {0: 0})
     gc = tuple(Partial() if isinstance(p, Shard) and p.dim == 2 else q for p, q in zip(ap, cp))
     return ap, cp, moved(ap, {0: 0, 2: 1}), gc
+
+
+def fused_placements(dt: DTensor) -> tuple:
+    """The fused scan's placements of ``A`` [di, N] from ``dt`` [B, S, di]:
+    (A's, the rank's channels; A's gradient, ``Partial`` over the mesh dims
+    that shard the batch rows, since each rank sums ``gA`` over its own)."""
+    ap = rows(dt, 0, 2)
+    Ap = moved(ap, {2: 0})
+    return Ap, tuple(Partial() if isinstance(p, Shard) and p.dim == 0 else q
+                     for p, q in zip(ap, Ap))
 
 
 def summed_over(placements: tuple, *dims: int) -> tuple:
@@ -301,6 +318,64 @@ def mamba_scan_bwd(a, b, c, h0, gy, gh_fin=None):
     raise _no_path("mamba_scan_bwd", a)
 
 
+def mamba_scan_fused(dt, x, B, C, A, h0=None):
+    """The selective scan from the layer's own inputs, the terms ``a =
+    exp(dt A)`` and ``b = (dt x) B`` formed inside the kernel: dt, x [B, S,
+    di] and B, C [B, S, N] in one dtype (the model's), A [di, N] and h0 [B,
+    di, N] or None (zeros) float32; returns (y [B, S, di], h_last [B, di,
+    N]) float32.  On the CPU the plain version, ``ref.mamba_scan_fused_ref``
+    (the terms, then the unfused plain scan)."""
+    if isinstance(dt, DTensor):
+        xp, cp, hp, _ = scan_placements(dt)
+        Ap, _ = fused_placements(dt)
+        return on_shards(mamba_scan_fused, (dt, x, B, C, A, h0),
+                         (xp, xp, cp, cp, Ap, None if h0 is None else hp), (xp, hp))
+    if dt.is_cuda:
+        out = mamba_scan_fused_cuda(dt, x, B, C, A, h0)
+        mamba_scan_fused.launches += 1
+        return out
+    if dt.device.type == "cpu":
+        return mamba_scan_ref(*scan_terms_ref(dt, x, B, A), C, h0)
+    if dt.is_meta:
+        Bz, S, di = dt.shape
+        N = A.shape[-1]
+        _meta("mamba_scan", 2 * Bz * S * di * N)  # the readout, as the unfused scan's
+        return (dt.new_empty((Bz, S, di), dtype=torch.float32),
+                dt.new_empty((Bz, di, N), dtype=torch.float32))
+    raise _no_path("mamba_scan_fused", dt)
+
+
+def mamba_scan_fused_bwd(dt, x, B, C, A, h0, gy, gh_fin=None):
+    """The gradients (gdt, gx [B, S, di], gB, gC [B, S, N] in their inputs'
+    dtype, gA [di, N], gh0 [B, di, N] float32) of :func:`mamba_scan_fused`
+    for the cotangents ``gy`` [B, S, di] of y and ``gh_fin`` [B, di, N] of
+    h_last (None: zeros), float32.  On the CPU the plain version,
+    ``ref.mamba_scan_fused_bwd_ref``: the unfused plain backward on the
+    formed terms, then the chain rule through them."""
+    if isinstance(dt, DTensor):
+        xp, cp, hp, gc = scan_placements(dt)
+        Ap, gA = fused_placements(dt)
+        return on_shards(mamba_scan_fused_bwd, (dt, x, B, C, A, h0, gy, gh_fin),
+                         (xp, xp, cp, cp, Ap, None if h0 is None else hp, xp,
+                          None if gh_fin is None else hp), (xp, xp, gc, gc, gA, hp))
+    if dt.is_cuda:
+        out = mamba_scan_fused_bwd_cuda(dt, x, B, C, A, h0, gy, gh_fin)
+        mamba_scan_fused_bwd.launches += 1
+        return out
+    if dt.device.type == "cpu":
+        a, b = scan_terms_ref(dt, x, B, A)
+        ga, gb, gC, gh0 = mamba_scan_bwd_ref(a, b, C, h0, gy, gh_fin)
+        return fused_grads(dt, x, B, C, scan_terms_bwd_ref(dt, x, B, A, a, ga, gb), gC, gh0)
+    if dt.is_meta:
+        Bz, S, di = dt.shape
+        N = A.shape[-1]
+        _meta("mamba_scan_bwd", 2 * Bz * S * di * N)  # gc's contraction, as the unfused
+        return (torch.empty_like(dt), torch.empty_like(x), torch.empty_like(B),
+                torch.empty_like(C), torch.empty_like(A), dt.new_empty((Bz, di, N),
+                                                                      dtype=torch.float32))
+    raise _no_path("mamba_scan_fused_bwd", dt)
+
+
 def a2a_pack(x: torch.Tensor) -> torch.Tensor:
     """[No, Ni, blk, d] -> [Ni, No, blk, d] (the leading two dims swapped),
     any dtype; contiguous output."""
@@ -320,7 +395,7 @@ def a2a_pack(x: torch.Tensor) -> torch.Tensor:
 
 
 _DISPATCHERS = (rmsnorm, flash_attention, mamba_scan, a2a_pack, flash_attention_bwd,
-                rmsnorm_bwd, mamba_scan_bwd)
+                rmsnorm_bwd, mamba_scan_bwd, mamba_scan_fused, mamba_scan_fused_bwd)
 
 
 def reset_launches() -> None:

@@ -9,7 +9,9 @@ import math
 import torch
 
 __all__ = ["a2a_pack_ref", "dq_scaled_err", "flash_attention_bwd_ref", "flash_attention_ref",
-           "mamba_scan_bwd_ref", "mamba_scan_ref", "rmsnorm_bwd_ref", "rmsnorm_ref", "scaled_err"]
+           "fused_grads", "mamba_scan_bwd_ref", "mamba_scan_fused_bwd_ref", "mamba_scan_fused_ref",
+           "mamba_scan_ref", "rmsnorm_bwd_ref", "rmsnorm_ref", "scaled_err", "scan_terms_bwd_ref",
+           "scan_terms_ref"]
 
 _NEG = -1e30
 
@@ -163,6 +165,65 @@ def mamba_scan_bwd_ref(
         ga[:, t] = g * hs[:, t]
         gb[:, t] = g
     return ga, gb, gc, a[:, 0] * g
+
+
+def scan_terms_ref(
+    dt: torch.Tensor,  # [B, S, di] step sizes (through softplus)
+    x: torch.Tensor,  # [B, S, di] the conv branch's activation
+    B: torch.Tensor,  # [B, S, N] input projection
+    A: torch.Tensor,  # [di, N] -exp(a_log), float32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The discretised scan terms as the model's ``_ssm_terms`` forms them,
+    in float32: ``a = exp(dt A)`` (the product, then exp) and ``b = (dt x)
+    B`` (the product dt x, then times B).  Returns (a, b) [B, S, di, N]."""
+    dt32 = dt.float()
+    a = (dt32[..., None] * A.float()).exp()
+    b = (dt32 * x.float())[..., None] * B.float()[..., None, :]
+    return a, b
+
+
+def scan_terms_bwd_ref(dt, x, B, A, a, ga, gb) -> tuple:
+    """The chain rule through :func:`scan_terms_ref` from the terms'
+    gradients ``ga``, ``gb`` [B, S, di, N]: ``gdt = sum_n ga a A + sum_n gb
+    x B``, ``gx = sum_n gb dt B``, ``gB = sum_d gb dt x`` and ``gA =
+    sum_{b, t} ga a dt``, each term in float32; the long sums (gB over the
+    channels, gA over the batch rows and steps) in float64, rounded once.
+    Returns (gdt, gx [B, S, di], gB [B, S, N], gA [di, N]), float32."""
+    dt32, x32, B32 = dt.float(), x.float(), B.float()
+    gaa = ga * a  # exp's derivative: the gradient of dt A
+    gbB = (gb * B32[..., None, :]).sum(dim=-1)  # sum_n gb B, [B, S, di]
+    gdt = (gaa * A.float()).sum(dim=-1) + gbB * x32
+    gx = gbB * dt32
+    gB = (gb * (dt32 * x32)[..., None]).sum(dim=2, dtype=torch.float64).float()
+    gA = (gaa * dt32[..., None]).sum(dim=(0, 1), dtype=torch.float64).float()
+    return gdt, gx, gB, gA
+
+
+def mamba_scan_fused_ref(dt, x, B, C, A, h0=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The selective scan from the layer's own inputs: the terms of
+    :func:`scan_terms_ref`, then :func:`mamba_scan_ref` with the readout
+    ``C`` [B, S, N].  Returns (y [B, S, di], h_last [B, di, N]), float32."""
+    return mamba_scan_ref(*scan_terms_ref(dt, x, B, A), C, h0)
+
+
+def mamba_scan_fused_bwd_ref(dt, x, B, C, A, h0, gy, gh_fin=None) -> tuple:
+    """The gradients of :func:`mamba_scan_fused_ref` for the cotangents
+    ``gy`` [B, S, di] of y and ``gh_fin`` [B, di, N] of h_last (None:
+    zeros), step by step: :func:`mamba_scan_bwd_ref` on the formed terms,
+    then :func:`scan_terms_bwd_ref`.  Returns (gdt, gx, gB, gC) in the
+    dtypes of dt, x, B and C (summed in float32, cast once), gA [di, N] and
+    gh0 [B, di, N] float32."""
+    a, b = scan_terms_ref(dt, x, B, A)
+    ga, gb, gC, gh0 = mamba_scan_bwd_ref(a, b, C, h0, gy, gh_fin)
+    return fused_grads(dt, x, B, C, scan_terms_bwd_ref(dt, x, B, A, a, ga, gb), gC, gh0)
+
+
+def fused_grads(dt, x, B, C, chain: tuple, gC, gh0) -> tuple:
+    """(gdt, gx, gB, gC, gA, gh0) from the chain rule's (gdt, gx, gB, gA)
+    and the scan's gC and gh0, each of the first four cast once to its
+    input's dtype."""
+    gdt, gx, gB, gA = chain
+    return gdt.to(dt.dtype), gx.to(x.dtype), gB.to(B.dtype), gC.to(C.dtype), gA, gh0
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

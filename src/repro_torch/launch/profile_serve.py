@@ -95,6 +95,9 @@ def _device_us(evt) -> float:
 
 #: the names of the port's hand-written kernels (``kernels/csrc``)
 _PORT_KERNEL = re.compile(r"rmsnorm|flash_|mamba_scan|a2a_pack")
+#: the selective scan's kernels, unfused (formed terms in) or fused
+_SCAN_FORWARD = re.compile(r"mamba_scan_(fused_)?kernel")
+_SCAN_BACKWARD = re.compile(r"mamba_scan_(fused_)?bwd")
 
 
 def idle_share(span_us: float, busy_us: float, wall_us: float) -> tuple[float, str]:
@@ -145,9 +148,9 @@ def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
     split = {"flash attention": sum(_device_us(e) for e in on_device if "flash_" in e.key),
              "rmsnorm": sum(_device_us(e) for e in on_device if "rmsnorm" in e.key),
              "scan forward": sum(_device_us(e) for e in on_device
-                                 if "mamba_scan_kernel" in e.key),
+                                 if _SCAN_FORWARD.search(e.key)),
              "scan backward": sum(_device_us(e) for e in on_device
-                                  if "mamba_scan_bwd" in e.key)}
+                                  if _SCAN_BACKWARD.search(e.key))}
     for span in SPANS:  # a span's device time: the kernels of the operators inside it
         us = sum(e.device_time_total for e in prof.events()
                  if e.name == span and e.device_type == DeviceType.CPU)

@@ -28,8 +28,9 @@ parameters and caches unstacked, as in the reference; the periods stacked
 under ``blocks`` are the ``(num_layers - first_k_dense) // len(pattern)``
 that remain.  Every config trains: attention through the flash kernels
 (MLA in its expanded form, at its pair of head dims), Mamba through the
-selective scan's custom VJP (``mamba.selective_scan``, the scan's backward
-kernel), the hybrid (Jamba) through both.
+selective scan's custom VJP with its terms formed inside the kernels
+(``mamba.selective_scan_fused``, the fused backward kernel), the hybrid
+(Jamba) through both.
 
 Served sharded (the reference's dry-run cells), ``prefill`` and
 ``decode_step`` take the parameters as DTensors placed by

@@ -4,30 +4,41 @@
 Two compute paths:
 
 * prefill and train — the causal depthwise conv, written as the reference
-  writes it (a sum of shifted float32 scalings), the discretised scan terms
-  (``_ssm_terms``), then ``selective_scan`` from a zero state: the
-  counterpart of the reference's custom VJP.  Its forward is
-  ``ops.mamba_scan`` (the scan kernel on the card) and saves only its
-  inputs; its backward is ``ops.mamba_scan_bwd`` (the backward kernel on
-  the card), which recomputes the states and runs the reverse recurrence of
-  the reference's ``_scan_bwd``.  The reference's forward runs a chunked
-  associative scan, which computes the same recurrence with its products in
-  another order.  Prefill returns the filled cache (the last ``d_conv - 1``
-  conv inputs and the last state); ``train=True`` fills none.
+  writes it (a sum of shifted float32 scalings), the scan's own inputs
+  (``_ssm_inputs``: dt, B, C and A), then ``selective_scan_fused`` from a
+  zero state: the counterpart of the reference's ``_ssm_terms`` followed by
+  its custom VJP ``selective_scan``.  Its forward is
+  ``ops.mamba_scan_fused`` (the fused scan kernel on the card), which forms
+  the terms ``a = exp(dt A)`` and ``b = (dt x) B`` in registers, so the
+  [B, S, di, N] float32 tensors a and b never exist; it saves only its
+  inputs.  Its backward is ``ops.mamba_scan_fused_bwd`` (the fused backward
+  kernel), which recomputes the terms and the states, runs the reverse
+  recurrence of the reference's ``_scan_bwd`` and the chain rule through
+  the terms.  The reference's forward runs a chunked associative scan,
+  which computes the same recurrence with its products in another order.
+  Prefill returns the filled cache (the last ``d_conv - 1`` conv inputs and
+  the last state); ``train=True`` fills none.
 * decode — the O(1) recurrent step over that cache, in plain PyTorch ops,
-  as in the reference (it has no TPU kernel).  The cache is updated in
+  as in the reference (it has no TPU kernel): the terms of one step
+  (``_ssm_terms``), the update and the readout.  The cache is updated in
   place.
 
+``selective_scan(a, b, c, h0)`` stays as the counterpart of the
+reference's ``selective_scan`` and of the TPU kernel's interface (formed
+terms in, ``ops.mamba_scan`` / ``ops.mamba_scan_bwd``); the layer does not
+call it.
+
 On DTensors (the sharded train step, ``d_inner`` over ``model``) the conv,
-``_ssm_terms`` and the scan run on each rank's channels: the two halves of
+``_ssm_inputs`` and the scan run on each rank's channels: the two halves of
 ``in_proj``'s output are pinned to their channel shards (``in_proj`` is
 sharded as one ``[D, 2 * di]`` matrix, so a rank's columns hold one half
-or the other), and ``selective_scan``'s custom VJP runs shard by shard
-(``ops.on_shards``), ``c``'s gradient ``Partial`` over ``model`` (each
-rank sums its channels' share).  Served on DTensors (``lm.prefill`` and
-``lm.decode_step`` on placed parameters), prefill takes the same path and
-the decode step's conv window and state stay on each rank's channels, the
-cache written in place shard by shard (``layers.assign``).
+or the other), and the scan's custom VJP runs shard by shard
+(``ops.on_shards``), the gradients of B and C ``Partial`` over ``model``
+(each rank sums its channels' share) and A's over the mesh dims that shard
+the batch rows.  Served on DTensors (``lm.prefill`` and ``lm.decode_step``
+on placed parameters), prefill takes the same path and the decode step's
+conv window and state stay on each rank's channels, the cache written in
+place shard by shard (``layers.assign``).
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import assign
 from repro_torch.models.params import ParamMeta
 
-__all__ = ["mamba_meta", "mamba", "init_mamba_cache", "selective_scan"]
+__all__ = ["mamba_meta", "mamba", "init_mamba_cache", "selective_scan",
+           "selective_scan_fused"]
 
 
 def mamba_meta(cfg: ModelConfig) -> dict:
@@ -112,6 +124,47 @@ def selective_scan(
     return _SelectiveScan.apply(a, b, c, h0)
 
 
+class _SelectiveScanFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dt, x, B, C, A, h0):
+        ctx.set_materialize_grads(False)  # an unused h_fin sends no zeros back
+        # free where they already are (the layer's own tensors); a shard
+        # that local_map redistributed may not be
+        dt, x, B, C = (t.contiguous() for t in (dt, x, B, C))
+        y, h_fin = ops.mamba_scan_fused(dt, x, B, C, A, h0)
+        ctx.save_for_backward(dt, x, B, C, A, h0)
+        return y, h_fin
+
+    @staticmethod
+    def backward(ctx, gy, gh_fin):
+        dt, x, B, C, A, h0 = ctx.saved_tensors
+        gy = dt.new_zeros(dt.shape, dtype=torch.float32) if gy is None else gy.contiguous()
+        gdt, gx, gB, gC, gA, gh0 = ops.mamba_scan_fused_bwd(
+            dt, x, B, C, A, h0, gy, gh_fin.contiguous() if gh_fin is not None else None)
+        return gdt, gx, gB, gC, gA, gh0 if h0 is not None else None
+
+
+def selective_scan_fused(
+    dt: torch.Tensor,  # [B, S, di] step sizes (through softplus), model dtype
+    x: torch.Tensor,  # [B, S, di] the conv branch's activation, model dtype
+    B: torch.Tensor,  # [B, S, N] input projection, model dtype
+    C: torch.Tensor,  # [B, S, N] readout, model dtype
+    A: torch.Tensor,  # [di, N] -exp(a_log), float32
+    h0: torch.Tensor | None,  # [B, di, N] initial state (None: zeros)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``selective_scan`` on the terms ``a = exp(dt A)``, ``b = (dt x) B``
+    that the reference's ``_ssm_terms`` forms, without forming them: returns
+    (y [B, S, di], h_fin [B, di, N]) float32, differentiable in dt, x, B,
+    C, A and h0 through the fused backward kernel."""
+    if isinstance(dt, DTensor):
+        xp, cp, hp, gc = ops.scan_placements(dt)
+        Ap, gA = ops.fused_placements(dt)
+        h0p = None if h0 is None else hp
+        return ops.on_shards(_SelectiveScanFused.apply, (dt, x, B, C, A, h0),
+                             (xp, xp, cp, cp, Ap, h0p), (xp, hp), (xp, xp, gc, gc, gA, h0p))
+    return _SelectiveScanFused.apply(dt, x, B, C, A, h0)
+
+
 def _channels(t: DTensor, x: DTensor, like: DTensor) -> DTensor:
     """``t`` [B, S, di] with its batch rows placed as ``x``'s [B, S, D] are
     (the data-parallel shards the activation hook pinned) and its channels
@@ -123,10 +176,11 @@ def _channels(t: DTensor, x: DTensor, like: DTensor) -> DTensor:
     return t.redistribute(t.device_mesh, pl)
 
 
-def _ssm_terms(cfg: ModelConfig, p: dict, xz: torch.Tensor):
-    """From the conv+silu branch activation x [B, S, di], the discretised
-    scan terms a, b [B, S, di, N] (float32, contiguous) and the per-step
-    readout C [B, S, N] (model dtype)."""
+def _ssm_inputs(cfg: ModelConfig, p: dict, xz: torch.Tensor):
+    """From the conv+silu branch activation x [B, S, di], the selective
+    scan's own inputs: the step sizes dt [B, S, di] (through softplus), the
+    per-step input projection B and readout C [B, S, N] (model dtype, views
+    of one projection) and A = -exp(a_log) [di, N] (float32)."""
     m = cfg.mamba
     r = m.resolved_dt_rank(cfg.d_model)
     proj = xz @ p["x_proj"]  # [B, S, r + 2N]
@@ -136,9 +190,15 @@ def _ssm_terms(cfg: ModelConfig, p: dict, xz: torch.Tensor):
     B_ssm = proj[..., r:r + m.d_state]
     C_ssm = proj[..., r + m.d_state:]
     A = -torch.exp(p["a_log"].float())  # [di, N]
+    return dt, B_ssm, C_ssm, A
+
+
+def _ssm_terms(cfg: ModelConfig, p: dict, xz: torch.Tensor):
+    """From the conv+silu branch activation x [B, S, di], the discretised
+    scan terms a, b [B, S, di, N] (float32, contiguous) and the per-step
+    readout C [B, S, N] (model dtype): the decode step's (one step)."""
+    dt, B_ssm, C_ssm, A = _ssm_inputs(cfg, p, xz)
     dt32 = dt.float()
-    # in place (autograd keeps exp's output, which the product's backward
-    # does not need): a is 1.07 GB at the serving shape
     a = (dt32[..., None] * A).exp_()
     b = (dt32 * xz.float())[..., None] * B_ssm.float()[..., None, :]
     return a, b, C_ssm
@@ -154,7 +214,7 @@ def mamba(
 ) -> tuple[torch.Tensor, dict | None]:
     """Prefill when ``cache`` is None (returns the filled cache), else one
     decode step (S == 1) against ``cache``.  ``train``: the prefill branch
-    through ``selective_scan``, differentiable, and no cache (None)."""
+    through ``selective_scan_fused``, differentiable, and no cache (None)."""
     m = cfg.mamba
     B, S, D = x.shape
     di = m.expand * D
@@ -189,11 +249,10 @@ def mamba(
         for w in range(m.d_conv):
             xc = xc + xin_p[:, w:w + S].float() * p["conv_w"][w].float()
         xc = F.silu(xc + p["conv_b"].float()).to(x.dtype)
-        a, b, C_ssm = _ssm_terms(cfg, p, xc)
-        y, h_last = selective_scan(a, b, C_ssm.float().contiguous(), None,
-                                   cfg.parallel.mamba_chunk)
+        dt, B_ssm, C_ssm, A = _ssm_inputs(cfg, p, xc)
+        y, h_last = selective_scan_fused(dt, xc, B_ssm.contiguous(), C_ssm.contiguous(), A,
+                                         None)
         new_cache = None if train else {"conv": xin_p[:, S:], "ssm": h_last}
-        del a, b
         y = y + p["d_skip"].float() * xc.float()
 
     y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]

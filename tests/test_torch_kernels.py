@@ -21,6 +21,8 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_cuda
 from repro_torch.kernels.mamba_scan import mamba_scan_cuda
 from repro_torch.kernels.mamba_scan_bwd import mamba_scan_bwd_cuda
+from repro_torch.kernels.mamba_scan_fused import mamba_scan_fused_cuda
+from repro_torch.kernels.mamba_scan_fused_bwd import mamba_scan_fused_bwd_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 from repro_torch.kernels.rmsnorm_bwd import rmsnorm_bwd_cuda
 
@@ -216,6 +218,15 @@ def _scan_bwd_args(B=2, S=5, di=8, N=4, dtype=torch.float32):
     return a, b, c, None, torch.randn(B, S, di, dtype=dtype), None
 
 
+def _fused_args(B=2, S=5, di=8, N=4, dtype=torch.bfloat16, seed=0):
+    """(dt, x, B, C, A) as the fused scan takes them, on the CPU."""
+    g = torch.Generator().manual_seed(seed)
+    dt = torch.nn.functional.softplus(torch.randn(B, S, di, generator=g)).to(dtype)
+    x, Bm, Cm = (torch.randn(*shape, generator=g).to(dtype)
+                 for shape in ((B, S, di), (B, S, N), (B, S, N)))
+    return dt, x, Bm, Cm, -torch.rand(di, N, generator=g) * 4
+
+
 def test_mamba_scan_bwd_cpu_call_runs_the_plain_version_uncounted():
     a, b, c, _, gy, _ = _scan_bwd_args(2, 9, 8, 4)
     h0, gh = torch.randn(2, 8, 4), torch.randn(2, 8, 4)
@@ -249,6 +260,23 @@ def test_mamba_scan_bwd_cpu_call_runs_the_plain_version_uncounted():
                                  torch.zeros(2, 5, 8)), r"c \[B, S, N\]"),
     (lambda: mamba_scan_bwd_cuda(*_scan_bwd_args()[:4], torch.zeros(2, 8, 5).transpose(1, 2)),
      "contiguous"),
+    (lambda: mamba_scan_fused_cuda(*_fused_args()), "CUDA device"),
+    (lambda: mamba_scan_fused_cuda(*_fused_args(N=3)), "must divide 32"),
+    (lambda: mamba_scan_fused_cuda(*_fused_args(dtype=torch.float16)), "share one dtype"),
+    (lambda: mamba_scan_fused_cuda(*_fused_args()[:3], torch.randn(2, 5, 4), _fused_args()[4]),
+     "share one dtype"),
+    (lambda: mamba_scan_fused_cuda(*_fused_args()[:4], _fused_args()[4].bfloat16()), "float32"),
+    (lambda: mamba_scan_fused_cuda(*_fused_args()[:4], torch.rand(7, 4)), r"A \[di, N\]"),
+    (lambda: mamba_scan_fused_cuda(*_fused_args(), torch.zeros(2, 8)), r"h0 \[B, di, N\]"),
+    (lambda: mamba_scan_fused_cuda(_fused_args()[0].transpose(0, 1).contiguous().transpose(0, 1),
+                                   *_fused_args()[1:]), "contiguous"),
+    (lambda: mamba_scan_fused_bwd_cuda(*_fused_args(), None, torch.randn(2, 5, 8)), "CUDA device"),
+    (lambda: mamba_scan_fused_bwd_cuda(*_fused_args(), None, torch.randn(2, 5, 7)),
+     r"gy \[B, S, di\]"),
+    (lambda: mamba_scan_fused_bwd_cuda(*_fused_args(), None, torch.randn(2, 5, 8).bfloat16()),
+     "float32"),
+    (lambda: mamba_scan_fused_bwd_cuda(*_fused_args(), None, torch.randn(2, 5, 8),
+                                       torch.zeros(2, 4, 8)), r"gh_fin \[B, di, N\]"),
     (lambda: a2a_pack_cuda(torch.randn(2, 4, 3, 8)), "CUDA device"),
     (lambda: a2a_pack_cuda(torch.randn(2, 4, 24)), r"want x \[No, Ni, blk, d\]"),
     (lambda: a2a_pack_cuda(torch.randn(2, 4, 0, 8)), "nonempty"),
@@ -463,6 +491,88 @@ def test_mamba_scan_wrapper_refuses_a_strided_card_tensor(cuda):
     a, b, c, _ = _scan_on_card(cuda, 2, 8, 16, 4, False)
     with pytest.raises(ValueError, match="contiguous"):
         mamba_scan_cuda(a[:, ::2], b[:, ::2], c[:, ::2])
+
+
+def _fused_on_card(dev, B, S, di, N, with_h0, dtype, seed=0):
+    """(dt, x, B, C, A, h0, gy, gh_fin) on the card as a Mamba layer gives
+    them: dt through softplus, A about -(1 .. N)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    dt = torch.nn.functional.softplus(randn(B, S, di) - 0.5).to(dtype)
+    x, Bm, Cm = randn(B, S, di).to(dtype), randn(B, S, N).to(dtype), randn(B, S, N).to(dtype)
+    A = -torch.exp(torch.log(torch.arange(1, N + 1, device=dev, dtype=torch.float32))
+                   + 0.1 * randn(di, N))
+    h0, gh = (randn(B, di, N) * 0.1, randn(B, di, N)) if with_h0 else (None, None)
+    return dt, x, Bm, Cm, A, h0, randn(B, S, di), gh
+
+
+FUSED_CARD_CASES = [  # B, S, di, N, with h0 (and gh_fin), dtype of dt, x, B, C
+    (4, 512, 8192, 16, False, torch.bfloat16),  # falcon-mamba prefill, 4 x 512 tokens
+    (1, 2048, 8192, 16, True, torch.bfloat16),  # its training microbatch
+    (4, 300, 8192, 16, False, torch.bfloat16),  # ragged: no whole 64-step tile
+    (2, 128, 1024, 16, True, torch.float32),    # nonzero initial state, float32
+    (2, 96, 128, 8, True, torch.bfloat16),      # smoke config's d_state
+    (3, 64, 16, 4, False, torch.float32),       # reference tests' d_state
+    (3, 7, 5, 4, True, torch.bfloat16),         # di 5: plain loads, a partial warp
+    (2, 9, 24, 2, False, torch.bfloat16),       # S N of 18 bf16: plain loads, N = 2
+    (2, 33, 40, 32, True, torch.float32),       # N = 32, 8 lanes a channel
+    (2, 1, 8, 1, True, torch.float32),          # one step, N = 1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,with_h0,dtype", FUSED_CARD_CASES)
+def test_mamba_scan_fused_kernel_on_card(cuda, B, S, di, N, with_h0, dtype):
+    """The terms formed as the plain version forms them and the state
+    rounded alike: h_last bit for bit, y to 1e-5 (the order of the
+    readout's sum over n differs); the launch counted."""
+    dt, x, Bm, Cm, A, h0, _, _ = _fused_on_card(cuda, B, S, di, N, with_h0, dtype)
+    n0 = ops.mamba_scan_fused.launches
+    y, h = ops.mamba_scan_fused(dt, x, Bm, Cm, A, h0)
+    torch.cuda.synchronize()
+    assert ops.mamba_scan_fused.launches == n0 + 1
+    want_y, want_h = ref.mamba_scan_fused_ref(dt, x, Bm, Cm, A, h0)
+    assert ref.scaled_err(y, want_y) <= TOL["float32"]
+    assert ref.scaled_err(h, want_h) <= TOL["float32"]
+    torch.testing.assert_close(h, want_h, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,di,N,with_h0,dtype", FUSED_CARD_CASES)
+def test_mamba_scan_fused_backward_on_card(cuda, B, S, di, N, with_h0, dtype):
+    """Every gradient's float32 sums (the kernel on the same values in
+    float32) to 1e-5 of the plain version's (sums over d and t in another
+    order), gh0 bit for bit; in the inputs' dtype those sums cast; the
+    launch counted; a second call to the same bits (no atomics)."""
+    dt, x, Bm, Cm, A, h0, gy, gh = _fused_on_card(cuda, B, S, di, N, with_h0, dtype)
+    n0 = ops.mamba_scan_fused_bwd.launches
+    got = ops.mamba_scan_fused_bwd(dt, x, Bm, Cm, A, h0, gy, gh)
+    torch.cuda.synchronize()
+    assert ops.mamba_scan_fused_bwd.launches == n0 + 1
+    sums = mamba_scan_fused_bwd_cuda(dt.float(), x.float(), Bm.float(), Cm.float(), A, h0, gy,
+                                     gh)
+    want = ref.mamba_scan_fused_bwd_ref(dt.float(), x.float(), Bm.float(), Cm.float(), A, h0,
+                                        gy, gh)
+    for g, w in zip(sums, want):
+        assert ref.scaled_err(g, w) <= TOL["float32"]
+    torch.testing.assert_close(sums[5], want[5], rtol=0, atol=0)
+    for g, s_, t in zip(got[:4], sums[:4], (dt, x, Bm, Cm)):
+        assert g.dtype == t.dtype and torch.equal(g, s_.to(t.dtype))
+    again = mamba_scan_fused_bwd_cuda(dt, x, Bm, Cm, A, h0, gy, gh)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_mamba_scan_fused_wrapper_refuses_a_strided_card_tensor(cuda):
+    dt, x, Bm, Cm, A, _, gy, _ = _fused_on_card(cuda, 2, 8, 16, 4, False, torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan_fused_cuda(dt[:, ::2], x[:, ::2], Bm[:, ::2], Cm[:, ::2], A)
+    with pytest.raises(ValueError, match="contiguous"):
+        mamba_scan_fused_bwd_cuda(dt, x, Bm, Cm, A, None, gy.transpose(1, 2).contiguous()
+                                  .transpose(1, 2))
 
 
 @pytest.mark.cuda
@@ -736,6 +846,29 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "mamba_scan_bwd",
         "for (int j = 0; j < ctas; ++j) s += p[j * SN];  // the partials in CTA order",
         "for (int j = 0; j < ctas - 1; ++j) s += p[j * SN];"),
+    "fused_dt_a_in_place_of_dt_x": (
+        "mamba_scan_fused", "const float dx = term_dx(dtv, to_f(sx[u * CH + cl]));",
+        "const float dx = term_dx(dtv, ac[0]);"),
+    "fused_readout_lane_pairs_left_out": (
+        "mamba_scan_fused",
+        "for (int off = L >> 1; off > 0; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);",
+        "for (int off = L >> 1; off > 1; off >>= 1) p += __shfl_xor_sync(0xffffffffu, p, off);"),
+    "fused_last_step_of_a_tile_dropped": (
+        "mamba_scan_fused", "const int steps = min(kSteps, S - t0);",
+        "const int steps = min(kSteps - 1, S - t0);"),
+    "fused_bwd_gh_fin_seed_dropped": (
+        "mamba_scan_fused_bwd", "g[j] = live && gh_fin != nullptr ? gh_fin[hrow + L * j] : 0.f;",
+        "g[j] = 0.f;"),
+    "fused_bwd_carry_lost_at_a_chunk_edge": (
+        "mamba_scan_fused_bwd", "const int tc = t0 + u0;",
+        "const int tc = t0 + u0; if (tc + kChunk < S) for (int j = 0; j < P; ++j) g[j] = 0.f;"),
+    "fused_bwd_last_cta_partial_left_out_of_gb": (
+        "mamba_scan_fused_bwd",
+        "for (int j = 0; j < ctas; ++j) sb += (double)p[j * stride];  // gB's partials",
+        "for (int j = 0; j < ctas - 1; ++j) sb += (double)p[j * stride];"),
+    "fused_bwd_dt_a_in_place_of_dt_x": (
+        "mamba_scan_fused_bwd", "const float dx = term_dx(dtv, xv);",
+        "const float dx = term_dx(dtv, ac[0]);"),
     "pack_tile_written_to_o_i": (
         "a2a_pack", "uint8_t* dst = out + (i * No + o) * tile_bytes;",
         "uint8_t* dst = out + t * tile_bytes;"),
@@ -833,6 +966,20 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
         call = lambda: mamba_scan_bwd_cuda(a, b, c, h0, gy, gh)  # noqa: E731
         want = ref.mamba_scan_bwd_ref(a, b, c, h0, gy, gh)
         tol = TOL["float32"]
+    elif kernel == "mamba_scan_fused":  # the prefill, ragged for the tile fault
+        dt, x, Bm, Cm, A, _, _, _ = _fused_on_card(cuda, 4, 300 if "tile" in fault else 512,
+                                                   8192, 16, False, torch.bfloat16)
+        call = lambda: mamba_scan_fused_cuda(dt, x, Bm, Cm, A)  # noqa: E731
+        want = ref.mamba_scan_fused_ref(dt, x, Bm, Cm, A)
+        tol = TOL["float32"]
+    elif kernel == "mamba_scan_fused_bwd":  # the training microbatch with h0 and gh_fin
+        dt, x, Bm, Cm, A, h0, gy, gh = _fused_on_card(cuda, 1, 2048, 8192, 16, True,
+                                                      torch.bfloat16)
+        call = lambda: mamba_scan_fused_bwd_cuda(  # noqa: E731
+            dt.float(), x.float(), Bm.float(), Cm.float(), A, h0, gy, gh)
+        want = ref.mamba_scan_fused_bwd_ref(dt.float(), x.float(), Bm.float(), Cm.float(), A,
+                                            h0, gy, gh)
+        tol = TOL["float32"]
     elif kernel == "flash_attention_bwd":  # yi's heads, one sequence; dq, dk and dv; the
         # head-dim faults at danube's, gemma's and minicpm3's heads
         BH, hd, hdv, g = ((32, 120, 120, 4) if "hd120" in fault else
@@ -861,7 +1008,8 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
                         build.load(faulty_libraries[fault], module._SIGNATURES))
     faulty = call()
     torch.cuda.synchronize()
-    if kernel in ("flash_attention_bwd", "rmsnorm_bwd", "mamba_scan_bwd"):  # several outputs
+    if kernel in ("flash_attention_bwd", "rmsnorm_bwd", "mamba_scan_bwd", "mamba_scan_fused",
+                  "mamba_scan_fused_bwd"):  # several outputs
         err = _bwd_err if kernel == "flash_attention_bwd" else (
             lambda got, want: max(ref.scaled_err(a, b) for a, b in zip(got, want)))
         errs = {name: (err(out, want), max(((a.float() - b.float()).abs().max()

@@ -846,3 +846,63 @@ def dryrun_ranks() -> dict:
                 lm.decode_step(cfg, params, tok, cache, pos, act_shard=act)
         out[f"{arch}/{kind}"] = {"bytes": rec.bytes, "counts": rec.counts}
     return out
+
+
+#: the fused scan's shapes on the (2, 2, 2) mesh: batch rows over (pod,
+#: data), channels over model
+FUSED_SHAPE = {"B": 4, "S": 9, "di": 16, "N": 4}
+
+
+def fused_scan_ranks() -> dict:
+    """Each rank: ``ops.mamba_scan_fused`` and ``ops.mamba_scan_fused_bwd``
+    on DTensors (dt, x, y, gy over rows and channels; B, C over rows; A
+    over channels; h0, gh_fin, h_last over rows and channels) against the
+    same calls on the whole tensors, and ``models.mamba.selective_scan_fused``
+    differentiated on DTensors against its one-tensor gradients: each
+    output's largest difference, gathered, over max(its largest value, 1),
+    and the gradients' placements."""
+    import torch
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.models import mamba as TM
+    from repro_torch.models.params import shard_tensor
+
+    mesh = make_device_mesh((2, 2, 2), ("pod", "data", "model"), "cpu")
+    r = np.random.RandomState(5)
+    B, S, di, N = (FUSED_SHAPE[k] for k in ("B", "S", "di", "N"))
+
+    def t(*shape):
+        return torch.from_numpy(r.randn(*shape).astype(np.float32))
+
+    dt, x, Bm, Cm = F.softplus(t(B, S, di)), t(B, S, di), t(B, S, N), t(B, S, N)
+    A, h0, gy, gh = -torch.exp(0.1 * t(di, N)), t(B, di, N), t(B, S, di), t(B, di, N)
+    rc = (Shard(0), Shard(0), Shard(2))  # [B, S, di]
+    rows = (Shard(0), Shard(0), Replicate())  # [B, S, N]
+    chans = (Replicate(), Replicate(), Shard(0))  # [di, N]
+    hs = (Shard(0), Shard(0), Shard(1))  # [B, di, N]
+    pls = (rc, rc, rows, rows, chans, hs, rc, hs)
+    whole = (dt, x, Bm, Cm, A, h0, gy, gh)
+    placed = [shard_tensor(w, mesh, pl) for w, pl in zip(whole, pls)]
+
+    def err(got, want) -> float:
+        return float((got.full_tensor() - want).abs().max() / max(want.abs().max(), 1.0))
+
+    out = {"forward": [err(g, w) for g, w in zip(ops.mamba_scan_fused(*placed[:6]),
+                                                 ops.mamba_scan_fused(*whole[:6]))]}
+    got = ops.mamba_scan_fused_bwd(*placed)
+    out["backward"] = [err(g, w) for g, w in zip(got, ops.mamba_scan_fused_bwd(*whole))]
+    out["backward_placements"] = [str(tuple(g.placements)) for g in got]
+    # the custom VJP on DTensors: the loss sum(y gy) + sum(h_last gh)
+    leaves = [w.clone().requires_grad_() for w in whole[:6]]
+    y, h = TM.selective_scan_fused(*leaves)
+    want = torch.autograd.grad((y * gy).sum() + (h * gh).sum(), leaves)
+    dleaves = [p.detach().requires_grad_() for p in placed[:6]]
+    y, h = TM.selective_scan_fused(*dleaves)
+    loss = (y * placed[6]).sum() + (h * placed[7]).sum()
+    grads = torch.autograd.grad(loss.full_tensor(), dleaves)
+    out["vjp"] = [err(g, w) for g, w in zip(grads, want)]
+    out["vjp_placements"] = [str(tuple(g.placements)) for g in grads]
+    return out
