@@ -9,7 +9,7 @@ Phases, each reported on its own lines:
 2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` compiled
    with ``nvcc`` (one process per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   the serving paths of the seven served models give it plus ragged,
+   the serving paths of the served models give it plus ragged,
    windowed (a window edge inside a KV tile), small-head, long-prompt,
    initial-state and small-state cases: error, kernel time, plain time, the
    time of one PyTorch library call computing the same function where there
@@ -20,11 +20,14 @@ Phases, each reported on its own lines:
    fail that check, and so must a fault planted in the MLA pair (q/k head
    dim 96, v head dim 64: v's last 16-column block left unwritten) and one
    in DeepSeek-V2's MLA pair (q/k 192, v 128: the last 64 q/k columns, the
-   rotary part, left out of the scores).  The fused selective scan (the
+   rotary part, left out of the scores).  A planted copy of a source keeps,
+   of its dispatch lines, the instance its fault's case runs alone
+   (``planted_source``).  The fused selective scan (the
    Mamba layer's path: it forms ``a = exp(dt A)`` and ``b = (dt x) B`` from
    the layer's dt, x, B and A itself) at Falcon-Mamba-7B's prefill (dt and
-   x [4, 512, 8192] bf16), a ragged S = 300, with h0 (float32 inputs) and
-   at N = 8 (y and h_last at 1e-5; whether h_last matches bit for bit is
+   x [4, 512, 8192] bf16), a ragged S = 300, with h0 (float32 inputs), at
+   N = 8 and at Jamba-1.5-Large's prefill (dt and x [4, 512, 16384] bf16)
+   (y and h_last at 1e-5; whether h_last matches bit for bit is
    printed), each timed in turns against the path it replaces (the terms
    formed by PyTorch, then the unfused scan), with faults planted in copies
    of its source (dt A used in place of dt x, the readout's last shuffle
@@ -66,9 +69,18 @@ Phases, each reported on its own lines:
    card): DBRX-132B (16 experts, top-4, every layer MoE; flash at head dim
    128, GQA group 6) and DeepSeek-V2-236B (the dense prelude layer and 7
    MoE layers of 160 routed experts, top-6, and 2 shared; MLA through
-   flash at q/k 192 and v 128).  The float32 reference prefill casts each
-   weight where it reads it (``float32_reads``), so its float32 copy never
-   holds more than one layer's weights.  Last, full-width
+   flash at q/k 192 and v 128), and Jamba-1.5-Large, the hybrid, at its
+   first 4 of 72 layers (``configs.first_layers``: attention + MoE, Mamba +
+   dense, Mamba + MoE, Mamba + dense; 22,996,213,760 parameters, which must
+   equal the cut config's ``param_count()``; a whole period of 8 would not
+   fit): its slot cache holds a KV cache beside Mamba conv windows and
+   states, and its prefill launches flash once (64 heads, GQA group 8) and
+   the fused scan three times (d_inner 16384), RMSNorm 9 times a forward
+   at d 8192.  The float32 reference prefill casts each weight where it
+   reads it (``float32_reads``), so its float32 copy never holds more than
+   one layer's weights; where that layer's float32 copy would not fit
+   beside the bf16 model (Jamba's MoE layers, up to 40.30 GB), the bf16
+   layers move to the host first and each read copies its layer back.  Last, full-width
    Qwen2-VL-7B, which takes embeddings and M-RoPE positions and which no
    engine drives (the reference's refuses it): seeded embeds [4, 512, 3584]
    with positions whose t is the index and whose h and w walk a 16 x 16
@@ -197,7 +209,10 @@ Phases, each reported on its own lines:
    and the shard_map step with TP) on this card, in 8 ranks over gloo as a
    (pod 2, data 2, model 2) ``DeviceMesh`` whose groups stage every
    collective through pinned host memory (``core/groups.StagedGroup``;
-   NCCL admits no two ranks on one device).  (a) In a process of its own,
+   NCCL admits no two ranks on one device).  The one-rank references of
+   (a), (d) and (f) run at once, each in a process of its own, beside
+   phase 7's ranks and done before phase 8 (``phase10_references``).  (a)
+   In a process of its own,
    the one-rank step through the kernels (phase 8 (b)'s) of full-width
    Yi-6B and Falcon-Mamba-7B at 2 layers on 16 x 2048 tokens in 4
    microbatches, and two readings of it that place (b)'s limits: the same
@@ -224,9 +239,9 @@ Phases, each reported on its own lines:
    bytes staged through the host and the step's host-clock seconds
    (host-staged gloo time, not an interconnect number); which c10d ops
    gloo takes on CUDA tensors is printed.  (c) ``launch/train.py --mesh
-   2,2,2`` on Yi-6B at 2 layers for 4 steps on one repeated batch: the
-   loss must fall.  (d) The expert-parallel MoE layer alone at full width
-   (``moe_layer_phase``): DBRX at ``moe_groups`` 2 and 1 and DeepSeek-V2 at
+   2,2,2`` on Yi-6B at 2 layers for 4 steps on one repeated batch, its 8
+   ranks beside (f)'s: the loss must fall.  (d) The expert-parallel MoE
+   layer alone at full width (``moe_layer_phase``): DBRX at ``moe_groups`` 2 and 1 and DeepSeek-V2 at
    2, x [8, 1024, D] bf16, in 8 ranks as a (pod 1, data 2, model 4) mesh,
    each rank drawing its own shards from per-expert seeds; every rank's
    output rows, x's gradient and its shards of the experts', shared
@@ -270,6 +285,7 @@ of the repository, it exits non-zero before printing any result.  The
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -301,6 +317,9 @@ TOL_F32 = 1e-5
 #: bf16 model's logits through the plain versions do: the kernels may add
 #: rounding, not error
 LOGIT_NOISE_RATIO = 1.5
+#: device memory the float32 reference prefill keeps free beside its
+#: largest layer's float32 copy, for its activations (bytes)
+FLOAT32_ROOM = 6e9
 #: published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_TC_FLOPS = 989e12
@@ -434,8 +453,8 @@ FUSED_BWD_FAULTS = {
         "const int tc = t0 + u0; if (tc + kChunk < S) for (int j = 0; j < P; ++j) g[j] = 0.f;",
         "falcon train"),
     "fused_last_cta_partial_left_out_of_gb": (
-        "for (int j = 0; j < ctas; ++j) sb += (double)p[j * stride];  // gB's partials",
-        "for (int j = 0; j < ctas - 1; ++j) sb += (double)p[j * stride];", "falcon train"),
+        "for (int j = 0; j < ctas; ++j) sb += p[j * stride];  // gB's partials",
+        "for (int j = 0; j < ctas - 1; ++j) sb += p[j * stride];", "falcon train"),
     "fused_bwd_dt_a_in_place_of_dt_x": (
         "const float dx = term_dx(dtv, xv);", "const float dx = term_dx(dtv, ac[0]);",
         "falcon train"),
@@ -445,11 +464,6 @@ PLANTED = {"a2a_pack": PACK_FAULTS, "flash_attention": FLASH_FAULTS,
            "flash_attention_bwd": FLASH_BWD_FAULTS, "rmsnorm_bwd": RMSNORM_BWD_FAULTS,
            "mamba_scan_bwd": MAMBA_BWD_FAULTS, "mamba_scan_fused": FUSED_FAULTS,
            "mamba_scan_fused_bwd": FUSED_BWD_FAULTS}
-#: lines taken out of the planted copies of a source: the dispatch cases
-#: that none of its faults' cases runs (each runs N = 16: 4 states a
-#: thread), so that a copy compiles a third of the kernel's instances
-PLANTED_TRIM = {"mamba_scan_fused": ("    FUSED_CASE(1)\n", "    FUSED_CASE(2)\n"),
-                "mamba_scan_fused_bwd": ("    FUSED_BWD_CASE(1)\n", "    FUSED_BWD_CASE(2)\n")}
 #: phase 8's attention cases: (label, BH, g, S, hd, hd_v, window): one
 #: sequence of a model's heads (a microbatch of its train step: 2048 tokens,
 #: Danube's 4608 past its window of 4096), ragged S, window edges inside a
@@ -486,11 +500,13 @@ TRAIN_SCAN_SPECS = [("falcon train", 1, 2048, 8192, 16, False),
 #: Falcon-Mamba-7B's prefill of 4 x 512 and training microbatch of 1 x 2048
 #: in its bf16, a ragged S (no multiple of the kernels' 64-step tiles or
 #: 8-step chunks), an initial state (and a final-state cotangent) in
-#: float32, the smoke config's state size
+#: float32, the smoke config's state size; Jamba-1.5-Large's prefill (d_inner
+#: 16384: twice Falcon's channels, twice the CTAs)
 FUSED_SPECS = [("falcon prefill", 4, 512, 8192, 16, False, "bfloat16"),
                ("ragged", 4, 300, 8192, 16, False, "bfloat16"),
                ("h0", 4, 512, 8192, 16, True, "float32"),
-               ("N 8", 4, 512, 8192, 8, False, "bfloat16")]
+               ("N 8", 4, 512, 8192, 8, False, "bfloat16"),
+               ("jamba prefill", 4, 512, 16384, 16, False, "bfloat16")]
 TRAIN_FUSED_SPECS = [("falcon train", 1, 2048, 8192, 16, False, "bfloat16"),
                      ("ragged", 1, 300, 8192, 16, False, "bfloat16"),
                      ("h0, gh_fin", 1, 2048, 8192, 16, True, "float32"),
@@ -716,9 +732,49 @@ def card() -> str:
     return smi
 
 
+#: a source's dispatch lines, one an instance (``FLASH_CASE(128, 128)``)
+_DISPATCH_LINE = re.compile(r"^[ \t]*([A-Z_]+_CASE\([^)]*\)).*\n", re.M)
+
+
+def _planted_instance(kernel: str, label) -> str | None:
+    """The dispatch line of the instance that ``kernel``'s fault checked at
+    ``label`` runs (the case's head dims, or its state size N: 4 states a
+    thread where N >= 4); None where the source has no dispatch table."""
+    specs, line = {
+        "flash_attention": (FLASH_SPECS, lambda s: f"FLASH_CASE({s[5]}, {s[6]})"),
+        "flash_attention_bwd": (TRAIN_FLASH_SPECS, lambda s: f"BWD_CASE({s[4]}, {s[5]})"),
+        "mamba_scan_bwd": (TRAIN_SCAN_SPECS, lambda s: f"MAMBA_SCAN_BWD_CASE({s[4]})"),
+        "mamba_scan_fused": (FUSED_SPECS, lambda s: f"FUSED_CASE({min(s[4], 4)})"),
+        "mamba_scan_fused_bwd": (TRAIN_FUSED_SPECS,
+                                 lambda s: f"FUSED_BWD_CASE({min(s[4], 4)})"),
+    }.get(kernel, ((), None))
+    return next((line(spec) for spec in specs if spec[0] == label), None)
+
+
+def planted_source(kernel: str, name: str) -> str:
+    """The source of the planted fault ``name`` of ``kernel``: its sound line
+    replaced by the faulty one, and of the dispatch lines only the instance
+    its case runs kept (no check calls the others, whose builds were most of
+    the planted copies' build time)."""
+    from repro_torch.kernels import build
+
+    sound, faulty, label = PLANTED[kernel][name]
+    src = (build.SRC_DIR / f"{kernel}.cu").read_text()
+    if src.count(sound) != 1:
+        raise AssertionError(f"planted fault {name}: its sound line is not in {kernel}.cu")
+    keep = _planted_instance(kernel, label)
+    if keep is not None:
+        if [m.group(1) for m in _DISPATCH_LINE.finditer(src)].count(keep) != 1:
+            raise AssertionError(f"planted fault {name}: {keep} is not a dispatch line of "
+                                 f"{kernel}.cu")
+        src = _DISPATCH_LINE.sub(lambda m: m.group(0) if m.group(1) == keep else "", src)
+    return src.replace(sound, faulty)
+
+
 def build_kernels() -> dict:
-    """Every kernel and every planted fault of ``PLANTED``, one ``nvcc`` per
-    source, all at once.  Returns the planted faults' libraries by name."""
+    """Every kernel and every planted fault of ``PLANTED`` (``planted_source``),
+    one ``nvcc`` per source, all at once.  Returns the planted faults'
+    libraries by name."""
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -726,15 +782,8 @@ def build_kernels() -> dict:
     planted.mkdir(parents=True, exist_ok=True)
     fault_jobs = {}
     for kernel, faults in PLANTED.items():
-        src = (build.SRC_DIR / f"{kernel}.cu").read_text()
-        for line in PLANTED_TRIM.get(kernel, ()):
-            if src.count(line) != 1:
-                raise AssertionError(f"planted copies of {kernel}.cu: {line!r} is not in it")
-            src = src.replace(line, "")
-        for name, (sound, faulty, _) in faults.items():
-            if src.count(sound) != 1:
-                raise AssertionError(f"planted fault {name}: its sound line is not in {kernel}.cu")
-            (planted / f"{name}.cu").write_text(src.replace(sound, faulty))
+        for name in faults:
+            (planted / f"{name}.cu").write_text(planted_source(kernel, name))
             fault_jobs[f"{kernel}:{name}"] = (planted / f"{name}.cu", planted / f"{name}.so")
     build.compile_sources({**build.jobs(), **fault_jobs})
     secs = time.perf_counter() - t0
@@ -758,8 +807,8 @@ def rmsnorm_cases(gen):
     width (DeepSeek-V2's 5120), and the prefill and decode shapes of
     H2O-Danube3 (d 3840, 4 x 4608 tokens), Gemma (3072), MusicGen (2048),
     Qwen2-VL (3584), MiniCPM3 (2560, and inside MLA 768 for ``q_norm``
-    and 256 for ``kv_norm``), DBRX (6144) and DeepSeek-V2 (5120, and inside
-    MLA 1536 and 512)."""
+    and 256 for ``kv_norm``), DBRX (6144), DeepSeek-V2 (5120, and inside
+    MLA 1536 and 512) and Jamba-1.5-Large (8192)."""
     import torch
     import torch.nn.functional as F
 
@@ -768,13 +817,13 @@ def rmsnorm_cases(gen):
 
     cases = []
     # prefill 4 x 512 tokens; decode 4 tokens; ragged; second width; then
-    # danube's, gemma's, musicgen's, qwen2-vl's, minicpm3's, dbrx's and
-    # deepseek-v2's prefill and decode
+    # danube's, gemma's, musicgen's, qwen2-vl's, minicpm3's, dbrx's,
+    # deepseek-v2's and jamba's prefill and decode
     for T, d in ((2048, 4096), (4, 4096), (2049, 4096), (2048, 5120), (18432, 3840),
                  (4, 3840), (2048, 3072), (4, 3072), (2048, 2048), (4, 2048),
                  (2048, 3584), (4, 3584), (2048, 2560), (4, 2560), (2048, 768), (4, 768),
                  (2048, 256), (4, 256), (2048, 6144), (4, 6144), (4, 5120), (2048, 1536),
-                 (4, 1536), (2048, 512), (4, 512)):
+                 (4, 1536), (2048, 512), (4, 512), (2048, 8192), (4, 8192)):
         x = torch.randn(T, d, generator=gen, device="cuda").to(torch.bfloat16)
         w = (torch.rand(d, generator=gen, device="cuda") + 0.5).to(torch.bfloat16)
         out = rmsnorm_cuda(x, w, 1e-6)
@@ -830,9 +879,11 @@ FLASH_SPECS = [
     ("ragged minicpm3", 4 * 40, 1, 300, 300, 96, 64, True, None),
     ("hd 24/16 (minicpm3 smoke)", 4 * 4, 1, 256, 256, 24, 16, True, None),
     ("qwen2-vl prefill", 4 * 28, 7, 512, 512, 128, 128, True, None),
-    # the MoE slice: DBRX's GQA group of 6; DeepSeek-V2's MLA (expanded
-    # prefill: q/k 128 + 64, v 128, MHA), ragged and small
+    # the MoE slice: DBRX's GQA group of 6; Jamba-1.5-Large's attention
+    # layer (64 heads, 8 KV heads); DeepSeek-V2's MLA (expanded prefill:
+    # q/k 128 + 64, v 128, MHA), ragged and small
     ("dbrx prefill", 4 * 48, 6, 512, 512, 128, 128, True, None),
+    ("jamba prefill", 4 * 64, 8, 512, 512, 128, 128, True, None),
     ("deepseek prefill", 4 * 128, 1, 512, 512, 192, 128, True, None),
     ("ragged deepseek", 4 * 128, 1, 300, 300, 192, 128, True, None),
     ("small deepseek", 2, 1, 64, 64, 192, 128, True, None),
@@ -890,7 +941,8 @@ def flash_cases(gen, fault_libs):
     one sequence at Yi's 4096 context (bound by the tensor cores), the
     dense serving slice's shapes at hd 120, 256 and 64, MiniCPM3's MLA pair
     (96, 64) and its smoke pair (24, 16), Qwen2-VL's group of 7, DBRX's
-    group of 6 and DeepSeek-V2's MLA pair (192, 128); then
+    group of 6, Jamba-1.5-Large's 64 heads in groups of 8 and DeepSeek-V2's
+    MLA pair (192, 128); then
     every planted fault of ``FLASH_FAULTS`` against its case's check."""
     import torch
 
@@ -1181,6 +1233,36 @@ def plain_kernels():
     finally:
         for n, fn in saved.items():
             setattr(ops, n, fn)
+
+
+@contextlib.contextmanager
+def moe_routing(record: list | None = None, force: list | None = None):
+    """The MoE layers' routing (``models/moe.route``) with each call's
+    expert choices (indices [G, Tg, k]) appended to ``record``, or replaced
+    by the next of ``force``'s, the call's gate weights then its own
+    probabilities at those experts, renormalised and cast as ``route``
+    does: a check's reference forward on another path's routing (the port
+    itself never does this)."""
+    from repro_torch.models import moe
+
+    sound = moe.route
+    forced = None if force is None else iter(force)
+
+    def route(cfg, p, xt):
+        probs, gate_w, gate_i = sound(cfg, p, xt)
+        if forced is not None:
+            gate_i = next(forced)
+            w = probs.gather(-1, gate_i)
+            gate_w = (w / w.sum(-1, keepdim=True).clamp_min(1e-9)).to(xt.dtype)
+        if record is not None:
+            record.append(gate_i)
+        return probs, gate_w, gate_i
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = sound
 
 
 def pack_cases(gen, fault_libs) -> list:
@@ -1475,23 +1557,31 @@ def _print_cases(name, cases, tol) -> None:
 
 
 def _widths(cfg) -> tuple:
-    """The published widths each served config is held to."""
+    """The published widths each served config is held to: a Mamba
+    model's, an attention model's (MLA's and M-RoPE's too), then its MoE
+    widths; a hybrid's Mamba and attention widths together, then its MoE
+    widths and its layer pattern."""
+    out = ()
     if cfg.mamba is not None:
         m = cfg.mamba
-        return (cfg.num_layers, cfg.d_model, m.d_state, m.d_conv, m.expand,
+        out += (cfg.num_layers, cfg.d_model, m.d_state, m.d_conv, m.expand,
                 m.resolved_dt_rank(cfg.d_model), cfg.vocab_size, cfg.dtype)
     a = cfg.attn
-    out = (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
-           cfg.d_ff, cfg.vocab_size, a.sliding_window, cfg.num_codebooks, cfg.act, cfg.dtype)
-    if a.kind == "mla":
-        out += (a.q_lora_rank, a.kv_lora_rank, a.qk_nope_head_dim, a.qk_rope_head_dim,
-                a.v_head_dim)
-    if a.mrope_sections is not None:
-        out += (a.mrope_sections,)
+    if a is not None:
+        out += (cfg.num_layers, cfg.d_model, a.num_heads, a.num_kv_heads, a.head_dim,
+                cfg.d_ff, cfg.vocab_size, a.sliding_window, cfg.num_codebooks, cfg.act,
+                cfg.dtype)
+        if a.kind == "mla":
+            out += (a.q_lora_rank, a.kv_lora_rank, a.qk_nope_head_dim, a.qk_rope_head_dim,
+                    a.v_head_dim)
+        if a.mrope_sections is not None:
+            out += (a.mrope_sections,)
     if cfg.moe is not None:
         e = cfg.moe
         out += (e.num_experts, e.top_k, e.d_ff_expert, e.num_shared_experts,
                 e.capacity_factor, cfg.first_k_dense)
+    if cfg.mamba is not None and a is not None:
+        out += (tuple((s.mixer, s.ffn) for s in cfg.layer_pattern),)
     return out
 
 
@@ -1502,8 +1592,9 @@ def _widths(cfg) -> tuple:
 #: where set, the decode step whose logits must match a prefill over each
 #: row's prompt and its tokens so far.  ``depth``: the layers kept of an
 #: MoE model, whose weights at full depth would not fit one card (its
-#: widths are the published config's).  Qwen2-VL takes embeddings: no engine
-#: drives it (``drive_embeds``)
+#: widths are the published config's; ``configs.first_layers``), and
+#: ``params`` the parameter count of that cut.  Qwen2-VL takes embeddings:
+#: no engine drives it (``drive_embeds``)
 _DENSE = {"norms_per_layer": 2, "prompt": 512, "capacity": 1024}
 SERVED = {
     "yi_6b": {**_DENSE, "prefill": {"flash_attention": 32},
@@ -1533,6 +1624,16 @@ SERVED = {
                          "widths": (60, 5120, 128, 128, 128, 12288, 102400, None, 1, "silu",
                                     "bfloat16", 1536, 512, 128, 64, 128,
                                     160, 6, 1536, 2, 1.25, 1)},
+    # the first 4 of 72 layers, one of each kind: attention + MoE, Mamba +
+    # dense, Mamba + MoE, Mamba + dense (a whole period of 8 would not fit)
+    "jamba_1_5_large_398b": {**_DENSE, "depth": 4, "params": 22_996_213_760,
+                             "prefill": {"flash_attention": 1, "mamba_scan_fused": 3},
+                             "widths": (72, 8192, 16, 4, 2, 256, 65536, "bfloat16",
+                                        72, 8192, 64, 8, 128, 24576, 65536, None, 1, "silu",
+                                        "bfloat16", 16, 2, 24576, 0, 1.25, 0,
+                                        (("attn", "moe"),) + (("mamba", "dense"),
+                                                              ("mamba", "moe")) * 3
+                                        + (("mamba", "dense"),))},
     "qwen2_vl_7b": {**_DENSE, "full_forward_at": 8, "prefill": {"flash_attention": 28},
                     "widths": (28, 3584, 28, 4, 128, 18944, 152064, None, 1, "silu",
                                "bfloat16", (16, 24, 24))},
@@ -1690,7 +1791,7 @@ def serve(arch: str, seed: int = 0, smi: str = "") -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import first_layers, get_config
     from repro_torch.models import lm
     from repro_torch.serving.engine import Request, ServeEngine
 
@@ -1699,7 +1800,7 @@ def serve(arch: str, seed: int = 0, smi: str = "") -> dict:
     if _widths(cfg) != want["widths"]:
         raise AssertionError(f"{arch} is not at its published widths: {_widths(cfg)}")
     if "depth" in want:
-        cfg = dataclasses.replace(cfg, num_layers=want["depth"])
+        cfg = first_layers(cfg, want["depth"])
     slots, capacity, prompt_len, max_new = 4, want["capacity"], want["prompt"], 32
     k = cfg.num_codebooks
     prompt_shape = (prompt_len, k) if k > 1 else (prompt_len,)
@@ -1710,7 +1811,11 @@ def serve(arch: str, seed: int = 0, smi: str = "") -> dict:
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"[serve] {cfg.name} full width, {cfg.num_layers} layers: {n_params / 1e9:.3f} B "
-          f"params, bf16, random init from seed {seed} in {time.perf_counter() - t0:.1f} s")
+          f"params ({n_params:,}; the config's param_count() {cfg.param_count():,}), bf16, "
+          f"random init from seed {seed} in {time.perf_counter() - t0:.1f} s")
+    if "params" in want and not n_params == cfg.param_count() == want["params"]:
+        raise AssertionError(f"{arch} at {cfg.num_layers} layers: {n_params} parameters, "
+                             f"param_count() {cfg.param_count()}, want {want['params']}")
 
     rng = np.random.RandomState(seed)
 
@@ -1903,13 +2008,15 @@ def serve_planned(cfg, params, prompts, want_done, want_launches, *, slots: int,
 
 class _Float32Rows:
     """A bf16 tensor read as float32: each index of it gives a float32 copy
-    of that part, made at the read."""
+    of that part, made at the read on ``device`` (the tensor's own, or the
+    card where the tensor is held on the host: the part is copied there
+    first)."""
 
-    def __init__(self, t):
-        self.t = t
+    def __init__(self, t, device=None):
+        self.t, self.device = t, device or t.device
 
     def __getitem__(self, i):
-        return self.t[i].float()
+        return self.t[i].to(self.device).float()
 
 
 class _Float32Tree(dict):
@@ -1924,40 +2031,137 @@ class _Float32Tree(dict):
         return v.float() if hasattr(v, "float") else v
 
 
-def float32_reads(params: dict) -> dict:
+def _to_host(tree: dict) -> None:
+    """Move every tensor of ``tree`` to the host, in place (a card's tensor
+    into pinned memory, which the copies back read at the link's rate): the
+    tree then holds the host copies, and the card's are freed once nothing
+    else holds them."""
+    import torch
+
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _to_host(v)
+        elif v.is_cuda:
+            tree[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(v)
+
+
+def float32_reads(params: dict, on_host: bool = False) -> dict:
     """``params`` as a float32 forward reads them: every weight cast where it
     is read (a stacked leaf a period at a time, an untied embedding table a
     token's rows at a time), so the float32 copy never holds more than one
     layer's weights: the float32 model in bounded memory (a float32 DBRX at
-    8 layers is 109 GB)."""
+    8 layers is 109 GB).  ``on_host``: the stacked leaves first move to the
+    host (``params``' own ``blocks`` then hold them there, and the card's
+    copies are freed), and each read copies its period back to the card
+    before the cast, so the card holds one layer's float32 copy and not the
+    bf16 layers beside it (Jamba-1.5-Large's third layer, Mamba + MoE, is
+    40.30 GB in float32, beside a 45.99 GB bf16 model at 4 layers)."""
     from repro_torch.models.params import map_tree
 
-    rows = {"blocks": map_tree(lambda _, t: _Float32Rows(t), params["blocks"])}
+    device = params["final_norm"].device
+    if on_host:
+        _to_host(params["blocks"])
+    rows = {"blocks": map_tree(lambda _, t: _Float32Rows(t, device), params["blocks"])}
     if params["embed"] and params["head"]:  # an untied table, read by rows
         rows["embed"] = {"embedding": _Float32Rows(params["embed"]["embedding"])}
     return _Float32Tree({**params, **rows})
+
+
+def _float32_layer_fits(params) -> tuple[bool, float, float]:
+    """Whether the float32 copy of the largest layer (a slot's period),
+    with ``FLOAT32_ROOM`` for the activations, fits the card's memory
+    beside the bf16 model (what the card has free, and what the allocator
+    holds unused); and those two sizes in GB."""
+    import torch
+
+    gc.collect()  # the engines' reference cycles, and their captured graphs' pools
+    torch.cuda.empty_cache()
+    layer = max(sum(t[0].numel() for t in _leaves(slot)) * 4
+                for slot in params["blocks"].values())
+    free = (torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
+            - torch.cuda.memory_allocated())
+    return layer + FLOAT32_ROOM <= free, layer / 1e9, free / 1e9
+
+
+def _routing_flips(a: list, b: list) -> list:
+    """Per MoE call, the tokens whose set of experts differs between two
+    paths' recorded routings."""
+    return [int((x.sort(-1).values != y.sort(-1).values).any(-1).sum()) for x, y in zip(a, b)]
+
+
+def _layers_against_plain(cfg, params, batch, capacity: int) -> list:
+    """Each layer of the prefill on one input, the plain versions' residual
+    stream: its output less its input (the mixer's and the FFN's) through
+    the kernels against the plain versions', rms relative, the MoE routing
+    of the plain call forced on the kernels' call.  A layer held on the host
+    (``float32_reads(on_host=True)``) is copied to the card for its turn."""
+    from repro_torch.models import lm
+    from repro_torch.models.params import map_tree
+
+    x, positions = lm._inputs(cfg, params, batch)
+    layers = [(spec, params[name]) for name, spec in lm._prelude(cfg)]
+    layers += [(spec, (j, i)) for i in range(lm.scanned_periods(cfg))
+               for j, spec in enumerate(cfg.layer_pattern)]
+    errs = []
+    for spec, p in layers:
+        if isinstance(p, tuple):
+            p = map_tree(lambda _, t: t.to(x.device),
+                         lm._period(params["blocks"][f"slot{p[0]}"], p[1]))
+        seen = []
+        with moe_routing(record=seen), plain_kernels():
+            want = lm._apply_slot(cfg, spec, p, x, positions, capacity=capacity)[0]
+        with moe_routing(force=seen):
+            got = lm._apply_slot(cfg, spec, p, x, positions, capacity=capacity)[0]
+        errs.append(_rms_rel(got - x, want - x))
+        x = want
+    return errs
 
 
 def _prefill_against_float32(cfg, params, batch, kern, capacity: int) -> dict:
     """The prefill's logits through the kernels (``kern``) against the same
     prefill through the plain versions of the kernels, in the model's bf16
     and in float32 (the reference for the bf16 rounding; each weight cast
-    where it is read, ``float32_reads``): no further from
-    float32 than ``LOGIT_NOISE_RATIO`` times the plain bf16 logits are,
-    within ``TOL_BF16`` (rms) of those, and the same first token wherever
-    float32's top-2 gap exceeds the bf16 noise."""
+    where it is read, ``float32_reads``, with the bf16 layers moved to the
+    host first where a float32 layer does not fit beside them): no further
+    from float32 than ``LOGIT_NOISE_RATIO`` times the plain bf16 logits
+    are, within ``TOL_BF16`` (rms) of those, and the same first token
+    wherever float32's top-2 gap exceeds the bf16 noise.  With MoE layers
+    the tokens that the two bf16 paths route to other experts (near ties)
+    are counted by layer (``moe_routing`` records each path's choices; the
+    forward through the kernels run again to record its own must give
+    ``kern`` bit for bit).  Where the bf16 model itself strays from float32
+    by more than ``TOL_BF16`` (its layers amplify rounding, as
+    Jamba-1.5-Large's random Mamba layers do), the kernels may stray from
+    the plain versions as far as that, and each layer, on one input, is held
+    to the plain versions within ``TOL_BF16`` (``_layers_against_plain``).
+    The bf16 layers stay on the host after it where they were moved."""
     import torch
 
     from repro_torch.models import lm
 
-    torch.cuda.reset_peak_memory_stats()
-    with plain_kernels():
+    routes = {"kernels": [], "plain": []}
+    with moe_routing(record=routes["plain"]), plain_kernels():
         plain, _ = lm.prefill(cfg, params, batch, capacity=capacity)
+    routing = {}
+    if cfg.moe is not None:
+        with moe_routing(record=routes["kernels"]):
+            again, _ = lm.prefill(cfg, params, batch, capacity=capacity)
+        routing = {"routing_flips_by_layer": _routing_flips(routes["kernels"], routes["plain"]),
+                   "tokens_routed_per_layer": [int(r[..., 0].numel()) for r in routes["plain"]],
+                   "kernels_rerun_bit_for_bit": torch.equal(again, kern)}
+        del again
+    fits, layer_gb, free_gb = _float32_layer_fits(params)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_kernels():
         exact, _ = lm.prefill(dataclasses.replace(cfg, dtype="float32"),
-                              float32_reads(params), batch, capacity=capacity)
+                              float32_reads(params, on_host=not fits), batch,
+                              capacity=capacity)
+    exact_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     err_kern, err_plain = _rms_rel(kern, exact), _rms_rel(plain, exact)
     err_kp = _rms_rel(kern, plain)
+    tol_kp = max(TOL_BF16, err_plain)
     top2 = exact.topk(2, dim=-1).values
     noise = (plain.float() - exact).abs().max(dim=-1).values
     decided = (top2[..., 0] - top2[..., 1]) > 2 * LOGIT_NOISE_RATIO * noise
@@ -1965,21 +2169,44 @@ def _prefill_against_float32(cfg, params, batch, kern, capacity: int) -> dict:
     print(f"[serve] prefill logits against float32: rms err through the kernels "
           f"{err_kern:.6f}, through the plain versions {err_plain:.6f} (ratio "
           f"{err_kern / err_plain:.4f}, at most {LOGIT_NOISE_RATIO}); kernels vs plain: "
-          f"max abs {_err(kern, plain)[0]:.5f}, rms {err_kp:.6f} (tol {TOL_BF16}); first "
+          f"max abs {_err(kern, plain)[0]:.5f}, rms {err_kp:.6f} (tol {tol_kp:.6g}); first "
           f"token equal to float32's in {int(same.sum())}/{same.numel()} rows"
           f"{' x codebooks' if cfg.num_codebooks > 1 else ''}, {int(decided.sum())} with a "
-          f"top-2 gap above the bf16 noise; peak memory with the float32 copy {peak:.2f} GB")
+          f"top-2 gap above the bf16 noise; the largest layer {layer_gb:.2f} GB in float32, "
+          f"{free_gb:.2f} GB free beside the bf16 model: its layers "
+          f"{'read on the card' if fits else 'moved to the host, each read copied back'}; "
+          f"float32 prefill in {exact_s:.1f} s, peak memory with the float32 copy {peak:.2f} GB")
+    if routing:
+        print(f"[serve] MoE routing, kernels against plain versions: tokens routed to "
+              f"other experts by layer {routing['routing_flips_by_layer']} of "
+              f"{routing['tokens_routed_per_layer']}; the kernels' forward run again (its "
+              f"routing recorded) gives the served logits bit for bit: "
+              f"{routing['kernels_rerun_bit_for_bit']}")
+    layers = None
+    if err_plain > TOL_BF16:
+        layers = _layers_against_plain(cfg, params, batch, capacity)
+        print(f"[serve] the bf16 model strays from float32 by {err_plain:.6f} (> {TOL_BF16}): "
+              f"each layer's output on the plain versions' input, kernels against plain "
+              f"versions, rms {[round(e, 6) for e in layers]} (tol {TOL_BF16})")
     if not err_kern <= LOGIT_NOISE_RATIO * err_plain:
         raise AssertionError(f"prefill logits: rms err {err_kern} through the kernels > "
                              f"{LOGIT_NOISE_RATIO} x {err_plain} through the plain versions")
-    if not err_kp <= TOL_BF16:
+    if routing and not routing["kernels_rerun_bit_for_bit"]:
+        raise AssertionError("the kernels' forward run again gave other logits")
+    if not err_kp <= tol_kp:
         raise AssertionError(f"prefill logits: rms err {err_kp} against the plain "
-                             f"versions > {TOL_BF16}")
+                             f"versions > {tol_kp}")
+    if layers is not None and not max(layers) <= TOL_BF16:
+        raise AssertionError(f"a layer's output through the kernels is off the plain "
+                             f"versions': {layers} > {TOL_BF16}")
     if not bool(same[decided].all()):
         raise AssertionError("first token differs where the top-2 gap exceeds the bf16 noise")
-    return {"peak_mem_gb_float32_check": peak, "prefill_logit_rms_err_kernels": err_kern,
+    return {"peak_mem_gb_float32_check": peak, "float32_layers_on_host": not fits,
+            "float32_check_s": exact_s, "prefill_logit_rms_err_kernels": err_kern,
             "prefill_logit_rms_err_plain": err_plain,
-            "prefill_logit_rms_err_kernels_vs_plain": err_kp}
+            "prefill_logit_rms_err_kernels_vs_plain": err_kp,
+            "prefill_logit_rms_tol_kernels_vs_plain": tol_kp,
+            "layers_rms_err_kernels_vs_plain": layers, **routing}
 
 
 def _kv_slots(cfg, capacity: int) -> str:
@@ -1987,8 +2214,9 @@ def _kv_slots(cfg, capacity: int) -> str:
     if cfg.attn is None:
         return "a Mamba state"
     w = cfg.attn.sliding_window
-    return (f"a {min(w, capacity)}-slot sliding-window ring" if w is not None
-            else f"{capacity} KV slots")
+    kv = (f"a {min(w, capacity)}-slot sliding-window ring" if w is not None
+          else f"{capacity} KV slots")
+    return kv if cfg.mamba is None else f"{kv} beside Mamba states"
 
 
 def _decode_vs_full_forward(cfg, params, batch: dict, dec, at: int, capacity: int) -> dict:
@@ -2543,9 +2771,9 @@ def fused_train_cases(gen, fault_libs) -> list:
 
 def _config(arch: str, layers: int):
     """``arch`` at its published widths and ``layers`` of its layers."""
-    from repro_torch.configs import get_config
+    from repro_torch.configs import first_layers, get_config
 
-    return dataclasses.replace(get_config(arch), num_layers=layers)
+    return first_layers(get_config(arch), layers)
 
 
 def _launches_per_step(cfg) -> dict:
@@ -2844,8 +3072,17 @@ def dryrun_start() -> dict:
     procs["cells"] = subprocess.Popen(
         [sys.executable, "-c",
          f"import chip_smoke; chip_smoke.dryrun_cells({str(cells_path)!r})"], **kw)
+    atexit.register(_stop, list(procs.values()))  # a phase between them may fail
     return {"procs": procs, "dirs": dirs, "cells_path": cells_path,
             "t0": time.perf_counter()}
+
+
+def _stop(procs: list) -> None:
+    """Kill each of ``procs`` still running, and reap it."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def dryrun_phase(smi: str, started: dict) -> dict:
@@ -2859,10 +3096,7 @@ def dryrun_phase(smi: str, started: dict) -> dict:
     try:
         logs = {k: p.communicate(timeout=900)[0] for k, p in procs.items()}
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        _stop(procs.values())
     seconds = time.perf_counter() - started["t0"]
     waited = time.perf_counter() - t_wait
     (OUT_DIR / "dryrun_cells.log").write_text(logs["cells"])
@@ -3366,12 +3600,64 @@ def _expandable_segments():
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
 
 
-def sharded_phase(smi: str) -> dict:
+#: phase 10's one-rank references, each a process of its own: (a)'s steps,
+#: (d)'s MoE layers, (f)'s serving paths, by the directory (under
+#: ``OUT_DIR``) that each leaves its results in for the ranks: (job, kwargs)
+PHASE10_REFERENCES = {
+    "sharded": ("chip_smoke:sharded_references",
+                {"archs": list(SHARDED_ARCHS + SHARDED_MOE_ARCHS)}),
+    "moe_layer": ("chip_smoke:moe_layer_reference", {"cases": MOE_LAYER_CASES}),
+    "serve_sharded": ("chip_smoke:serve_sharded_reference", {}),
+}
+
+
+def _in_background(fn, *args):
+    """``fn(*args)`` in a thread of its own; returns its future, whose
+    ``result()`` waits for it and raises what it raised."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(fn, *args)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase10_references() -> dict:
+    """Phase 10's one-rank references (``PHASE10_REFERENCES``), started
+    together and awaited together: each needs a part of the card and
+    spends most of its time on the host (its start-up, drawing and saving
+    its results).  ``main`` runs them beside phase 7's ranks and awaits
+    them before phase 8 times kernels; each has exited, returning its card
+    memory, long before phase 10's ranks need the whole card.  Returns
+    each one's (result, seconds with its start-up) by directory."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch import ranks
+
+    def run(key: str) -> tuple:
+        job, kwargs = PHASE10_REFERENCES[key]
+        d = OUT_DIR / key
+        d.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        (one,) = ranks.run(job, 1, timeout_s=600, kwargs={**kwargs, "ref_dir": str(d)})
+        return one, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(PHASE10_REFERENCES)) as pool:
+        futures = {key: pool.submit(run, key) for key in PHASE10_REFERENCES}
+        out = {key: f.result() for key, f in futures.items()}
+    print(f"[sharded] phase 10's one-rank references at once, each in a process of its own: "
+          + ", ".join(f"{key} {s:.1f} s" for key, (_, s) in out.items())
+          + f"; all in {time.perf_counter() - t0:.1f} s (start-up included)")
+    return out
+
+
+def sharded_phase(smi: str, reference: tuple) -> dict:
     """Phase 10: the sharded train step on this card.  (a) the one-rank
     step of each model of ``SHARDED_ARCHS`` through the kernels, in a
-    process of its own; (b)
-    ``sharded_job`` in 8 ranks; (c) ``launch/train.py --mesh 2,2,2`` for 4
-    steps on one repeated batch, whose loss must fall.  Each sharded and
+    process of its own (``reference``: its result and seconds, from
+    ``phase10_references``); (b) ``sharded_job`` in 8 ranks ((c) is
+    ``sharded_cli``).  Each sharded and
     TP step within 2e-2 of the one-rank step (loss and ``grad_norm``
     relative), every first moment's rms over its leaf within
     ``SHARDED_M_TOL``, every updated parameter by ``_param_check``, each on
@@ -3381,17 +3667,11 @@ def sharded_phase(smi: str) -> dict:
     import torch
 
     from repro_torch.launch import ranks
-    from repro_torch.launch import train as train_cli
 
     d = OUT_DIR / "sharded"
-    d.mkdir(parents=True, exist_ok=True)
     pods, data, model = SHARDED_MESH
-    # the one-rank steps in a process of their own, which returns the card's
-    # memory whole when it exits: the 8 ranks need all of it
-    t0 = time.perf_counter()
     archs = list(SHARDED_ARCHS + SHARDED_MOE_ARCHS)
-    (one,) = ranks.run("chip_smoke:sharded_references", 1, timeout_s=600,
-                       kwargs={"archs": archs, "ref_dir": str(d)})
+    one, ref_s = reference
     for arch, r in one.items():
         print(f"[sharded] the one-rank step of {arch} through the kernels: loss "
               f"{r['loss']:.6f}, grad_norm {r['grad_norm']:.6f}, {r['seconds']:.2f} s")
@@ -3410,7 +3690,7 @@ def sharded_phase(smi: str) -> dict:
                 and f["m_ratio"] >= 2 and f["param_ratio"] > 1.0):
             raise AssertionError(f"{arch}: phase 10's limits do not part a correct order "
                                  f"{o} from a fault {f}")
-    print(f"[sharded] one-rank steps in {time.perf_counter() - t0:.1f} s (start-up included); "
+    print(f"[sharded] one-rank steps in {ref_s:.1f} s (start-up included); "
           f"{torch.cuda.mem_get_info()[0] / 1e9:.2f} GB free on the card")
     world = math.prod(SHARDED_MESH)
     t0 = time.perf_counter()
@@ -3489,18 +3769,25 @@ def sharded_phase(smi: str) -> dict:
     shutil.rmtree(d, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def sharded_cli() -> dict:
+    """Phase 10 (c): ``launch/train.py --mesh 2,2,2`` for 4 steps on one
+    repeated batch (``SHARDED_CLI``), in 8 ranks of its own; its loss must
+    fall."""
+    from repro_torch.launch import train as train_cli
+
     t0 = time.perf_counter()
-    with _expandable_segments():
-        cli = train_cli.main(SHARDED_CLI)
+    cli = train_cli.main(SHARDED_CLI)
     losses = [h["loss"] for h in cli["history"]]
     print(f"[sharded] launch/train.py {' '.join(SHARDED_CLI)}: losses {losses}, "
-          f"{time.perf_counter() - t0:.1f} s with the ranks' start-up; step seconds "
-          f"{[round(h['seconds'], 2) for h in cli['history']]} ({HOST_STAGED})")
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start-up, beside (f)'s ranks; "
+          f"step seconds {[round(h['seconds'], 2) for h in cli['history']]} ({HOST_STAGED})")
     if not (len(losses) == 4 and all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"the meshed CLI's loss did not fall: {losses}")
-    out["cli"] = {"argv": SHARDED_CLI, "losses": losses,
-                  "step_s": [h["seconds"] for h in cli["history"]]}
-    return out
+    return {"argv": SHARDED_CLI, "losses": losses,
+            "step_s": [h["seconds"] for h in cli["history"]]}
 
 
 def _moe_layer_config(arch: str, groups: int, smoke: bool = False):
@@ -3727,11 +4014,12 @@ def moe_layer_job(ref_dir: str, cases: list, smoke: bool = False, batch: int = M
     return out
 
 
-def moe_layer_phase(smi: str) -> dict:
+def moe_layer_phase(smi: str, reference: tuple) -> dict:
     """Phase 10 (d): the expert-parallel MoE layer alone at full width, in 8
     ranks over the card's host-staged gloo groups, each case of
     ``MOE_LAYER_CASES`` held to the one-rank layer run first in a process
-    of its own (``moe_layer_reference``): every rank's every quantity within
+    of its own (``moe_layer_reference``; ``reference``: its result and
+    seconds, from ``phase10_references``): every rank's every quantity within
     ``MOE_LAYER_TOL`` in ``ref.scaled_err``, a limit that must part the
     reference's two readings (another order within half of it, a dropped
     ``model`` partial at twice it or more).  Each rank's peak memory is
@@ -3741,11 +4029,7 @@ def moe_layer_phase(smi: str) -> dict:
     from repro_torch.launch import ranks
 
     d = OUT_DIR / "moe_layer"
-    d.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    (one,) = ranks.run("chip_smoke:moe_layer_reference", 1, timeout_s=600,
-                       kwargs={"ref_dir": str(d), "cases": MOE_LAYER_CASES})
-    ref_s = time.perf_counter() - t0
+    one, ref_s = reference
     for label, r in one.items():
         o, f = max(r["order"].values()), max(r["fault"].values())
         print(f"[moe layer] {label}: the one-rank layer in {r['seconds']:.2f} s; the limit's "
@@ -4069,11 +4353,12 @@ def serve_sharded_job(ref_dir: str, smoke: bool = False, device: str = "cuda",
     return out
 
 
-def serve_sharded_phase(smi: str) -> dict:
+def serve_sharded_phase(smi: str, reference: tuple) -> dict:
     """Phase 10 (f): sharded serving at full width on this card.  (a) The
     one-rank path of each config of ``SERVE_SHARDED`` through the kernels,
     and through the plain versions (a reading that must pass), in a
-    process of its own; (b) ``serve_sharded_job`` in 8 ranks: every rank's
+    process of its own (``reference``: its result and seconds, from
+    ``phase10_references``); (b) ``serve_sharded_job`` in 8 ranks: every rank's
     logits and cache shards within ``SERVE_SHARDED_TOL`` of the one-rank
     path's, the planted dropped partial at twice it or more, the path's
     kernels each launched on every rank.  Prints per rank the bytes held,
@@ -4083,11 +4368,7 @@ def serve_sharded_phase(smi: str) -> dict:
     from repro_torch.launch import ranks
 
     d = OUT_DIR / "serve_sharded"
-    d.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    (one,) = ranks.run("chip_smoke:serve_sharded_reference", 1, timeout_s=600,
-                       kwargs={"ref_dir": str(d)})
-    ref_s = time.perf_counter() - t0
+    one, ref_s = reference
     world = math.prod(SERVE_SHARDED[0][1])
     t0 = time.perf_counter()
     with _expandable_segments():
@@ -4274,21 +4555,30 @@ def main() -> int:
         _print_cases(name, cases, tol)
     done("kernels")
 
-    served = {}
-    for arch in SERVED:  # one model on the card at a time
+    def free() -> None:
+        """The last model's memory, on the card and the pinned host memory
+        its float32 check may have staged its layers in (PyTorch's host
+        allocator keeps pinned blocks until told)."""
         gc.collect()
         torch.cuda.empty_cache()
+        torch._C._host_emptyCache()
+
+    served = {}
+    for arch in SERVED:  # one model on the card at a time
+        free()
         served[arch] = (serve(arch, smi=smi) if get_config(arch).embed_inputs
                         else drive_embeds(arch))
         done(f"serve {arch}")
-    gc.collect()
-    torch.cuda.empty_cache()
+    free()
 
     pack = pack_cases(gen, fault_libs)
     _print_cases("a2a_pack", pack, 0)
     done("a2a_pack")
+    references = _in_background(phase10_references)  # beside phase 7's host-bound ranks
     ranks = collectives_phase()
     done("collectives")
+    references = references.result()  # phase 8 times kernels with the card to itself
+    done("sharded references")
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4326,14 +4616,17 @@ def main() -> int:
     done("dryrun")
     gc.collect()
     torch.cuda.empty_cache()
-    sharded = sharded_phase(smi)
+    sharded = sharded_phase(smi, references["sharded"])
     done("sharded")
-    sharded["moe_layer"] = moe_layer_phase(smi)
+    sharded["moe_layer"] = moe_layer_phase(smi, references["moe_layer"])
     done("sharded moe layer")
     gc.collect()
     torch.cuda.empty_cache()
-    sharded["serve"] = serve_sharded_phase(smi)
-    done("sharded serve")
+    with _expandable_segments():  # (c)'s 8 ranks beside (f)'s: host-bound, 56 GB together
+        cli = _in_background(sharded_cli)
+        sharded["serve"] = serve_sharded_phase(smi, references["serve_sharded"])
+        sharded["cli"] = cli.result()
+    done("sharded serve and cli")
     dry["against_runs"] = dryrun_against_runs(dry["cells"], sharded, sharded["serve"], smi)
     done("dryrun against runs")
     runs = {run: r["launches"] for run, r in train["full_width"].items()}

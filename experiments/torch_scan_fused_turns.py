@@ -4,11 +4,14 @@ it replaces, and against variants of its own sources, in turns inside one
 run.
 
     python3 experiments/torch_scan_fused_turns.py [--variant kStatesPerThread=8 ...]
-        [--rounds 2] [--json out.json]
+        [--old-bwd build/mamba_scan_fused_bwd_old.cu] [--rounds 2] [--json out.json]
 
 Each ``--variant`` is the committed ``mamba_scan_fused.cu`` and
 ``mamba_scan_fused_bwd.cu`` with some of their ``constexpr int`` knobs set
 otherwise (a knob is set in each source that has it; one at least must).
+``--old-bwd`` adds a side "old": an earlier ``mamba_scan_fused_bwd.cu``
+(e.g. ``git show <commit>:src/repro_torch/kernels/csrc/mamba_scan_fused_bwd.cu``
+into ``build/``) beside the committed forward.
 The script builds every side and prints each build's registers, spill bytes
 and static shared memory per kernel (``-Xptxas -v``).  At
 ``chip_smoke.py``'s ``FUSED_SPECS`` (forward) and ``TRAIN_FUSED_SPECS``
@@ -67,6 +70,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[],
                     help="knobs of the committed sources, e.g. kStatesPerThread=8,kSteps=64")
+    ap.add_argument("--old-bwd", type=Path,
+                    help="an earlier mamba_scan_fused_bwd.cu, timed as the side 'old'")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path)
     args = ap.parse_args(argv)
@@ -84,13 +89,17 @@ def main(argv=None) -> int:
     smi = cs.card()
     out_dir = ROOT / "build" / "experiments"
     out_dir.mkdir(parents=True, exist_ok=True)
-    sides = ["new", *args.variant]
+    sides = ["new", *args.variant] + (["old"] if args.old_bwd else [])
     jobs = {}
     for i, side in enumerate(sides):
         found = 0
         for src in SOURCES:
             text = (build.SRC_DIR / f"{src}.cu").read_text()
-            if side != "new":
+            if side == "old":
+                found = 1
+                if src == "mamba_scan_fused_bwd":
+                    text = args.old_bwd.read_text()
+            elif side != "new":
                 text, n = _variant_source(text, side)
                 found += n
             path = out_dir / f"{src}_side{i}.cu"

@@ -3,11 +3,14 @@
 ``get_config(name)`` returns the exact published configuration;
 ``get_smoke_config(name)`` returns the reduced same-family variant the CPU
 parity tests use.  The registry knows every architecture the reference
-knows, and the port runs every one of them.
+knows, and the port runs every one of them.  ``first_layers(cfg, n)`` cuts
+a config to its first ``n`` layers at its published widths (the CLIs'
+``--layers``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.configs.base import (
@@ -27,6 +30,7 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "ParallelConfig",
+    "first_layers",
     "get_config",
     "get_smoke_config",
 ]
@@ -61,3 +65,21 @@ def get_config(name: str) -> ModelConfig:
 
 def get_smoke_config(name: str) -> ModelConfig:
     return _module(name).SMOKE
+
+
+def first_layers(cfg: ModelConfig, n: int) -> ModelConfig:
+    """``cfg`` cut to its first ``n`` layers, every width as it is: ``n`` a
+    multiple of the ``layer_pattern``'s period keeps whole periods; ``n``
+    below the period keeps the pattern's first ``n`` slots as the pattern,
+    so the layers kept are the model's layers 0 to n - 1 in order (Jamba's
+    first 4 hold an attention, a Mamba, a dense and a MoE layer).  Any
+    other ``n`` raises ``ValueError``."""
+    period = len(cfg.layer_pattern)
+    if not 1 <= n <= cfg.num_layers:
+        raise ValueError(f"{cfg.name}: cannot keep {n} of its {cfg.num_layers} layers")
+    if n % period == 0:
+        return dataclasses.replace(cfg, num_layers=n)
+    if n < period:
+        return dataclasses.replace(cfg, num_layers=n, layer_pattern=cfg.layer_pattern[:n])
+    raise ValueError(f"{cfg.name}: {n} layers are neither a multiple of its pattern's period "
+                     f"{period} nor fewer than it")

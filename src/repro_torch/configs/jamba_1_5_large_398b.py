@@ -4,10 +4,12 @@
 period), GQA 64H kv=8, d_ff=24576, MoE 16 experts top-2 on every other
 layer, vocab=65536, mamba d_state=16 expand=2 (d_inner=16384).
 
-Its full width needs 4 cards: one MoE layer alone is 16 x 3 x 8192 x 24576
-= 9.66 B parameters (19.3 GB in bf16), and its smallest whole period (8
-layers, 4 of them MoE) is over 77 GB before the Mamba layers.  The port
-runs it at its smoke size, on the CPU.
+One MoE layer alone is 16 x 3 x 8192 x 24576 = 9.66 B parameters (19.3 GB
+in bf16), and its smallest whole period (8 layers, 4 of them MoE) is 45.18 B
+(90.4 GB): a whole period, and training at full width (AdamW state), need 4
+cards.  Served on one card, it is cut to its first 4 layers
+(``configs.first_layers``: attention + MoE, Mamba + dense, Mamba + MoE, Mamba
++ dense; 22.996 B parameters, 46.0 GB in bf16).
 """
 
 from repro_torch.configs.base import (

@@ -42,15 +42,16 @@
 // channel's lanes, in the butterfly order of the forward's readout (the
 // plain version's order: they agree bit for bit); over the channels (gB,
 // gC) each thread writes its terms of a chunk to shared memory, the CTA
-// sums them per (t, n) in 8 interleaved runs over its channels, added
-// pairwise, and writes one float32 partial to a workspace [B, CTAs of a
-// row, S, 2 N]; over t (gA) in registers, a chunk's 8 steps in float32,
+// sums them per (t, n) in float64, in 8 interleaved runs over its channels
+// added pairwise, and writes one float64 partial to a workspace [B, CTAs of
+// a row, S, 2 N]; over t (gA) in registers, a chunk's 8 steps in float32,
 // the chunks in float64, each batch row's sum to a workspace [B, di, N] of
 // float64.  A second launch sums the partials over the CTAs (gB, gC) and
-// over the batch rows (gA) in order, in float64, and rounds once.  So the
-// long sums (8192 channels, 2048 steps) come out within a few float32
-// roundings of exact; the plain version sums gB and gA in float64 too, and
-// gC (the unfused plain backward's) in float32.
+// over the batch rows (gA) in order, in float64, and rounds once.  So gB
+// and gC are the float32 terms' float64 sum within one rounding (with
+// float32 partials over 32 channels, gC strayed 1.0e-5 of its row's scale
+// from it at one draw of Falcon's microbatch), gA within a few float32
+// roundings of exact; the plain version sums gB, gC and gA in float64 too.
 //
 // Bound on the H100: operations.  The least traffic (dt, x, B, C, A, gy,
 // h0, gh_fin read once; gdt, gx, gB, gC, gA, gh0 written once) is ~0.2 GB
@@ -81,17 +82,17 @@ constexpr int kChunk = 8;            // steps between stored states, held in reg
 constexpr int kSumThreads = 256;
 static_assert(kSteps % kChunk == 0, "a tile is whole chunks");
 
-// sum_{i < n} p[i * stride] for n a multiple of 8: 8 interleaved runs,
-// added pairwise
-__device__ __forceinline__ float sum8(const float* p, int n, int stride) {
-  float s[8];
+// sum_{i < n} p[i * stride] in float64 for n a multiple of 8: 8
+// interleaved runs, added pairwise
+__device__ __forceinline__ double sum8(const float* p, int n, int stride) {
+  double s[8];
 #pragma unroll
   for (int r = 0; r < 8; ++r) s[r] = p[r * stride];
   for (int i = 8; i < n; i += 8) {
 #pragma unroll
-    for (int r = 0; r < 8; ++r) s[r] = __fadd_rn(s[r], p[(i + r) * stride]);
+    for (int r = 0; r < 8; ++r) s[r] += p[(i + r) * stride];
   }
-  return tree(s);
+  return ((s[0] + s[1]) + (s[2] + s[3])) + ((s[4] + s[5]) + (s[6] + s[7]));
 }
 
 // One stage: gy [kSteps][CH] float32, then dt and x [kSteps][CH], then B
@@ -119,7 +120,7 @@ mamba_scan_fused_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ x,
                             const float* __restrict__ A, const float* __restrict__ h0,
                             const float* __restrict__ gy, const float* __restrict__ gh_fin,
                             T* __restrict__ gdt, T* __restrict__ gx, float* __restrict__ gh0,
-                            float* __restrict__ bounds, float* __restrict__ part,
+                            float* __restrict__ bounds, double* __restrict__ part,
                             double* __restrict__ a_part, int S, int di, int N, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = N / P;          // lanes of one channel
@@ -209,7 +210,7 @@ mamba_scan_fused_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ x,
     if (nk - 1 - s >= 0) stage2(nk - 1 - s);
     cp_async_commit();
   }
-  float* const pp = part + ((int64_t)bi * gridDim.x + blockIdx.x) * S * 2 * N;
+  double* const pp = part + ((int64_t)bi * gridDim.x + blockIdx.x) * S * 2 * N;
   const int64_t row0 = (int64_t)bi * S * di + d;  // gdt, gx at row0 + t * di
   // the CTA's sum over its channels of red[u][.][m] for the chunk's steps,
   // into the partials' column `col` (0: gB, N: gC)
@@ -317,7 +318,7 @@ mamba_scan_fused_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ x,
 // batch rows' partials summed in row order; in float64, rounded once.
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
-mamba_scan_fused_bwd_sum(const float* __restrict__ part, const double* __restrict__ a_part,
+mamba_scan_fused_bwd_sum(const double* __restrict__ part, const double* __restrict__ a_part,
                          T* __restrict__ gB, T* __restrict__ gC, float* __restrict__ gA, int B,
                          int S, int N, int ctas, int di) {
   const int64_t i = (int64_t)blockIdx.x * kSumThreads + threadIdx.x;
@@ -326,10 +327,10 @@ mamba_scan_fused_bwd_sum(const float* __restrict__ part, const double* __restric
     const int64_t bi = i / SN, r = i - bi * SN;  // r = t N + n
     const int64_t t = r / N, m = r - t * N;
     const int64_t stride = 2 * SN;  // one CTA's partials
-    const float* p = part + bi * ctas * stride + t * 2 * N + m;
+    const double* p = part + bi * ctas * stride + t * 2 * N + m;
     double sb = 0.0, sc = 0.0;
-    for (int j = 0; j < ctas; ++j) sb += (double)p[j * stride];  // gB's partials
-    for (int j = 0; j < ctas; ++j) sc += (double)p[j * stride + N];  // gC's
+    for (int j = 0; j < ctas; ++j) sb += p[j * stride];  // gB's partials
+    for (int j = 0; j < ctas; ++j) sc += p[j * stride + N];  // gC's
     gB[i] = from_f<T>((float)sb);
     gC[i] = from_f<T>((float)sc);
   } else if (i < nbc + plane) {
@@ -348,7 +349,7 @@ int64_t ctas_of(int di, int N) { return (di + channels_of(N) - 1) / channels_of(
 int64_t bounds_floats(int B, int S, int di, int N) {
   return (int64_t)B * ((S + kChunk - 1) / kChunk) * di * N;
 }
-int64_t part_floats(int B, int S, int di, int N) {
+int64_t part_doubles(int B, int S, int di, int N) {
   return (int64_t)B * ctas_of(di, N) * S * 2 * N;
 }
 
@@ -361,8 +362,8 @@ int launch(const void* dt, const void* x, const void* Bm, const void* Cm, const 
   const int64_t ctas = ctas_of(di, N);
   if (ctas > 2147483647LL || B > 65535) return (int)cudaErrorInvalidValue;
   double* a_part = reinterpret_cast<double*>(work);  // first: 8-byte aligned
-  float* part = work + 2 * (int64_t)B * di * N;
-  float* bounds = part + part_floats(B, S, di, N);
+  double* part = a_part + (int64_t)B * di * N;
+  float* bounds = reinterpret_cast<float*>(part + part_doubles(B, S, di, N));
   const size_t bytes = kStages * Stage<T>::bytes(CH, N) + (size_t)kChunk * kThreads * P * 4;
   auto kernel = mamba_scan_fused_bwd_kernel<T, P>;
   cudaError_t err =
@@ -407,11 +408,11 @@ int dispatch(const void* dt, const void* x, const void* Bm, const void* Cm, cons
 }  // namespace
 
 // Bytes of the workspace a call needs: the batch rows' partials of gA [B,
-// di, N] float64, the CTAs' partials of gB and gC [B, CTAs, S, 2 N] and the
-// states entering every chunk [B, ceil(S / kChunk), di, N] float32.
+// di, N] and the CTAs' partials of gB and gC [B, CTAs, S, 2 N] float64, and
+// the states entering every chunk [B, ceil(S / kChunk), di, N] float32.
 extern "C" long long mamba_scan_fused_bwd_workspace_bytes(int B, int S, int di, int N) {
   if (B <= 0 || S <= 0 || di <= 0 || N <= 0 || N > 32 || 32 % N) return -1;
-  return (long long)(bounds_floats(B, S, di, N) + part_floats(B, S, di, N) + 2 *
+  return (long long)(bounds_floats(B, S, di, N) + 2 * part_doubles(B, S, di, N) + 2 *
                      (int64_t)B * di * N) * 4;
 }
 

@@ -46,9 +46,9 @@ def _lib():
 
 def mamba_scan_fused_bwd_workspace_bytes(B: int, S: int, di: int, N: int) -> int:
     """Bytes of device memory one call at these sizes takes besides its
-    outputs: the batch rows' partials of gA (float64), the CTAs' partials
-    of gB and gC and the states entering every chunk of steps (float32; see
-    the source)."""
+    outputs: the batch rows' partials of gA and the CTAs' partials of gB
+    and gC (float64), and the states entering every chunk of steps
+    (float32; see the source)."""
     return int(_lib().mamba_scan_fused_bwd_workspace_bytes(B, S, di, N))
 
 

@@ -362,9 +362,10 @@ def mamba_scan_fused_bwd(dt, x, B, C, A, h0, gy, gh_fin=None):
         out = mamba_scan_fused_bwd_cuda(dt, x, B, C, A, h0, gy, gh_fin)
         mamba_scan_fused_bwd.launches += 1
         return out
-    if dt.device.type == "cpu":
+    if dt.device.type == "cpu":  # ref.mamba_scan_fused_bwd_ref, its steps named here
         a, b = scan_terms_ref(dt, x, B, A)
-        ga, gb, gC, gh0 = mamba_scan_bwd_ref(a, b, C, h0, gy, gh_fin)
+        ga, gb, gC, gh0 = mamba_scan_bwd_ref(a, b, C, h0, gy, gh_fin,
+                                             gc_sum_dtype=torch.float64)
         return fused_grads(dt, x, B, C, scan_terms_bwd_ref(dt, x, B, A, a, ga, gb), gC, gh0)
     if dt.is_meta:
         Bz, S, di = dt.shape

@@ -138,13 +138,15 @@ def mamba_scan_bwd_ref(
     h0: torch.Tensor | None,  # [B, di, N] initial state (None: zeros)
     gy: torch.Tensor,  # [B, S, di] cotangent of y
     gh_fin: torch.Tensor | None = None,  # [B, di, N] cotangent of h_last (None: zeros)
+    gc_sum_dtype: torch.dtype = torch.float32,  # gc's sum over the channels
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradients of :func:`mamba_scan_ref`, step by step as the
     reference's ``_scan_bwd`` defines them, in float32: h recomputed by the
     forward's recurrence, then from the last step to the first ``g_t = gy_t
     c_t + a_{t+1} g_{t+1}``, seeded with ``gh_fin`` at ``t = S - 1``;
-    ``ga_t = g_t h_{t-1}``, ``gb_t = g_t``, ``gc_t = sum_d h_t gy_t`` and
-    ``gh0 = a_0 g_0``.  Returns (ga, gb, gc, gh0)."""
+    ``ga_t = g_t h_{t-1}``, ``gb_t = g_t``, ``gc_t = sum_d h_t gy_t`` (each
+    term in float32, the sum in ``gc_sum_dtype``, rounded once) and ``gh0 =
+    a_0 g_0``.  Returns (ga, gb, gc, gh0)."""
     B, S, di, N = a.shape
     a, b, c, gy = a.float(), b.float(), c.float(), gy.float()
     h = (torch.zeros(B, di, N, dtype=torch.float32, device=a.device) if h0 is None
@@ -155,7 +157,7 @@ def mamba_scan_bwd_ref(
     for t in range(S):
         h = a[:, t] * h + b[:, t]
         hs[:, t + 1] = h
-        gc[:, t] = (h * gy[:, t, :, None]).sum(dim=1)
+        gc[:, t] = (h * gy[:, t, :, None]).sum(dim=1, dtype=gc_sum_dtype)
     g = (torch.zeros(B, di, N, dtype=torch.float32, device=a.device) if gh_fin is None
          else gh_fin.float())
     ga, gb = torch.empty_like(a), torch.empty_like(a)
@@ -209,12 +211,13 @@ def mamba_scan_fused_ref(dt, x, B, C, A, h0=None) -> tuple[torch.Tensor, torch.T
 def mamba_scan_fused_bwd_ref(dt, x, B, C, A, h0, gy, gh_fin=None) -> tuple:
     """The gradients of :func:`mamba_scan_fused_ref` for the cotangents
     ``gy`` [B, S, di] of y and ``gh_fin`` [B, di, N] of h_last (None:
-    zeros), step by step: :func:`mamba_scan_bwd_ref` on the formed terms,
-    then :func:`scan_terms_bwd_ref`.  Returns (gdt, gx, gB, gC) in the
-    dtypes of dt, x, B and C (summed in float32, cast once), gA [di, N] and
-    gh0 [B, di, N] float32."""
+    zeros), step by step: :func:`mamba_scan_bwd_ref` on the formed terms
+    (gC's sum over the channels in float64, as gB's and gA's long sums in
+    :func:`scan_terms_bwd_ref`), then :func:`scan_terms_bwd_ref`.  Returns
+    (gdt, gx, gB, gC) in the dtypes of dt, x, B and C (float32 until a
+    single cast), gA [di, N] and gh0 [B, di, N] float32."""
     a, b = scan_terms_ref(dt, x, B, A)
-    ga, gb, gC, gh0 = mamba_scan_bwd_ref(a, b, C, h0, gy, gh_fin)
+    ga, gb, gC, gh0 = mamba_scan_bwd_ref(a, b, C, h0, gy, gh_fin, gc_sum_dtype=torch.float64)
     return fused_grads(dt, x, B, C, scan_terms_bwd_ref(dt, x, B, A, a, ga, gb), gC, gh0)
 
 

@@ -8,6 +8,7 @@ a few decode steps of the slot engine, on the GPU.
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch qwen2_vl_7b
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch dbrx_132b --layers 8
   PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch deepseek_v2_236b --layers 8
+  PYTHONPATH=src python -m repro_torch.launch.profile_serve --arch jamba_1_5_large_398b --layers 4
 
 The run has the shapes of ``chip_smoke.py``'s serving phase: 4 slots,
 prompts of 512 tokens (of 512 x 4 codebooks for MusicGen), a cache of 1024;
@@ -26,8 +27,9 @@ model the layer's stages by their profiler spans (``moe.SPANS``: routing,
 dispatch, the expert GEMMs, combine, shared experts); the rest is every
 other operator (projections, the head, embedding).  A captured step's
 replay has no spans: its split is that of the eager step.  ``--layers``
-keeps the first layers of the config (DBRX-132B and DeepSeek-V2-236B fit
-one card at 8).  The decode step is
+keeps the first layers of the config (``configs.first_layers``: DBRX-132B
+and DeepSeek-V2-236B fit one card at 8, Jamba-1.5-Large at 4, its
+attention, Mamba, dense and MoE layers).  The decode step is
 measured both ways, eager (op by op from Python) and as the engine's
 captured CUDA graph, in turns (eager, graph, graph, eager) on fresh
 engines: host times move between calls, so only turns inside one call
@@ -64,7 +66,6 @@ cache; the admissions' part does not apply.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import re
 import time
 
@@ -74,7 +75,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
+from repro_torch.configs import first_layers, get_config
 from repro_torch.models import lm
 from repro_torch.models.moe import SPANS
 from repro_torch.models.params import torch_dtype
@@ -175,7 +176,7 @@ def main(argv=None):
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = first_layers(cfg, args.layers)
     if args.train:
         return _profile_train(cfg, device, seq=args.seq)
     k = cfg.num_codebooks

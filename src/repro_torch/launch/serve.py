@@ -8,6 +8,8 @@
                                            # 4 codebooks: prompts [S, 4]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dbrx_132b --layers 8
                                            # MoE at full width, 8 of 40 layers
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba_1_5_large_398b --layers 4
+                                           # the hybrid: attention, Mamba and MoE layers
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --eager
                                            # the decode step from Python, not a CUDA graph
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --smoke \\
@@ -15,8 +17,9 @@
 
 On the card each decode step replays one captured CUDA graph; ``--eager``
 runs it op by op from Python instead, as the CPU always does.  ``--layers``
-keeps the first layers of the config (DBRX-132B and DeepSeek-V2-236B fit one
-card at 8).  All requests
+keeps the first layers of the config (``configs.first_layers``: DBRX-132B and
+DeepSeek-V2-236B fit one card at 8, Jamba-1.5-Large at 4, fewer than its
+period of 8).  All requests
 are admitted in one wave, so ``--requests`` may not exceed
 ``--slots``, and every prompt and its new tokens must fit the cache: the
 engine admits a wave only into an empty cache, and a request it cannot
@@ -26,14 +29,13 @@ admit or finish would never complete.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import first_layers, get_config, get_smoke_config
 from repro_torch.models import lm
 from repro_torch.serving.engine import Request, ServeEngine, greedy_sample, temperature_sample
 
@@ -65,7 +67,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = first_layers(cfg, args.layers)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_model(cfg, gen, device=device)
     sampler = (greedy_sample if args.temperature == 0.0

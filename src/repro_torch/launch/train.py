@@ -53,7 +53,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import first_layers, get_config, get_smoke_config
 from repro_torch.launch import ranks
 from repro_torch.launch.mesh import make_device_mesh
 from repro_torch.models import lm
@@ -176,7 +176,7 @@ def main(argv=None) -> dict:
         return out[0]
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+        cfg = first_layers(cfg, args.layers)
     if args.microbatches:
         cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
             cfg.parallel, microbatches=args.microbatches))

@@ -4,8 +4,10 @@
 Both run the same kernels on the same inputs, so their logits must be equal
 bit for bit.  On the yi, falcon-mamba, h2o-danube (a sliding window),
 musicgen (2 codebooks: a [B, 1, K] token buffer), minicpm3 (MLA: a latent
-cache), dbrx (MoE: routing and dispatch inside the graph) and deepseek-v2
-(MoE after a dense prelude layer) smoke configs (bf16), and on qwen2-vl's (embeds: a [B, 1, D] input
+cache), dbrx (MoE: routing and dispatch inside the graph), deepseek-v2
+(MoE after a dense prelude layer) and jamba (a KV cache beside Mamba conv
+windows and states in one captured cache, MoE after attention and after
+Mamba) smoke configs (bf16), and on qwen2-vl's (embeds: a [B, 1, D] input
 buffer; no engine drives it):
 
 * the serving engine with the graph (the default on the card) and without
@@ -34,7 +36,7 @@ from repro_torch.serving.decode_graph import DecodeGraph
 from repro_torch.serving.engine import Request, ServeEngine, greedy_sample
 
 ARCHS = ["yi_6b", "falcon_mamba_7b", "h2o_danube_3_4b", "musicgen_large", "minicpm3_4b",
-         "dbrx_132b", "deepseek_v2_236b"]
+         "dbrx_132b", "deepseek_v2_236b", "jamba_1_5_large_398b"]
 #: the captured step alone also takes a model that takes embeddings
 REPLAY_ARCHS = ARCHS + ["qwen2_vl_7b"]
 SLOTS, CAP, PROMPT, STEPS = 4, 64, 8, 16

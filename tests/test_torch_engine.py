@@ -8,7 +8,8 @@ decode-collective plans (``test_engine_pins_and_replans_on_fault``,
 both), and the port's greedy tokens do not change with it.
 
 Float32 copies of the yi, falcon-mamba, musicgen, minicpm3 (MLA), dbrx
-(MoE) and deepseek-v2 (MoE, a dense prelude, MLA) smoke configs, so the
+(MoE), deepseek-v2 (MoE, a dense prelude, MLA) and jamba (attention, Mamba
+and MoE layers in one stack) smoke configs, so the
 logits agree to 1e-5 of their scale.  The port's engine is fed the reference's
 tokens (teacher forcing), so every step's logits are comparable even where
 a near-tie could flip a greedy choice; its own greedy choice must equal
@@ -96,6 +97,15 @@ def test_dbrx_engine_matches_reference():
 def test_deepseek_engine_matches_reference():
     """The dense prelude layer, MLA and shared experts."""
     _engine_matches_reference("deepseek_v2_236b")
+
+
+def test_jamba_engine_matches_reference():
+    """The hybrid: a slot cache that holds a KV cache (the attention slot)
+    beside Mamba conv windows and states, and MoE after attention and
+    after Mamba.  Both reference caveats at once: the left pads (token 0)
+    of the shorter prompts enter the Mamba states, and they are routed and
+    take MoE capacity slots."""
+    _engine_matches_reference("jamba_1_5_large_398b")
 
 
 def test_engine_refuses_a_model_that_takes_embeddings():
@@ -311,10 +321,16 @@ def test_serve_cli_runs_dbrx_smoke_on_cpu():
     _serve_cli_runs_smoke_on_cpu("dbrx_132b")
 
 
-def _serve_cli_runs_smoke_on_cpu(arch):
+def test_serve_cli_runs_jamba_smoke_on_cpu():
+    """Cut below its pattern's period: the first 2 layers (attention + MoE,
+    Mamba + dense)."""
+    _serve_cli_runs_smoke_on_cpu("jamba_1_5_large_398b", "--layers", "2")
+
+
+def _serve_cli_runs_smoke_on_cpu(arch, *args):
     done = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                         "--requests", "3", "--slots", "4", "--prompt-len", "8",
-                        "--max-new", "5", "--capacity", "16"])
+                        "--max-new", "5", "--capacity", "16", *args])
     assert sorted(r.rid for r in done) == [0, 1, 2]
     assert all(len(r.out_tokens) == 5 for r in done)
     k = get_smoke_config(arch).num_codebooks

@@ -864,8 +864,8 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
         "const int tc = t0 + u0; if (tc + kChunk < S) for (int j = 0; j < P; ++j) g[j] = 0.f;"),
     "fused_bwd_last_cta_partial_left_out_of_gb": (
         "mamba_scan_fused_bwd",
-        "for (int j = 0; j < ctas; ++j) sb += (double)p[j * stride];  // gB's partials",
-        "for (int j = 0; j < ctas - 1; ++j) sb += (double)p[j * stride];"),
+        "for (int j = 0; j < ctas; ++j) sb += p[j * stride];  // gB's partials",
+        "for (int j = 0; j < ctas - 1; ++j) sb += p[j * stride];"),
     "fused_bwd_dt_a_in_place_of_dt_x": (
         "mamba_scan_fused_bwd", "const float dx = term_dx(dtv, xv);",
         "const float dx = term_dx(dtv, ac[0]);"),

@@ -313,3 +313,31 @@ def test_chip_smoke_float32_reads_give_the_float32_prefill(arch, monkeypatch):
     assert got.dtype == torch.float32 and torch.equal(got, want)
     map_tree(lambda path, a, b: None if torch.equal(a, b) else pytest.fail(path),
              got_cache, want_cache)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_chip_smoke_float32_reads_from_the_host_give_the_float32_prefill(arch, monkeypatch):
+    """``float32_reads(params, on_host=True)``, for a layer whose float32
+    copy does not fit the card beside the bf16 model: the stacked leaves
+    move to the host in ``params`` itself, and each read copies its period
+    back to the device of the rest of the model before the cast.  The same
+    logits and caches as the whole tree cast at once, bit for bit."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    cfg = get_smoke_config(arch)
+    params = TLM.init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    k = cfg.num_codebooks
+    batch = ({"tokens": torch.randint(0, cfg.vocab_size, (2, 8, k) if k > 1 else (2, 8),
+                                      generator=gen)} if cfg.embed_inputs
+             else {"embeds": torch.randn(2, 8, cfg.d_model, generator=gen)})
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    want, want_cache = TLM.prefill(cfg32, map_tree(lambda _, t: t.float(), params), batch)
+    reads = chip_smoke.float32_reads(params, on_host=True)
+    map_tree(lambda path, t: None if t.device.type == "cpu" else pytest.fail(path),
+             params["blocks"])
+    got, got_cache = TLM.prefill(cfg32, reads, batch)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    map_tree(lambda path, a, b: None if torch.equal(a, b) else pytest.fail(path),
+             got_cache, want_cache)
