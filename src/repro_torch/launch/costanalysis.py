@@ -79,6 +79,8 @@ COLLECTIVE_KINDS = {"all_gather_into_tensor": "all-gather",
                     "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
                     "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all"}
 _COLLECTIVE_NS = ("_c10d_functional", "c10d_functional")
+#: ops of the collectives' namespaces that issue nothing: each returns its
+#: input (or a wrapper of its storage) on a device
 _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd")
 
 
@@ -162,7 +164,11 @@ class PeakBytes(TorchDispatchMode):
     """Tracks the storage of every meta tensor an op creates while the mode
     is active, from its creation to the death of the last tensor that
     views it, and keeps the peak of the sum.  Storages of the tensors
-    given to :meth:`exclude` (the pass's arguments) are not counted."""
+    given to :meth:`exclude` (the pass's arguments) are not counted.  A
+    collective's output is waited on (``wait_tensor``) and wrapped for
+    autograd (``_wrap_tensor_autograd``); on a device each returns its
+    input's storage, where their meta kernels allocate: their outputs count
+    as their inputs' storage."""
 
     def __init__(self):
         super().__init__()
@@ -178,6 +184,12 @@ class PeakBytes(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if _dtensor_op(types):  # its local ops come back here
             return NotImplemented
+        if (func.namespace in _COLLECTIVE_NS and func._overloadpacket.__name__ in _NOT_COLLECTIVES
+                and args[0].is_meta):
+            out = args[0].view_as(args[0])  # on a device: its input's storage
+            if out.untyped_storage()._cdata in self._refs:
+                self._track(out)
+            return out
         out = func(*args, **(kwargs or {}))
         for t in tree_leaves(out):
             if isinstance(t, torch.Tensor) and t.is_meta:

@@ -70,6 +70,7 @@ def test_the_planted_instances_are_the_cases_dims(chip_smoke):
     assert inst("flash_attention", "danube prefill") == "FLASH_CASE(120, 120)"
     assert inst("flash_attention", "deepseek prefill") == "FLASH_CASE(192, 128)"
     assert inst("flash_attention_bwd", "minicpm3 train") == "BWD_CASE(96, 64)"
+    assert inst("flash_attention_bwd", "qwen2-vl train") == "BWD_CASE(128, 128)"
     assert inst("mamba_scan_bwd", "h0, gh_fin") == "MAMBA_SCAN_BWD_CASE(16)"
     assert inst("mamba_scan_fused", "ragged") == "FUSED_CASE(4)"
     assert inst("mamba_scan_fused_bwd", "falcon train") == "FUSED_BWD_CASE(4)"

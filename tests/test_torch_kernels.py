@@ -807,6 +807,14 @@ PLANTED_FAULTS = {  # name: (kernel, sound line, faulty line)
     "flash_bwd_mla_delta_read_at_hdqk": (
         "flash_attention_bwd", "constexpr int VPR = HDV / 8;  // 16-byte vectors of a row of o or dO",
         "constexpr int VPR = HDQK / 8;"),
+    "flash_bwd_odd_last_head_left_out": (
+        "flash_attention_bwd",
+        "const int nh = min(kHeadsPerSlice, group - h0);        // and its number of heads",
+        "const int nh = group - h0 < kHeadsPerSlice ? 0 : kHeadsPerSlice;"),
+    "flash_bwd_head_slices_rounded_down": (
+        "flash_attention_bwd",
+        "int head_slices(int group) { return (group + kHeadsPerSlice - 1) / kHeadsPerSlice; }",
+        "int head_slices(int group) { return group / kHeadsPerSlice; }"),
     "rmsnorm_last_row_not_prefetched": (
         "rmsnorm", "if (next < T_rows) load(nxt, (int)next);  // in flight while this row reduces",
         "if (next < T_rows - 1) load(nxt, (int)next);"),
@@ -981,10 +989,13 @@ def test_planted_faults_fail_the_check(cuda, faulty_libraries, monkeypatch, faul
                                             h0, gy, gh)
         tol = TOL["float32"]
     elif kernel == "flash_attention_bwd":  # yi's heads, one sequence; dq, dk and dv; the
-        # head-dim faults at danube's, gemma's and minicpm3's heads
+        # head-dim faults at danube's, gemma's and minicpm3's heads, the odd
+        # group's at qwen2-vl's
         BH, hd, hdv, g = ((32, 120, 120, 4) if "hd120" in fault else
                           (16, 256, 256, 1) if "hd256" in fault else
-                          (40, 96, 64, 1) if "mla" in fault else (32, 128, 128, 8))
+                          (40, 96, 64, 1) if "mla" in fault else
+                          (28, 128, 128, 7) if "odd" in fault or "slices" in fault else
+                          (32, 128, 128, 8))
         q, k, v, do = _flash_train_inputs(cuda, BH, 512, hd, g, hdv)
         o, lse = flash_attention_cuda(q, k, v, group_size=g, return_lse=True)
         o = _with_slack(o.flatten()).view(o.shape)

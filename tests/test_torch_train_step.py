@@ -16,7 +16,7 @@ times that share's difference between the port's and the reference's
 gradients, plus 1e-6.  Cases: yi_6b at 1 and 2 microbatches with remat on and
 off; gemma_7b (tied head, GeGLU), h2o_danube_3_4b (a window of 64 inside
 128 tokens), musicgen_large (two codebooks), qwen2_vl_7b (embeds and
-M-RoPE), dbrx_132b (MoE), minicpm3_4b (MLA: flash at q/k 24 and v 16),
+M-RoPE; 1 microbatch, and 2 with remat), dbrx_132b (MoE), minicpm3_4b (MLA: flash at q/k 24 and v 16),
 deepseek_v2_236b (MLA, MoE with shared experts, the dense prelude),
 falcon_mamba_7b (the selective scan's custom VJP; 1 microbatch, and 2 with
 remat) and jamba_1_5_large_398b (Mamba, attention and MoE layers together).
@@ -97,7 +97,8 @@ def _reference_step(jcfg, params, batch):
 @pytest.mark.parametrize("arch,micro,remat", [
     ("yi_6b", 1, False), ("yi_6b", 2, False), ("yi_6b", 1, True), ("yi_6b", 2, True),
     ("gemma_7b", 1, False), ("h2o_danube_3_4b", 1, False), ("musicgen_large", 2, False),
-    ("qwen2_vl_7b", 1, False), ("dbrx_132b", 2, False), ("minicpm3_4b", 1, False),
+    ("qwen2_vl_7b", 1, False), ("qwen2_vl_7b", 2, True), ("dbrx_132b", 2, False),
+    ("minicpm3_4b", 1, False),
     ("deepseek_v2_236b", 2, False), ("falcon_mamba_7b", 1, False), ("falcon_mamba_7b", 2, True),
     ("jamba_1_5_large_398b", 2, False),
 ])
