@@ -23,7 +23,8 @@ less the busy time, over the span; busy time above the span or the host
 wall is printed as such), the kernels that take most
 device time and the operators that take most host time, and the device
 time split into the attention (flash) and RMSNorm kernels, and for an MoE
-model the layer's stages by their profiler spans (``moe.SPANS``: routing,
+model the layer's stages by their tracer spans (``moe.SPANS``, which the
+profiler holds as ``repro.<span>`` ranges: routing,
 dispatch, the expert GEMMs, combine, shared experts); the rest is every
 other operator (projections, the head, embedding).  A captured step's
 replay has no spans: its split is that of the eager step.  ``--layers``
@@ -97,6 +98,8 @@ def _device_us(evt) -> float:
 #: the names of the port's hand-written kernels (``kernels/csrc``)
 _PORT_KERNEL = re.compile(r"rmsnorm|flash_|mamba_scan|a2a_pack")
 #: the selective scan's kernels, unfused (formed terms in) or fused
+#: the prefix of the tracer's spans as the profiler holds them
+_RANGE = "repro."
 _SCAN_FORWARD = re.compile(r"mamba_scan_(fused_)?kernel")
 _SCAN_BACKWARD = re.compile(r"mamba_scan_(fused_)?bwd")
 
@@ -120,10 +123,10 @@ def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
     # memsets) only: an operator's entry repeats the time of its kernels,
     # and a span's annotation on the device covers the kernels inside it
     records = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.name not in SPANS]
+               and not e.is_user_annotation and not e.name.startswith(_RANGE)]
     events = prof.key_averages()
     on_device = [e for e in events if e.device_type == DeviceType.CUDA
-                 and not e.is_user_annotation and e.key not in SPANS]
+                 and not e.is_user_annotation and not e.key.startswith(_RANGE)]
     on_host = [e for e in events if e.device_type == DeviceType.CPU]
     busy_us = sum(e.time_range.elapsed_us() for e in records)
     span_us = (max(e.time_range.end for e in records)
@@ -154,7 +157,7 @@ def _report(name: str, prof, wall_s: float, n: int, top: int = TOP) -> None:
                                   if _SCAN_BACKWARD.search(e.key))}
     for span in SPANS:  # a span's device time: the kernels of the operators inside it
         us = sum(e.device_time_total for e in prof.events()
-                 if e.name == span and e.device_type == DeviceType.CPU)
+                 if e.name == _RANGE + span and e.device_type == DeviceType.CPU)
         if us:
             split[span] = us
     split["rest"] = busy_us - sum(split.values())

@@ -14,6 +14,8 @@
                                            # the decode step from Python, not a CUDA graph
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b --smoke \\
       --device cpu                         # plain PyTorch on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi_6b \\
+      --trace build/serve.trace.json       # the tracer on: spans and counters
 
 On the card each decode step replays one captured CUDA graph; ``--eager``
 runs it op by op from Python instead, as the CPU always does.  ``--layers``
@@ -24,6 +26,14 @@ are admitted in one wave, so ``--requests`` may not exceed
 ``--slots``, and every prompt and its new tokens must fit the cache: the
 engine admits a wave only into an empty cache, and a request it cannot
 admit or finish would never complete.
+
+``--trace PATH`` turns the tracer on (``obs/trace.py``) for the run, writes
+its Chrome trace to PATH (Perfetto or ``chrome://tracing``: the engine's,
+the model's and the graph's spans, host and device on one clock, the
+device spans on a track of their own; device times only on the card) and
+prints the metrics registry (``obs.metrics.render_text()``: the engine's
+counters of slots computed, tokens served, prefill positions and prompt
+tokens among them).
 """
 
 from __future__ import annotations
@@ -37,6 +47,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import first_layers, get_config, get_smoke_config
 from repro_torch.models import lm
+from repro_torch.obs import metrics
+from repro_torch.obs.trace import TRACER
 from repro_torch.serving.engine import Request, ServeEngine, greedy_sample, temperature_sample
 
 
@@ -56,6 +68,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--eager", action="store_true",
                     help="decode step op by op, not as a captured CUDA graph (the card)")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="trace the run and write its Chrome trace to PATH")
     args = ap.parse_args(argv)
     if args.requests > args.slots:
         ap.error(f"--requests {args.requests} > --slots {args.slots}: requests "
@@ -84,6 +98,8 @@ def main(argv=None):
                 max_new_tokens=args.max_new)
         for i in range(args.requests)
     ]
+    if args.trace:
+        TRACER.enable()
     t0 = time.time()
     done = eng.run(reqs, max_steps=args.max_new)
     dt = time.time() - t0
@@ -93,6 +109,10 @@ def main(argv=None):
           f"{'eager' if eng.graph is None else 'as a CUDA graph'}")
     for r in done[:4]:
         print(f"  rid={r.rid}: {r.out_tokens[:8]}...")
+    if args.trace:
+        n = TRACER.export_chrome(args.trace)
+        print(f"[serve] trace: {n} events in {args.trace}")
+        print(metrics.render_text())
     return done
 
 

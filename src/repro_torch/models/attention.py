@@ -56,6 +56,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.flash import flash_attention_train, kernel_rows
 from repro_torch.models.layers import rms_norm, rope, unflatten, write_at
 from repro_torch.models.params import ParamMeta
+from repro_torch.obs.trace import TRACER
 
 __all__ = ["AttnResult", "attn_meta", "attention", "init_attn_cache"]
 
@@ -231,6 +232,7 @@ def attention(
     cache_pos: torch.Tensor | None = None,  # decode: tokens already in the cache, 0-d int64
     capacity: int | None = None,  # prefill: size of the filled cache (default S)
     train: bool = False,  # training: no cache, differentiable flash attention
+    layer: int | None = None,  # the layer's index, an attribute of its span
 ) -> AttnResult:
     """Prefill when ``cache`` is None (returns the filled cache), else one
     decode step against ``cache``; with ``train`` the training forward,
@@ -240,15 +242,36 @@ def attention(
     captured decode step reads at every replay.  Nothing is read back to the
     host, so nothing checks it here: ``lm.check_position`` keeps it inside
     a full-attention cache, where the reference's ``dynamic_update_slice``
-    would clamp it."""
+    would clamp it.
+
+    Between its projections the GQA mixer runs under a device span
+    ``mixer.core`` (``obs/trace.py``; attribute ``layer``): a graph marker
+    when a decode step is captured.  MLA's absorbed form takes products
+    with ``wkv_b`` inside its attend, so it has no such span."""
     if cfg.attn.kind == "mla":
         return _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity, train)
     a = cfg.attn
-    B, S, _ = x.shape
     H, Hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
     q = unflatten(x @ p["wq"], 2, (H, hd))
     k = unflatten(x @ p["wk"], 2, (Hkv, hd))
     v = unflatten(x @ p["wv"], 2, (Hkv, hd))
+    sp = TRACER.start("mixer.core", device=True, layer=layer) if TRACER else None
+    try:
+        o, new_cache = _gqa_core(cfg, q, k, v, positions, cache, cache_pos, capacity, train)
+    finally:
+        if sp:
+            TRACER.finish(sp)
+    return AttnResult(o @ p["wo"], new_cache)
+
+
+def _gqa_core(cfg: ModelConfig, q, k, v, positions, cache, cache_pos, capacity, train):
+    """The GQA mixer between its input and output projections (the
+    ``mixer.core`` span): RoPE, the cache write (decode) or the filled cache
+    (prefill), the layout copies and the attend.  q [B, S, H, hd], k and v
+    [B, S, Hkv, hd] -> (o [B, S, H * hd], the cache or None)."""
+    a = cfg.attn
+    B, S = q.shape[:2]
+    H, Hkv, hd = a.num_heads, a.num_kv_heads, a.head_dim
     q = rope(q, positions, a.rope_theta, sections=a.mrope_sections)
     k = rope(k, positions, a.rope_theta, sections=a.mrope_sections)
     scale = 1.0 / math.sqrt(hd)
@@ -258,20 +281,20 @@ def attention(
         o = flash_attention_train(unflatten(q, 2, (Hkv, H // Hkv)), k, v, scale,
                                   a.sliding_window, pl.attn_chunk_q, pl.attn_chunk_kv,
                                   pl.causal_skip)
-        return AttnResult(_merge(o) @ p["wo"], None)
+        return _merge(o), None
     if cache is not None:
         C = cache["k"].shape[1]
         widx = cache_pos % C if a.sliding_window is not None else cache_pos
         write_at(cache["k"], widx, k)
         write_at(cache["v"], widx, v)
-        idx = torch.arange(C, device=x.device)
+        idx = torch.arange(C, device=q.device)
         if a.sliding_window is not None:
             # ring buffer: slot s holds position cache_pos - ((cache_pos - s) % C)
             slot_pos = cache_pos - torch.remainder(cache_pos - idx, C)
             valid = (slot_pos >= 0) & (slot_pos >= cache_pos - a.sliding_window + 1)
         else:
             valid = idx <= cache_pos
-        o = _decode_attend(q, cache["k"], cache["v"], valid, scale).to(x.dtype)
+        o = _decode_attend(q, cache["k"], cache["v"], valid, scale).to(q.dtype)
         new_cache = cache
     else:
         if isinstance(q, DTensor):
@@ -289,8 +312,7 @@ def attention(
             cap = min(cap, a.sliding_window)
         new_cache = {"k": _filled(k, cap, a.sliding_window),
                      "v": _filled(v, cap, a.sliding_window)}
-    out = _merge(o) @ p["wo"]
-    return AttnResult(out, new_cache)
+    return _merge(o), new_cache
 
 
 def _mla_attention(cfg, p, x, positions, cache, cache_pos, capacity, train):

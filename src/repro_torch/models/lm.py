@@ -155,16 +155,19 @@ def abstract_cache(cfg: ModelConfig, batch: int, capacity: int) -> dict:
 
 
 def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
-                capacity=None, train=False, act_shard=None):
-    """One layer: (x, its filled or updated cache, its MoE aux loss or None)."""
+                capacity=None, train=False, act_shard=None, layer=None):
+    """One layer (``layer``: its index, for the mixer's span): (x, its
+    filled or updated cache, its MoE aux loss or None)."""
     aux = None
     h = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if spec.mixer == "attn":
         res = attn_mod.attention(cfg, p["mixer"], h, positions, cache=cache,
-                                 cache_pos=cache_pos, capacity=capacity, train=train)
+                                 cache_pos=cache_pos, capacity=capacity, train=train,
+                                 layer=layer)
         mix, new_cache = res.out, res.cache
     else:
-        mix, new_cache = mamba_mod.mamba(cfg, p["mixer"], h, cache=cache, train=train)
+        mix, new_cache = mamba_mod.mamba(cfg, p["mixer"], h, cache=cache, train=train,
+                                         layer=layer)
     x = x + mix
     if spec.ffn != "none":
         h2 = L.rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -174,6 +177,11 @@ def _apply_slot(cfg, spec, p, x, positions, *, cache=None, cache_pos=None,
             f, aux = moe_mod.moe(cfg, p["ffn"], h2, act_shard=act_shard)
         x = x + f
     return x, new_cache, aux
+
+
+def _layer(cfg: ModelConfig, first: int, i: int, j: int) -> int:
+    """The index of period ``i``'s slot ``j`` after ``first`` prelude layers."""
+    return first + i * len(cfg.layer_pattern) + j
 
 
 def _period(tree: dict, i: int) -> dict:
@@ -234,25 +242,28 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     if act_shard is not None:
         x = act_shard(x)
 
-    def period(x: torch.Tensor, aux: torch.Tensor, pp: dict):
+    first = len(_prelude(cfg))
+
+    def period(x: torch.Tensor, aux: torch.Tensor, pp: dict, i: int):
         if act_shard is not None:
             x = act_shard(x)
         for j, spec in enumerate(cfg.layer_pattern):
             x, _, a = _apply_slot(cfg, spec, pp[f"slot{j}"], x, positions, train=True,
-                                  act_shard=act_shard)
+                                  act_shard=act_shard, layer=_layer(cfg, first, i, j))
             if a is not None:
                 aux = aux + a
         return x, aux
 
-    for name, spec in _prelude(cfg):
+    for n, (name, spec) in enumerate(_prelude(cfg)):
         x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, train=True,
-                              act_shard=act_shard)
+                              act_shard=act_shard, layer=n)
     for i in range(scanned_periods(cfg)):
         pp = _period(params["blocks"], i)
         if cfg.parallel.remat:
-            x, aux = torch.utils.checkpoint.checkpoint(period, x, aux, pp, use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(period, x, aux, pp, i,
+                                                       use_reentrant=False)
         else:
-            x, aux = period(x, aux, pp)
+            x, aux = period(x, aux, pp, i)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     lg = L.logits(cfg, params, x)
     labels = batch["labels"].to(device=lg.device, dtype=torch.int64)
@@ -368,9 +379,10 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
         if act_shard is not None:
             x = act_shard(x)
         cache = {}
-        for name, spec in _prelude(cfg):
+        prelude = _prelude(cfg)
+        for n, (name, spec) in enumerate(prelude):
             x, cache[name], _ = _apply_slot(cfg, spec, params[name], x, positions,
-                                            capacity=capacity, act_shard=act_shard)
+                                            capacity=capacity, act_shard=act_shard, layer=n)
         filled = {}
         for i in range(scanned_periods(cfg)):
             if act_shard is not None:
@@ -378,7 +390,8 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, *, capacity: int | None
             for j, spec in enumerate(cfg.layer_pattern):
                 slot = f"slot{j}"
                 x, nc, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
-                                       positions, capacity=capacity, act_shard=act_shard)
+                                       positions, capacity=capacity, act_shard=act_shard,
+                                       layer=_layer(cfg, len(prelude), i, j))
                 filled.setdefault(slot, []).append(nc)
         if isinstance(x, DTensor):
             cache = _place_filled(cfg, x.device_mesh, cache, filled)
@@ -438,9 +451,10 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dic
             check_position(cfg, cache, cache_pos)
             cache_pos = torch.full((), cache_pos, dtype=torch.int64, device=x.device)
         positions = _default_positions(cfg, B, 1, cache_pos)
-        for name, spec in _prelude(cfg):
+        prelude = _prelude(cfg)
+        for n, (name, spec) in enumerate(prelude):
             x, _, _ = _apply_slot(cfg, spec, params[name], x, positions, cache=cache[name],
-                                  cache_pos=cache_pos, act_shard=act_shard)
+                                  cache_pos=cache_pos, act_shard=act_shard, layer=n)
         for i in range(scanned_periods(cfg)):
             if act_shard is not None:
                 x = act_shard(x)
@@ -448,7 +462,8 @@ def decode_step(cfg: ModelConfig, params: dict, tokens: torch.Tensor, cache: dic
                 slot = f"slot{j}"
                 x, _, _ = _apply_slot(cfg, spec, _period(params["blocks"][slot], i), x,
                                       positions, cache=_period_cache(cache["blocks"][slot], i),
-                                      cache_pos=cache_pos, act_shard=act_shard)
+                                      cache_pos=cache_pos, act_shard=act_shard,
+                                      layer=_layer(cfg, len(prelude), i, j))
         x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
         lg = _replicated(L.logits(cfg, params, x))
         return lg[:, 0], cache

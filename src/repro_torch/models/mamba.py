@@ -51,6 +51,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import assign
 from repro_torch.models.params import ParamMeta
+from repro_torch.obs.trace import TRACER
 
 __all__ = ["mamba_meta", "mamba", "init_mamba_cache", "selective_scan",
            "selective_scan_fused"]
@@ -211,18 +212,38 @@ def mamba(
     *,
     cache: dict | None = None,  # decode: this layer's cache, updated in place
     train: bool = False,
+    layer: int | None = None,  # the layer's index, an attribute of its span
 ) -> tuple[torch.Tensor, dict | None]:
     """Prefill when ``cache`` is None (returns the filled cache), else one
     decode step (S == 1) against ``cache``.  ``train``: the prefill branch
-    through ``selective_scan_fused``, differentiable, and no cache (None)."""
-    m = cfg.mamba
-    B, S, D = x.shape
-    di = m.expand * D
+    through ``selective_scan_fused``, differentiable, and no cache (None).
+    Between ``in_proj`` and ``out_proj`` the mixer runs under a device span
+    ``mixer.core`` (``obs/trace.py``; attribute ``layer``): a graph marker
+    when a decode step is captured."""
+    di = cfg.mamba.expand * x.shape[-1]
     xz = x @ p["in_proj"]  # [B, S, 2*di]
     xin, z = xz[..., :di], xz[..., di:]
     if isinstance(xz, DTensor):
         xin, z = (_channels(t, x, p["conv_b"]) for t in (xin, z))
+    sp = TRACER.start("mixer.core", device=True, layer=layer) if TRACER else None
+    try:
+        y, new_cache = _mixer_core(cfg, p, xin, z, cache, train)
+    finally:
+        if sp:
+            TRACER.finish(sp)
+    return y @ p["out_proj"], new_cache
 
+
+def _mixer_core(cfg: ModelConfig, p: dict, xin: torch.Tensor, z: torch.Tensor,
+                cache: dict | None, train: bool) -> tuple[torch.Tensor, dict | None]:
+    """The mixer between its projections: the conv, the scan's inputs
+    (``_ssm_inputs``; one step's terms, ``_ssm_terms``, in decode), the scan
+    or the state update and readout, the D skip and the gate.  xin and z
+    [B, S, di] (the halves of ``in_proj``'s output) -> (y [B, S, di] in
+    their dtype, the cache or None)."""
+    m = cfg.mamba
+    B, S, di = xin.shape
+    dtype = xin.dtype
     if cache is not None:
         # ---------- O(1) decode step ----------
         window = torch.cat([cache["conv"], xin], dim=1)  # [B, d_conv, di]
@@ -230,7 +251,7 @@ def mamba(
             xc = (window.float() * p["conv_w"].float()).sum(1)
         else:
             xc = torch.einsum("bwd,wd->bd", window.float(), p["conv_w"].float())
-        xc = F.silu(xc + p["conv_b"].float())[:, None].to(x.dtype)
+        xc = F.silu(xc + p["conv_b"].float())[:, None].to(dtype)
         a, b, C_ssm = _ssm_terms(cfg, p, xc)
         h = a[:, 0] * cache["ssm"] + b[:, 0]  # [B, di, N]
         if isinstance(h, DTensor):
@@ -243,17 +264,15 @@ def mamba(
         new_cache = cache
     else:
         # ---------- prefill: causal depthwise conv + selective scan ----------
-        pad = torch.zeros(B, m.d_conv - 1, di, dtype=x.dtype, device=x.device)
+        pad = torch.zeros(B, m.d_conv - 1, di, dtype=dtype, device=xin.device)
         xin_p = torch.cat([pad, xin], dim=1)  # [B, S + d_conv - 1, di]
-        xc = torch.zeros(B, S, di, dtype=torch.float32, device=x.device)
+        xc = torch.zeros(B, S, di, dtype=torch.float32, device=xin.device)
         for w in range(m.d_conv):
             xc = xc + xin_p[:, w:w + S].float() * p["conv_w"][w].float()
-        xc = F.silu(xc + p["conv_b"].float()).to(x.dtype)
+        xc = F.silu(xc + p["conv_b"].float()).to(dtype)
         dt, B_ssm, C_ssm, A = _ssm_inputs(cfg, p, xc)
         y, h_last = selective_scan_fused(dt, xc, B_ssm.contiguous(), C_ssm.contiguous(), A,
                                          None)
         new_cache = None if train else {"conv": xin_p[:, S:], "ssm": h_last}
         y = y + p["d_skip"].float() * xc.float()
-
-    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
-    return y, new_cache
+    return y.to(dtype) * F.silu(z), new_cache

@@ -27,9 +27,11 @@ The reference has no TPU kernel here: its products are XLA's, and so are
 the port's (``torch.bmm``).  Nothing is read back to the host (no
 ``.item()``, no shape that depends on the routing), so a decode step with
 MoE layers is captured whole in a CUDA graph (``serving/decode_graph.py``).
-Each stage runs under a ``torch.profiler.record_function`` span of its
-name in :data:`SPANS` (free when no profiler runs), which
-``launch/profile_serve.py`` reads to split the layer's device time.
+Each stage runs under a tracer span (``obs/trace.py``) of its name in
+:data:`SPANS` (one check while the tracer is off and no profiler runs),
+which a profiler sees as ``record_function("repro." + name)``:
+``launch/profile_serve.py`` reads those ranges to split the layer's device
+time.
 """
 
 from __future__ import annotations
@@ -39,15 +41,15 @@ import math
 import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamMeta
+from repro_torch.obs.trace import TRACER
 
 __all__ = ["SPANS", "moe_meta", "moe", "dense_ffn_flops", "route", "slots", "expert_ffn"]
 
-#: the profiler spans of the layer's stages, in their order
+#: the tracer spans of the layer's stages, in their order
 SPANS = ("moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.shared")
 _EXPERTS = ("w_gate", "w_up", "w_down")
 _SHARED = ("shared_gate", "shared_up", "shared_down")
@@ -134,7 +136,7 @@ def _routed(cfg: ModelConfig, p: dict, xt: torch.Tensor, gate_w: torch.Tensor,
     El = p["w_gate"].shape[0]
 
     # ---- dispatch: group-local scatter into [G, E_l, C, D] ----
-    with record_function(SPANS[1]):
+    with TRACER.span(SPANS[1]):
         slot, keep = slots(gate_i, E, C)
         local = gate_i.reshape(G, Tg * K) - e0
         if El < E:  # this rank's experts only
@@ -152,13 +154,13 @@ def _routed(cfg: ModelConfig, p: dict, xt: torch.Tensor, gate_w: torch.Tensor,
         buf = xt.new_zeros(G * El * C + 1, D).index_copy_(0, dest, xk)[:-1]
 
     # ---- expert FFN (SwiGLU), batched over the experts ----
-    with record_function(SPANS[2]):
+    with TRACER.span(SPANS[2]):
         be = buf.view(G, El, C, D).transpose(0, 1).reshape(El, G * C, D)
         y = expert_ffn(be, p["w_gate"], p["w_up"], p["w_down"])
         y = y.view(El, G, C, D).transpose(0, 1).reshape(G * El * C, D)
 
     # ---- combine: group-local gather and weight ----
-    with record_function(SPANS[3]):
+    with TRACER.span(SPANS[3]):
         yk = y.index_select(0, row.reshape(-1)).view(G, Tg * K, D)
         yk = yk * w_flat[..., None].to(y.dtype)
         return yk.view(G, Tg, K, D).sum(dim=2)
@@ -166,7 +168,7 @@ def _routed(cfg: ModelConfig, p: dict, xt: torch.Tensor, gate_w: torch.Tensor,
 
 def _shared(p: dict, xt: torch.Tensor) -> torch.Tensor:
     """The always-on shared experts (DeepSeek), a dense SwiGLU."""
-    with record_function(SPANS[4]):
+    with TRACER.span(SPANS[4]):
         sg = F.silu(xt @ p["shared_gate"]) * (xt @ p["shared_up"])
         return sg @ p["shared_down"]
 
@@ -222,7 +224,7 @@ def moe(cfg: ModelConfig, p: dict, x: torch.Tensor,
     E = e.num_experts
     xt = x.reshape(G, Tg, D)
 
-    with record_function(SPANS[0]):
+    with TRACER.span(SPANS[0]):
         probs, gate_w, gate_i = route(cfg, p, xt)
         # load-balance aux loss (Switch): E * sum_e f_e * P_e
         f_e = (gate_i[..., 0:1] == torch.arange(E, device=x.device)).float().mean((0, 1))
@@ -297,7 +299,7 @@ def _route_on_rank(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor, G: i
     ``P_e``, [E] float32)."""
     B, S, D = x.shape
     E = cfg.moe.num_experts
-    with record_function(SPANS[0]):
+    with TRACER.span(SPANS[0]):
         probs, gate_w, gate_i = route(cfg, {"router": router}, x.reshape(G, -1, D))
         f_sum = (gate_i[..., 0:1] == torch.arange(E, device=x.device)).float().sum((0, 1))
     return gate_w.reshape(B, S, -1), gate_i.reshape(B, S, -1), f_sum, probs.sum((0, 1))

@@ -17,7 +17,7 @@ Usage::
 
     from repro_torch.obs import metrics
     metrics.counter("schedule_cache.hits").inc()
-    metrics.histogram("engine.step_latency_s",
+    metrics.histogram("engine.replan_latency_s",
                       edges=(1e-4, 1e-3, 1e-2, 1e-1, 1.0)).observe(dt)
     print(metrics.render_text())          # human snapshot
     json.dump(metrics.snapshot(), fh)     # machine snapshot

@@ -26,6 +26,18 @@ Kernel launch counts (``kernels/ops.py``) are Python integers that a
 wrapper adds to when it is called: at capture, where nothing is launched.
 Capture takes those counts back and keeps them as ``launches``, which every
 replay adds to the dispatchers' counts again.
+
+A replay has no host code inside it, so the tracer's device spans
+(``obs/trace.py``) are captured as graph markers: ``decode.step`` around the
+step and ``mixer.core`` in each layer, each a pair of timed external
+events (``markers``, in capture order) that a replay records.  An event
+node costs the step a few microseconds (on the H100 at 64 slots, 66 of
+them added 0.9% to Yi-6B's step and 1.9% to a Falcon-Mamba-width one's),
+so the step is captured twice into one memory pool: ``graph`` without the markers and ``marked`` with them.
+``replay`` replays ``marked`` only while the tracer is live (on, or a
+profiler recording), turns its markers into records of that replay, which
+``TRACER.resolve`` times after the caller's readback, and ``graph``
+otherwise.  Both read the same inputs and write the same cache.
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import lm
 from repro_torch.models.params import map_tree, torch_dtype
+from repro_torch.obs.trace import TRACER
 
 __all__ = ["DecodeGraph"]
 
@@ -69,6 +82,8 @@ class DecodeGraph:
             self.inputs = torch.zeros(batch, 1, *codebooks, dtype=torch.int64, device=device)
         self.pos = torch.zeros((), dtype=torch.int64, device=device)
         self.graph = torch.cuda.CUDAGraph()
+        self.marked = torch.cuda.CUDAGraph()  # the same step with the tracer's markers
+        self.markers = []  # the tracer's markers, in capture order
         self.launches = self._capture()
 
     def _warm_up(self, cache: dict) -> None:
@@ -81,6 +96,8 @@ class DecodeGraph:
         torch.cuda.current_stream().wait_stream(side)
 
     def _capture(self) -> dict[str, int]:
+        """Both graphs, ``marked`` into ``graph``'s memory pool; the launch
+        counts of one."""
         self._warm_up(map_tree(lambda _, t: t.clone(), self.cache))
         before = ops.launch_counts()
         torch.cuda.synchronize(self.pos.device)
@@ -89,19 +106,32 @@ class DecodeGraph:
             # first: the next prefill would then allocate its activations
             # anew with ``cudaMalloc``
             with torch.cuda.stream(torch.cuda.Stream(device=self.pos.device)):
-                self.graph.capture_begin()
-                try:
-                    self._logits, _ = lm.decode_step(self.cfg, self.params, self.inputs,
-                                                     self.cache, self.pos)
-                finally:
-                    self.graph.capture_end()
+                self._logits = self._capture_one(self.graph)
+                captured = {k: n - before[k] for k, n in ops.launch_counts().items()}
+                self._marked_logits = self._capture_one(self.marked, marked=True)
         except RuntimeError as e:
             raise RuntimeError(f"{self.cfg.name}: the decode step could not be captured "
                                "in a CUDA graph") from e
         finally:
-            captured = {k: n - before[k] for k, n in ops.launch_counts().items()}
-            ops.add_launches({k: -n for k, n in captured.items()})
+            ops.add_launches({k: before[k] - n for k, n in ops.launch_counts().items()})
         return captured
+
+    def _capture_one(self, graph, marked: bool = False) -> torch.Tensor:
+        """``lm.decode_step`` captured into ``graph`` (``marked``: with the
+        tracer's markers, into the plain graph's memory pool); its logits."""
+        graph.capture_begin(pool=self.graph.pool() if marked else None)
+        try:
+            if not marked:
+                return self._decode()
+            with TRACER.capturing() as self.markers:
+                with TRACER.span("decode.step", device=True):
+                    return self._decode()
+        finally:
+            graph.capture_end()
+
+    def _decode(self) -> torch.Tensor:
+        logits, _ = lm.decode_step(self.cfg, self.params, self.inputs, self.cache, self.pos)
+        return logits
 
     def load(self, cache: dict) -> None:
         """Copy ``cache`` (a prefill's) into the captured cache; its tensors
@@ -121,6 +151,13 @@ class DecodeGraph:
         lm.check_position(self.cfg, self.cache, pos)
         self.inputs.copy_(inputs)
         self.pos.fill_(pos)
-        self.graph.replay()
+        if TRACER:  # live: the marked graph, its last replay's markers resolved first
+            TRACER.resolve(wait=True)
+            self.marked.replay()
+            TRACER.replayed(self.markers)
+            logits = self._marked_logits
+        else:
+            self.graph.replay()
+            logits = self._logits
         ops.add_launches(self.launches)
-        return self._logits.clone()
+        return logits.clone()

@@ -15,6 +15,22 @@ admission's prefill is copied into, and each ``step`` replays it.  Sampling
 stays outside the graph.  ``cuda_graph=False`` runs the step eagerly, as the
 CPU always does.
 
+While the tracer is live (``obs/trace.py``: on, or a profiler recording)
+each call records its spans, those of one wave sharing its admitted
+request ids ``rids``: ``engine.admit`` (``rids``, ``padded`` length,
+``prompt_tokens``) over ``engine.prefill`` (device), ``engine.cache_load``
+(device; the graph's ``load``) and ``engine.sample``; ``engine.step``
+(``step``, ``pos``, ``active`` slots, the ``finished`` rids) over
+``engine.replay`` (device; the eager step where there is no graph),
+``engine.sample`` (the sampler and the readback, where the host waits) and
+``engine.tokens``.  After each readback the engine resolves the device
+spans' times (``TRACER.resolve``), through a fresh anchor once a wave, at
+its admission.  Always on, one increment per admission
+or step, are the counters ``engine.slot_steps`` (slots computed: every slot
+at each prefill and step), ``engine.tokens_served``,
+``engine.prefill_positions`` (slots times the prefill's length) and
+``engine.prompt_tokens``.
+
 With ``plan_mesh=(num_nodes, procs_per_node, k_lanes)`` the engine pins its
 per-decode-step collective plans (``serving/planner.py``, through
 ``api.plan_batch``) once, when it is built, and replans them only on a
@@ -43,10 +59,6 @@ from repro_torch.obs.trace import TRACER
 from repro_torch.serving.decode_graph import DecodeGraph
 
 __all__ = ["Request", "ServeEngine", "greedy_sample", "temperature_sample"]
-
-#: decode-step latency buckets (seconds): 100us .. 10s geometric
-_STEP_EDGES = (1e-4, 3e-4, 1e-3, 3e-3, 1e-2, 3e-2, 1e-1, 3e-1, 1.0, 10.0)
-
 
 @dataclasses.dataclass
 class Request:
@@ -110,6 +122,8 @@ class ServeEngine:
         self.slots: list[Request | None] = [None] * num_slots
         self.cache = None
         self.pos = 0  # synchronized cache position
+        self.steps = 0  # decode steps taken since the last admission
+        self._rids: list = []  # the current wave's request ids, for its spans
         # optional fault/straggler hook: any object with observe(seconds)
         # and observe_fault(event) -> "ok"|"warn"|"evict" (duck-typed, as
         # training.elastic.StragglerMonitor).  run() times every decode step
@@ -153,48 +167,76 @@ class ServeEngine:
         if not admitted:
             return []
         max_len = max(len(r.prompt) for r in admitted)
+        prompt_tokens = sum(len(r.prompt) for r in admitted)
         start = self.pos
         toks = np.zeros(self._tok_shape(start + max_len), np.int64)
         for slot, req in zip(free, admitted):
             p = np.asarray(req.prompt)
             toks[slot, start + max_len - len(p):start + max_len] = p
             self.slots[slot] = req
-        lgts, cache = lm.prefill(
-            self.cfg, self.params,
-            {"tokens": torch.from_numpy(toks).to(self.device)},
-            capacity=self.capacity,
-        )
-        if self.graph is None:
-            self.cache = cache
-        else:  # into the buffers the captured step reads
-            self.graph.load(cache)
-            self.cache = self.graph.cache
-        self.pos = start + max_len
-        # first sampled token from prefill logits
-        nxt = self._sample(lgts)
-        for slot, req in zip(free, admitted):
-            req.out_tokens.append(nxt[slot].tolist())
-        self._pending = self._tokens(nxt)
+        self._rids = [r.rid for r in admitted]
+        with TRACER.span("engine.admit", rids=self._rids, padded=max_len,
+                         prompt_tokens=prompt_tokens):
+            with TRACER.span("engine.prefill", device=True, rids=self._rids):
+                lgts, cache = lm.prefill(
+                    self.cfg, self.params,
+                    {"tokens": torch.from_numpy(toks).to(self.device)},
+                    capacity=self.capacity,
+                )
+            if self.graph is None:
+                self.cache = cache
+            else:  # into the buffers the captured step reads
+                with TRACER.span("engine.cache_load", device=True, rids=self._rids):
+                    self.graph.load(cache)
+                self.cache = self.graph.cache
+            self.pos = start + max_len
+            self.steps = 0
+            # first sampled token from prefill logits
+            with TRACER.span("engine.sample", rids=self._rids):
+                nxt = self._sample(lgts)
+            if TRACER:  # after the readback: the device spans' times, a wave's anchor
+                TRACER.resolve(anchor=True)
+            for slot, req in zip(free, admitted):
+                req.out_tokens.append(nxt[slot].tolist())
+            self._pending = self._tokens(nxt)
+        obs_metrics.counter("engine.slot_steps").inc(self.num_slots)
+        obs_metrics.counter("engine.tokens_served").inc(len(admitted))
+        obs_metrics.counter("engine.prefill_positions").inc(self.num_slots * (start + max_len))
+        obs_metrics.counter("engine.prompt_tokens").inc(prompt_tokens)
         return admitted
 
     def step(self) -> None:
         """One lock-step decode for all active slots."""
         if self.cache is None or self.pos >= self.capacity:
             return
-        if self.graph is None:
-            lgts, self.cache = lm.decode_step(self.cfg, self.params, self._pending,
-                                              self.cache, self.pos)
-        else:
-            lgts = self.graph.replay(self._pending, self.pos)
-        self.pos += 1
-        nxt = self._sample(lgts)
-        self._pending = self._tokens(nxt)
-        for slot, req in enumerate(self.slots):
-            if req is None or req.done:
-                continue
-            req.out_tokens.append(nxt[slot].tolist())
-            if len(req.out_tokens) >= req.max_new_tokens:
-                req.done = True
+        active = [(slot, req) for slot, req in enumerate(self.slots)
+                  if req is not None and not req.done]
+        with TRACER.span("engine.step", rids=self._rids, step=self.steps, pos=self.pos,
+                         active=len(active)) as sp:
+            with TRACER.span("engine.replay", device=True, rids=self._rids):
+                if self.graph is None:
+                    lgts, self.cache = lm.decode_step(self.cfg, self.params, self._pending,
+                                                      self.cache, self.pos)
+                else:
+                    lgts = self.graph.replay(self._pending, self.pos)
+            self.pos += 1
+            self.steps += 1
+            with TRACER.span("engine.sample", rids=self._rids):
+                nxt = self._sample(lgts)
+            if TRACER:  # after the readback: the device spans' times
+                TRACER.resolve()
+            with TRACER.span("engine.tokens", rids=self._rids):
+                self._pending = self._tokens(nxt)
+                finished = []
+                for slot, req in active:
+                    req.out_tokens.append(nxt[slot].tolist())
+                    if len(req.out_tokens) >= req.max_new_tokens:
+                        req.done = True
+                        finished.append(req.rid)
+            if sp:
+                sp.attrs["finished"] = finished
+        obs_metrics.counter("engine.slot_steps").inc(self.num_slots)
+        obs_metrics.counter("engine.tokens_served").inc(len(active))
 
     def _tokens(self, nxt: np.ndarray) -> torch.Tensor:
         """The sampled tokens as the next step's input, [B, 1] or [B, 1, K]."""
@@ -307,20 +349,9 @@ class ServeEngine:
             if pending and any(s is None for s in self.slots) and self.cache is None:
                 n = self.admit(pending)
                 pending = pending[len(n):]
-            sp = TRACER.start("decode_step", step=steps) if TRACER else None
             t0 = time.perf_counter()
-            try:
-                self.step()
-            except BaseException:
-                if sp:
-                    TRACER.finish(sp, outcome="error")
-                raise
+            self.step()
             dt = time.perf_counter() - t0
-            if sp:
-                TRACER.finish(sp, pos=self.pos)
-            obs_metrics.histogram(
-                "engine.step_latency_s", edges=_STEP_EDGES
-            ).observe(dt)
             if self.monitor is not None:
                 action = self.monitor.observe(dt)
                 self.monitor_actions.append(action)

@@ -27,6 +27,12 @@
 * one AdamW update (``training/optimizer.py``), whose ``grad_norm`` and
   ``lr`` join the metrics.
 
+While the tracer is live (``obs/trace.py``: on, or a profiler recording)
+a step records ``train.step`` over ``train.microbatch`` (device; ``i``),
+whose gradients' accumulation is ``train.accumulate`` (device), and
+``train.optimizer`` (device: the global norm, the clip and the update); the
+step resolves their device times at its end, through an anchor of its own.
+
 ``make_train_step_sharded(cfg, mesh, opt_cfg)`` is the counterpart of the
 reference's production default, ``make_train_step_pjit``: DTensor
 (``torch.distributed.tensor``) stands where GSPMD does.  Parameters are
@@ -59,6 +65,7 @@ from repro_torch.core.groups import MeshAxes
 from repro_torch.models import lm
 from repro_torch.models.params import (map_tree, partition_specs, placements, shard_tensor,
                                        torch_dtype)
+from repro_torch.obs.trace import TRACER
 from repro_torch.training.optimizer import OptConfig, adamw_update, leaves
 
 __all__ = ["batch_to", "grad_and_metrics", "make_train_step", "sync", "dp_axes",
@@ -168,24 +175,26 @@ def grad_and_metrics(cfg, params: dict, batch: dict, act_shard=None) -> tuple[di
            else torch.zeros(p.shape, dtype=gdt, device=p.device) for p in leaves(params)]
     macc = None
     for i in range(n):
-        b = microbatch(batch, i, n, act_shard)
-        tree = _pieces(params)
-        pieces = leaves(tree)  # per parameter: a tensor, or its periods' slices
-        flat = [t for x in pieces for t in (x if isinstance(x, list) else [x])]
-        with torch.enable_grad():
-            loss, metrics = lm.loss_fn(cfg, tree, b, act_shard=act_shard)
-            metrics = {k: _plain(v) for k, v in metrics.items()}
-            grads = list(torch.autograd.grad(_plain(loss), flat))
-        del tree, flat
-        targets = [t for a, x in zip(acc, pieces)
-                   for t in (list(a) if isinstance(x, list) else [a])]
-        for j, a in enumerate(targets):
-            a.add_(grads[j], alpha=1.0 / n)
-            grads[j] = None  # the model-dtype gradient is freed piece by piece
-        if macc is None:
-            macc = {k: torch.zeros((), dtype=torch.float32, device=v.device)
-                    for k, v in metrics.items()}
-        macc = {k: macc[k] + metrics[k].detach() / n for k in macc}
+        with TRACER.span("train.microbatch", device=True, i=i):
+            b = microbatch(batch, i, n, act_shard)
+            tree = _pieces(params)
+            pieces = leaves(tree)  # per parameter: a tensor, or its periods' slices
+            flat = [t for x in pieces for t in (x if isinstance(x, list) else [x])]
+            with torch.enable_grad():
+                loss, metrics = lm.loss_fn(cfg, tree, b, act_shard=act_shard)
+                metrics = {k: _plain(v) for k, v in metrics.items()}
+                grads = list(torch.autograd.grad(_plain(loss), flat))
+            del tree, flat
+            targets = [t for a, x in zip(acc, pieces)
+                       for t in (list(a) if isinstance(x, list) else [a])]
+            with TRACER.span("train.accumulate", device=True):
+                for j, a in enumerate(targets):
+                    a.add_(grads[j], alpha=1.0 / n)
+                    grads[j] = None  # the model-dtype gradient is freed piece by piece
+            if macc is None:
+                macc = {k: torch.zeros((), dtype=torch.float32, device=v.device)
+                        for k, v in metrics.items()}
+            macc = {k: macc[k] + metrics[k].detach() / n for k in macc}
     it = iter(acc)
     return map_tree(lambda _, p: next(it), params), macc
 
@@ -238,22 +247,28 @@ def make_train_step(cfg, opt_cfg: OptConfig, *, axes=None, backend: str = "xla",
         return DTensor.from_local(p.to_local(), tp, (p.placements[m],), run_check=False)
 
     def step(params: dict, opt_state: dict, batch: dict):
-        batch = batch_to(batch, leaves(params)[0].device)
-        if mesh is None:
-            grads, metrics = grad_and_metrics(cfg, params, batch)
-        else:  # this rank's rows, on DTensors over ``model``
-            batch = {k: v.chunk(view.world.size)[view.world.index] for k, v in batch.items()}
-            local = map_tree(on_model, params)
-            with implicit_replication():
-                grads, metrics = grad_and_metrics(cfg, local, batch)
-            grads = map_tree(lambda _, g, p: g.redistribute(tp, p.placements).to_local(),
-                             grads, local)
-        if axes is not None:
-            grads, metrics = sync(grads, metrics, axes, backend)
-        if mesh is not None:
-            grads = map_tree(lambda _, g, p: DTensor.from_local(g, mesh, p.placements,
-                                                               run_check=False), grads, params)
-        params, opt_state, info = adamw_update(grads, opt_state, params, opt_cfg)
+        with TRACER.span("train.step"):
+            batch = batch_to(batch, leaves(params)[0].device)
+            if mesh is None:
+                grads, metrics = grad_and_metrics(cfg, params, batch)
+            else:  # this rank's rows, on DTensors over ``model``
+                batch = {k: v.chunk(view.world.size)[view.world.index]
+                         for k, v in batch.items()}
+                local = map_tree(on_model, params)
+                with implicit_replication():
+                    grads, metrics = grad_and_metrics(cfg, local, batch)
+                grads = map_tree(lambda _, g, p: g.redistribute(tp, p.placements).to_local(),
+                                 grads, local)
+            if axes is not None:
+                grads, metrics = sync(grads, metrics, axes, backend)
+            if mesh is not None:
+                grads = map_tree(lambda _, g, p: DTensor.from_local(g, mesh, p.placements,
+                                                                   run_check=False),
+                                 grads, params)
+            with TRACER.span("train.optimizer", device=True):
+                params, opt_state, info = adamw_update(grads, opt_state, params, opt_cfg)
+            if TRACER:
+                TRACER.resolve(anchor=True)
         return params, opt_state, {**metrics, **info}
 
     return step
@@ -310,7 +325,8 @@ def sharded_update(cfg, params: dict, opt_state: dict, batch: dict, act_shard,
         grads, metrics = grad_and_metrics(cfg, params, batch, act_shard=act_shard)
         if grads_done is not None:
             grads_done()
-        params, opt_state, info = adamw_update(grads, opt_state, params, opt_cfg)
+        with TRACER.span("train.optimizer", device=True):
+            params, opt_state, info = adamw_update(grads, opt_state, params, opt_cfg)
     return params, opt_state, {**metrics, **info}
 
 
@@ -332,9 +348,14 @@ def make_train_step_sharded(cfg, mesh, opt_cfg: OptConfig):
     act = make_act_shard(cfg, mesh)
 
     def step(params: dict, opt_state: dict, batch: dict):
-        local = leaves(params)[0].to_local()
-        batch = place_batch(batch, mesh, local.device)
-        params, opt_state, metrics = sharded_update(cfg, params, opt_state, batch, act, opt_cfg)
-        return params, opt_state, {k: float(v) for k, v in metrics.items()}
+        with TRACER.span("train.step"):
+            local = leaves(params)[0].to_local()
+            batch = place_batch(batch, mesh, local.device)
+            params, opt_state, metrics = sharded_update(cfg, params, opt_state, batch, act,
+                                                        opt_cfg)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            if TRACER:
+                TRACER.resolve(anchor=True)
+        return params, opt_state, metrics
 
     return step, (pspec, ospec)
